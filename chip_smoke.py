@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch/CUDA port's serving step on one NVIDIA GPU.
+"""Runs the PyTorch/CUDA port's serving step and training step on one
+NVIDIA GPU.
 
 Phases, each fatal on failure:
 
@@ -21,7 +22,25 @@ Phases, each fatal on failure:
    card (relative L2 limit, read also with a planted fault), with the
    drift from the f32 plain path on the CPU printed beside it; host-clock
    step time; one step under ``torch.profiler`` (device time by kernel,
-   busy share).
+   busy share);
+5. backward kernels: K3 (an RRDB's backward) and K6 (the tail's) on card
+   tensors at the train step's shapes (8 frames at 64x64; the 20-RRDB
+   trunk; a ragged shape), held against their plain versions with TF32
+   off by the relative L2 of dx and of each weight / bias grad group, each
+   check also read on three faults planted in the kernels' code (compiled
+   with ``-DBWD_PLANT``: lrelu slope 0.25 in the masks, the centre tap left
+   out of the weight grads, the bias grads dropped); device times (the
+   kernels' sum under ``torch.profiler``: a backward is a chain of short
+   launches, and CUDA events around it also count the host's gaps, which
+   are printed beside);
+6. training: the CHN train step (frozen CPN, CHN forward with autograd,
+   the five-part loss with VGG-16, backward, Adam, repack) at B=8,
+   frames_n=2, 256x256, nb=20, bf16 compute on seeded inputs; the launch
+   counts of one step; finite loss and grads, moved parameters; on a
+   1x2x64x64 batch the grads through the kernels against the grads through
+   their plain versions on the card (read also with a planted fault);
+   host-clock step time, samples/s, peak memory; one step under
+   ``torch.profiler``.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card or
@@ -30,6 +49,7 @@ outside the repository. Usage: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -47,6 +67,16 @@ TOL = 1e-2  # max|kernel - plain| / max|plain| for one call in bf16
 # one of a planted fault (PERF.md, Findings): one RRDB's body (output less
 # 1.2 x), the trunk's body (less 1.2**NB x), the tail, and the whole step.
 L2_RRDB, L2_TRUNK, L2_TAIL, L2_STEP = 2e-2, 1e-1, 5e-3, 2e-2
+# Relative L2 limits of the backward kernels' dx and each grad group
+# against the plain versions (both round every cotangent to bf16 before a
+# product; sums in another order flip some roundings, and the flips spread
+# through the dense convs): one RRDB, the 20-RRDB trunk, the tail, and the
+# train step's grads by group (weights, biases of head, trunk, tail) from a
+# shared forward.
+L2_K3, L2_K3_TRUNK, L2_K6, L2_TRAIN = 5e-2, 2e-2, 1e-2, 5e-2
+TRAIN_B, TRAIN_F = 8, 2
+FAULTS = {1: "lrelu slope 0.25 in the masks", 2: "centre tap left out of dW",
+          3: "bias grads dropped"}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
@@ -64,6 +94,23 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=3):
+    """Device time of ``fn`` (the sum of its kernels' times under
+    ``torch.profiler``) per call: free of the host gaps between launches
+    that CUDA events over a chain of short launches also count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA"))
+    return total / 1e3 / iters
 
 
 def bound_ms(flops, nbytes):
@@ -114,11 +161,15 @@ def phase_build():
     from master_thesis_tpu_torch import _build
 
     t0 = time.perf_counter()
-    report = _build.build()
-    print(f"build: {len(report)} kernel sources in {time.perf_counter() - t0:.1f} s "
+    report = _build.build(_build.SOURCES, [
+        (name, (f"-DBWD_PLANT={f}",)) for name in ("rrdb_bwd", "tail_bwd") for f in FAULTS
+    ])
+    print(f"build: {len(report)} libraries in {time.perf_counter() - t0:.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})")
     for name, (secs, log) in sorted(report.items()):
-        print(f"build {name}.cu: {secs:.1f} s")
+        print(f"build {name}: {secs:.1f} s")
+        if "BWD_PLANT" in name:
+            continue
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
                 print(f"  ptxas {name}: {line.strip()}")
@@ -320,14 +371,13 @@ def phase_main_path(cpn, chn, results, device_line):
     phase_profile(step, inputs, dt)
 
 
-def phase_profile(step, inputs, step_s):
+def phase_profile(step, inputs, step_s, grad=False):
     """One step under ``torch.profiler``: device time by kernel, and the
     device's busy share of the unprofiled step time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
+    mode = contextlib.nullcontext() if grad else torch.inference_mode()
+    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(*inputs)
         torch.cuda.synchronize()
     rows = sorted(
@@ -340,6 +390,300 @@ def phase_profile(step, inputs, step_s):
           f"of the unprofiled {1e3 * step_s:.3f} ms/step")
     for ms, count, key in rows[:12]:
         print(f"profile: {ms:10.3f} ms {count:5d}x {key[:100]}")
+    if grad:  # where the host's time goes
+        host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()),
+                      reverse=True)
+        for ms, count, key in host[:10]:
+            print(f"profile host: {ms:10.3f} ms {count:6d}x {key[:90]}")
+
+
+@contextlib.contextmanager
+def planted_bwd(fault):
+    """Within: the backward wrappers (K3, K6) launch their kernels from the
+    library built with ``-DBWD_PLANT=fault`` (csrc/conv_bwd.cuh)."""
+    from master_thesis_tpu_torch.ops import rrdb_bwd, tail_bwd
+
+    orig = rrdb_bwd._lib, tail_bwd._lib
+    defines = (f"-DBWD_PLANT={fault}",)
+    rrdb_bwd._lib = lambda _=(): orig[0](defines)
+    tail_bwd._lib = lambda _=(): orig[1](defines)
+    try:
+        yield
+    finally:
+        rrdb_bwd._lib, tail_bwd._lib = orig
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """Within: the trunk's and the tail's autograd Functions run the
+    backward kernels' plain versions (their forward stays the kernels')."""
+    from master_thesis_tpu_torch.ops import rrdb_bwd, tail_bwd
+
+    orig = rrdb_bwd.rrdb_bwd, tail_bwd.tail_bwd
+    rrdb_bwd.rrdb_bwd = lambda x, g, rdbs, convs: rrdb_bwd.rrdb_bwd_plain(x, g, rdbs)
+    tail_bwd.tail_bwd = lambda x, g, p, convs: tail_bwd.tail_bwd_plain(x, g, p)
+    try:
+        yield
+    finally:
+        rrdb_bwd.rrdb_bwd, tail_bwd.tail_bwd = orig
+
+
+def rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+
+
+def check_groups(name, got, want, limit, planted=None):
+    """Holds every group of a backward's outputs (dx, weight and bias grads)
+    against the plain version's: each relative L2 <= ``limit``. With
+    ``planted`` (a fault's label) the outputs come from a planted fault and
+    some group must exceed it. Returns the worst group's reading."""
+    for k, v in got.items():
+        if not torch.isfinite(v).all():
+            raise RuntimeError(f"{name}: {k} is not finite")
+    rels = {k: rel_l2(got[k], want[k]) for k in want}
+    worst = max(rels, key=rels.get)
+    ok = rels[worst] <= limit
+    verdict = ("MISSED" if ok else "caught") if planted else ("ok" if ok else "FAIL")
+    label = f"planted {name}, {planted}" if planted else f"check {name}"
+    print(f"{label}: worst rel_l2 {rels[worst]:.6g} ({worst}) over {len(rels)} groups, "
+          f"dx {rels.get('dx', float('nan')):.6g}, limit {limit:g} {verdict}")
+    if ok == bool(planted):
+        raise RuntimeError(f"{name}: " + ("the check does not see a planted fault" if planted
+                                          else "kernel disagrees with its plain version"))
+    return rels[worst]
+
+
+def rrdb_groups(dx, grads, prefix=""):
+    """An RRDB backward's outputs as named groups: dx and each conv's dW and db."""
+    out = {} if dx is None else {"dx": dx}
+    for j, (dws, dbs) in enumerate(grads):
+        for k in range(5):
+            out[f"{prefix}rdb{j + 1}.conv{k + 1}.w"] = dws[k]
+            out[f"{prefix}rdb{j + 1}.conv{k + 1}.b"] = dbs[k]
+    return out
+
+
+def phase_kernels_bwd(chn, results):
+    """K3 (one RRDB's backward, 51 launches) and K6 (the tail's backward, 17
+    launches) against their plain versions at the train step's shapes, the
+    20-RRDB trunk and a ragged shape; each check read on the planted
+    faults."""
+    from master_thesis_tpu_torch.ops import rrdb, rrdb_bwd, tail, tail_bwd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(bf)
+    net = chn.nn
+    trunk_w, tail_w = net.packed()
+    adjs = [rrdb.pack_rdb_adjoints(rrdb.rrdb_convs(blk), bf) for blk in net.rrdb_trunk]
+    nf, n, h, w = net.nf, TRAIN_B * (TRAIN_F - 1), H // 4, W // 4
+
+    def k3(x, g, i=0):
+        dx, grads = rrdb_bwd.rrdb_bwd_cuda(x, g, trunk_w[i], adjs[i])
+        return rrdb_groups(dx, grads)
+
+    def p3(x, g, i=0):
+        dx, grads = rrdb_bwd.rrdb_bwd_plain(x, g, trunk_w[i])
+        return rrdb_groups(dx, grads)
+
+    x, g = rnd(n, nf, h, w), rnd(n, nf, h, w)
+    want = p3(x, g)
+    got = k3(x, g)
+    check_groups(f"K3 rrdb backward ({n}, {nf}, {h}, {w})", got, want, L2_K3)
+    err = (got["dx"].float() - want["dx"].float()).abs().max().item()
+    for fault, label in FAULTS.items():
+        with planted_bwd(fault):
+            check_groups("K3 rrdb backward", k3(x, g), want, L2_K3, planted=label)
+    xr, gr = rnd(2, nf, 60, 120), rnd(2, nf, 60, 120)
+    check_groups("K3 rrdb backward ragged (2, 64, 60, 120)", k3(xr, gr), p3(xr, gr), L2_K3)
+
+    # The trunk: the same RRDB inputs (from K1) into both backward chains.
+    inters = [x]
+    for rdbs in trunk_w[:-1]:
+        inters.append(rrdb.rrdb_trunk(inters[-1], [rdbs]))
+
+    def chain(bwd):
+        gg, out = g, {}
+        for i in reversed(range(len(trunk_w))):
+            groups = bwd(inters[i], gg, i)
+            gg = groups.pop("dx")
+            out[f"rrdb{i}.dW"] = torch.cat([v.reshape(-1) for k, v in groups.items() if k.endswith(".w")])
+            out[f"rrdb{i}.db"] = torch.cat([v.reshape(-1) for k, v in groups.items() if k.endswith(".b")])
+        out["dx"] = gg
+        return out
+
+    want_t = chain(p3)
+    check_groups(f"K3 {NB}-RRDB trunk backward", chain(k3), want_t, L2_K3_TRUNK)
+    for fault, label in FAULTS.items():
+        with planted_bwd(fault):
+            check_groups(f"K3 {NB}-RRDB trunk backward", chain(k3), want_t, L2_K3_TRUNK, planted=label)
+
+    weights = [t for p in trunk_w[0] for t in (p.w, p.b)] + [a for r in adjs[0] for a in r]
+    grads_bytes = 4 * sum(p.numel() for p in net.rrdb_trunk[0].parameters())
+    b_ms, b_by = bound_ms(rrdb_bwd.rrdb_bwd_flops(n, h, w), nbytes(x, g, x, *weights) + grads_bytes)
+    results["K3"] = dict(
+        name="rrdb backward (rdb_kernel<hidden> x3, prep / wgrad / conv3x3 x5 + reduce per RDB)",
+        route="cuda", source="master_thesis_tpu_torch/csrc/rrdb_bwd.cu",
+        replaces="master_thesis_tpu/ops/pallas_rrdb.py:625",
+        max_abs_err=err, ms=device_ms(lambda: k3(x, g)),
+        stream_ms=cuda_ms(lambda: k3(x, g), iters=10),
+        plain_ms=device_ms(lambda: p3(x, g)), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+    )
+
+    tconvs = [(m.weight, m.bias) for m in (net.upconv1, net.upconv2, net.hr_conv, net.conv_last)]
+    tadj = tail_bwd.pack_tail_adjoint(tconvs, bf)
+
+    def k6(x, g):
+        dx, grads = tail_bwd.tail_bwd_cuda(x, g, tail_w, tadj)
+        return {"dx": dx, **grads}
+
+    def p6(x, g):
+        dx, grads = tail_bwd.tail_bwd_plain(x, g, tail_w)
+        return {"dx": dx, **grads}
+
+    xt, gt = rnd(n, nf, h, w), rnd(n, 3, 4 * h, 4 * w)
+    want = p6(xt, gt)
+    got = k6(xt, gt)
+    check_groups(f"K6 tail backward ({n}, {nf}, {h}, {w}) <- ({n}, 3, {4 * h}, {4 * w})", got, want,
+                 L2_K6)
+    err = (got["dx"].float() - want["dx"].float()).abs().max().item()
+    for fault, label in FAULTS.items():
+        with planted_bwd(fault):
+            check_groups("K6 tail backward", k6(xt, gt), want, L2_K6, planted=label)
+    xr, gr = rnd(2, nf, 60, 120), rnd(2, 3, 240, 480)
+    check_groups("K6 tail backward ragged (2, 64, 60, 120)", k6(xr, gr), p6(xr, gr), L2_K6)
+    tail_params = sum(m.weight.numel() + m.bias.numel() for m in (net.upconv1, net.upconv2, net.hr_conv, net.conv_last))
+    b_ms, b_by = bound_ms(tail_bwd.tail_bwd_flops(n, h, w), nbytes(xt, gt, xt) + 4 * tail_params)
+    results["K6"] = dict(
+        name="tail backward (upconv x2, conv3x3, prep / wgrad / conv3x3 x4, reduce)",
+        route="cuda", source="master_thesis_tpu_torch/csrc/tail_bwd.cu",
+        replaces="master_thesis_tpu/ops/pallas_tail.py:732",
+        max_abs_err=err, ms=device_ms(lambda: k6(xt, gt)),
+        stream_ms=cuda_ms(lambda: k6(xt, gt), iters=10),
+        plain_ms=device_ms(lambda: p6(xt, gt)), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+    )
+    for key in ("K3", "K6"):
+        r = results[key]
+        print(f"kernel {key} {r['name']}: kernel_ms={r['ms']:.4f} (CUDA events over the "
+              f"launch chain {r['stream_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) library_ms=null")
+
+
+def make_train_batch(b, f, h, w, seed):
+    """Frames uniform in [0, 1) as the ground truth y, masks at 10% holes,
+    x = y with the holes zeroed."""
+    rng = np.random.RandomState(seed)
+    y = rng.rand(b, f, h, w, 3).astype(np.float32)
+    m = (rng.rand(b, f, h, w, 1) > 0.9).astype(np.float32)
+    to = lambda a: torch.from_numpy(a).cuda()
+    return to((1 - m) * y), to(m), to(y)
+
+
+def grad_groups(chn):
+    """The CHN grads in six groups: the weights and the biases of the head
+    (conv_first, trunk_conv), the trunk and the tail."""
+    groups = {}
+    for name, p in chn.named_parameters():
+        part = "trunk" if ".rrdb_trunk." in name else (
+            "head" if ".conv_first." in name or ".trunk_conv." in name else "tail")
+        groups.setdefault(f"{part}.{name.rsplit('.', 1)[1]}", []).append(p.grad.float().reshape(-1))
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def phase_train(cpn, chn, results, device_line):
+    """The train step at B=8, frames_n=2, 256x256, nb=20, bf16."""
+    from master_thesis_tpu_torch.models.chn import chn_infer_apply
+    from master_thesis_tpu_torch.models.vgg import VGGFeatures
+    from master_thesis_tpu_torch.ops import rrdb, rrdb_bwd, tail, tail_bwd
+    from master_thesis_tpu_torch.train import chn_task, state
+
+    chn.train()
+    vgg = VGGFeatures(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED + 2))
+    vgg.requires_grad_(False)
+    st = state.create_train_state(chn, state.OptimConfig(), steps_per_epoch=2000)
+    step = chn_task.make_train_step(chn, cpn.align, vgg)
+    batch = make_train_batch(TRAIN_B, TRAIN_F, H, W, SEED + 3)
+    for _ in range(2):
+        step(st, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: v.clone() for k, v in chn.state_dict().items()}
+    grads = {}
+    orig = st.apply_gradients
+
+    def capture():
+        grads.update({k: p.grad.clone() for k, p in chn.named_parameters()})
+        orig()
+
+    st.apply_gradients = capture
+    counters = (rrdb.rdb_cuda, rrdb_bwd.rrdb_bwd_cuda, tail.tail_cuda, tail_bwd.tail_bwd_cuda)
+    for c in counters:
+        c.launches = 0
+    items = step(st, *batch)
+    torch.cuda.synchronize()
+    counts = dict(zip(("K1", "K3", "K4", "K6"), (c.launches for c in counters)))
+    st.apply_gradients = orig
+    want = {"K1": NB * 3, "K3": NB * 51, "K4": 3, "K6": 17}
+    print(f"train step launches in one step: {counts} (expected {want})")
+    if counts != want:
+        raise RuntimeError("the train step did not launch each kernel as expected")
+    for key in ("K3", "K6"):
+        results[key]["launches"] = counts[key]
+    loss = {k: v.item() for k, v in items.items()}
+    if not all(np.isfinite(v) for v in loss.values()):
+        raise RuntimeError(f"train step loss not finite: {loss}")
+    bad = [k for k, g in grads.items() if not torch.isfinite(g).all()]
+    if bad or len(grads) != len(before):
+        raise RuntimeError(f"grads missing or not finite: {bad[:5]}")
+    moved = sum(not torch.equal(before[k], v) for k, v in chn.state_dict().items())
+    if moved != len(before):
+        raise RuntimeError(f"only {moved} of {len(before)} parameters changed in a step")
+    print("train step: " + ", ".join(f"{k} {v:.6g}" for k, v in loss.items())
+          + f"; {len(grads)} grads finite; all {moved} parameters moved")
+
+    # Grads through the backward kernels against grads through their plain
+    # versions on the card, from the same forward (the kernels'), on a small
+    # batch; read also with a planted fault. The forward is shared because
+    # the loss is L1: a forward that differs by bf16 noise flips the sign of
+    # the small residuals, and with them the cotangents.
+    x, m, y = make_train_batch(2, TRAIN_F, 128, 128, SEED + 4)
+    t, refs = chn_task.target_ref_indexes(TRAIN_F)
+    with torch.no_grad():
+        aligned = cpn.align(x[:, t], m[:, t], x[:, refs], m[:, refs])
+
+    def small_grads():
+        chn.zero_grad(set_to_none=True)
+        y_hat, y_comp = chn_infer_apply(chn, x[:, t], 1 - m[:, t], *aligned)
+        total, _ = chn_task.compute_loss(y[:, t], 1 - m[:, t], y_hat, y_comp, aligned[2], vgg)
+        total.backward()
+        out = {"loss": total.detach().reshape(1), **grad_groups(chn)}
+        chn.zero_grad(set_to_none=True)
+        return out
+
+    with plain_backward():
+        want_g = small_grads()
+    check_groups("train step grads, 2x2x128x128, backward kernels vs plain versions",
+                 small_grads(), want_g, L2_TRAIN)
+    for fault, label in FAULTS.items():
+        with planted_bwd(fault):
+            check_groups("train step grads", small_grads(), want_g, L2_TRAIN, planted=label)
+
+    iters = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(st, *batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    print(f"train step: B={TRAIN_B} frames_n={TRAIN_F} {H}x{W} nb={NB} bf16: {1e3 * dt:.3f} ms/step, "
+          f"{TRAIN_B / dt:.3f} samples/s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {device_line}")
+    phase_profile(lambda *b: step(st, *b), batch, dt, grad=True)
 
 
 def main() -> int:
@@ -362,6 +706,9 @@ def main() -> int:
     with torch.inference_mode():
         results = phase_kernels(chn)
     phase_main_path(cpn, chn, results, smi)
+    with torch.no_grad():
+        phase_kernels_bwd(chn, results)
+    phase_train(cpn, chn, results, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in results.values()]

@@ -9,9 +9,12 @@ Importing the package builds nothing and needs neither ``nvcc`` nor a
 card: the kernels build at their first launch (:mod:`._build`). Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
-This slice holds the serving step: CPN alignment (:mod:`.models.cpn`) and
+Ported so far: the serving step, CPN alignment (:mod:`.models.cpn`) and
 the CHN forward (:mod:`.models.chn`) with the fused RDB kernel
-(:mod:`.ops.rrdb`) and the tail kernels (:mod:`.ops.tail`).
+(:mod:`.ops.rrdb`) and the tail kernels (:mod:`.ops.tail`); and the CHN
+training step (:mod:`.train.chn_task`, :mod:`.train.state`), whose trunk
+and tail backward passes are kernels too (:mod:`.ops.rrdb_bwd`,
+:mod:`.ops.tail_bwd`).
 """
 
 from master_thesis_tpu_torch.device import resolve_device

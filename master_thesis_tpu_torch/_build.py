@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("rrdb", "tail")
+SOURCES = ("rrdb", "tail", "rrdb_bwd", "tail_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,29 +40,32 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
-    """Compiles each named source that has no up-to-date library, all in
-    parallel. Returns ``{name: (seconds, nvcc stderr)}`` for the sources it
-    compiled (``-Xptxas -v`` puts registers, shared memory and spills
-    there). Raises if any compile fails."""
+def build(
+    names: Iterable[str] = SOURCES, variants: Iterable[Tuple[str, Tuple[str, ...]]] = ()
+) -> Dict[str, Tuple[float, str]]:
+    """Compiles each named source, and each ``(name, extra -D flags)`` of
+    ``variants``, that has no up-to-date library, all in parallel. Returns
+    ``{label: (seconds, nvcc stderr)}`` for the libraries it compiled
+    (``-Xptxas -v`` puts registers, shared memory and spills there). Raises
+    if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for name in names:
-        target = _lib_path(name)
+    for name, defines in [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]:
+        target = _lib_path(name, defines)
         if target.exists():
             continue
         tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[" ".join((name,) + defines)] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
             tmp, target, time.perf_counter(),
         )
@@ -71,7 +74,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
         out, err = proc.communicate()
         report[name] = (time.perf_counter() - t0, out + err)
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}{err}")
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}{err}")
             continue
         os.replace(tmp, target)
     if failed:
@@ -79,17 +82,19 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
     return report
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu`` (compiled with the extra
+    ``defines``), building it if needed."""
+    key = " ".join((name,) + tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(name, tuple(defines))
         if not path.exists():
-            build([name])
+            build([], [(name, tuple(defines))])
         lib = ctypes.CDLL(str(path))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        _loaded[key] = lib
     return lib
 
 

@@ -6,7 +6,8 @@ without a card and without that request it raises instead of falling back.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -20,3 +21,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "plain PyTorch path on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):  # usable in training after serving
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values: Sequence, dtype: torch.dtype, device) -> torch.Tensor:
+    """A constant tensor on ``device``, made once per (values, dtype,
+    device) and shared: a copy from host memory to the card waits for the
+    card to finish its queue, so the step's code must not make one per
+    call. Callers must not modify it."""
+    return _constant(tuple(values), dtype, torch.device(device))

@@ -16,7 +16,9 @@ The head is the reference's nested five bare convs (strides
 ``_HEAD_STRIDES``, no activations). The JAX package composes them into one
 15x15 conv and evaluates it per source group (``chn_head_grouped``); that is
 a TPU layout trick, not ported. The trunk and the tail run through the
-CUDA kernels of :mod:`..ops.rrdb` and :mod:`..ops.tail` on the card.
+CUDA kernels of :mod:`..ops.rrdb` and :mod:`..ops.tail` on the card, and
+in training through their autograd Functions (:mod:`..ops.rrdb_bwd`,
+:mod:`..ops.tail_bwd`), whose backward passes are kernels too.
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from master_thesis_tpu_torch.device import resolve_device
+from master_thesis_tpu_torch.device import constant, resolve_device
 from master_thesis_tpu_torch.models.nn_ext import Conv
 from master_thesis_tpu_torch.models.vgg import IMAGENET_MEAN, IMAGENET_STD
 from master_thesis_tpu_torch.ops import rrdb as rrdb_ops
 from master_thesis_tpu_torch.ops import tail as tail_ops
+from master_thesis_tpu_torch.ops.rrdb_bwd import TrunkFunction
+from master_thesis_tpu_torch.ops.tail_bwd import TailFunction
 
 _HEAD_STRIDES = (1, 1, 2, 1, 2)
 
@@ -78,18 +82,29 @@ class RRDBNet(nn.Module):
         self.upconv2 = conv(nf, nf)
         self.hr_conv = conv(nf, nf)
         self.conv_last = conv(nf, out_nc)
-        self._packed = None
+        self.repack()
         self.register_load_state_dict_post_hook(lambda module, _keys: module.repack())
 
     def repack(self) -> None:
-        """Drops the kernels' packed weights; the next forward packs them
-        from the parameters. Loading a state dict calls it; call it after
-        any other change to the parameters (a device move included)."""
+        """Drops the kernels' packed weights; the next serving forward packs
+        them from the parameters. Loading a state dict calls it, and the
+        train step after every optimizer step; call it after replacing a
+        parameter object or moving the module to another device."""
         self._packed = None
+        self._packed_key = None
+        self._kernel_params = None
 
     def packed(self):
-        """(trunk, tail) weights packed for the kernels, made on first use."""
-        if self._packed is None:
+        """(trunk, tail) weights packed for the kernels. Made on first use and
+        made again whenever a parameter changed since: the key holds each
+        parameter's storage and version counter, which every in-place update
+        (an optimizer step included) advances, so packed weights are never
+        older than the parameters."""
+        if self._kernel_params is None:
+            tail = (self.upconv1, self.upconv2, self.hr_conv, self.conv_last)
+            self._kernel_params = [p for m in (self.rrdb_trunk, *tail) for p in m.parameters()]
+        key = tuple((p.data_ptr(), p._version) for p in self._kernel_params)
+        if self._packed is None or key != self._packed_key:
             wb = lambda m: (m.weight, m.bias)
             self._packed = (
                 rrdb_ops.pack_rrdb_trunk(self.rrdb_trunk, self.dtype),
@@ -98,16 +113,35 @@ class RRDBNet(nn.Module):
                     wb(self.conv_last), self.dtype,
                 ),
             )
+            self._packed_key = key
         return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(N, in_nc, H, W)`` -> ``(N, out_nc, H, W)`` in the compute dtype
-        (``rrdbnet_infer_apply``)."""
+        (``rrdbnet_infer_apply``). With grad enabled on trainable
+        parameters this is the training forward (:meth:`forward_train`)."""
+        if torch.is_grad_enabled() and self.conv_last.weight.requires_grad:
+            return self.forward_train(x)
         trunk_w, tail_w = self.packed()
         y = self.conv_first(x).contiguous()
         trunk = rrdb_ops.rrdb_trunk(y, trunk_w)
         y = (y + self.trunk_conv(trunk)).contiguous()
         return tail_ops.tail(y, tail_w)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The differentiable forward: the head and ``trunk_conv`` through
+        autograd (cuDNN on the card), the trunk and the tail as autograd
+        Functions whose forward and backward are the kernels (K1 / K3,
+        K4 / K6). Both pack from the current parameters on every call."""
+        y = self.conv_first(x).contiguous()
+        trunk_params = [p for blk in self.rrdb_trunk for p in blk.parameters()]
+        trunk = TrunkFunction.apply(y, self.dtype, *trunk_params)
+        y = (y + self.trunk_conv(trunk)).contiguous()
+        tail_params = [
+            p for m in (self.upconv1, self.upconv2, self.hr_conv, self.conv_last)
+            for p in (m.weight, m.bias)
+        ]
+        return TailFunction.apply(y, self.dtype, *tail_params)
 
 
 def chn_infer_apply(
@@ -126,8 +160,8 @@ def chn_infer_apply(
     composited with the visible target pixels (chn.py:510-512).
     """
     b, f, h, w, c = x_refs_aligned.shape
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x_target.dtype, device=x_target.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x_target.dtype, device=x_target.device)
+    mean = constant(IMAGENET_MEAN, x_target.dtype, x_target.device)
+    std = constant(IMAGENET_STD, x_target.dtype, x_target.device)
     x_t = x_target[:, None].expand(b, f, h, w, c)
     v_t = v_target[:, None].expand(b, f, h, w, 1)
     nn_input = torch.cat(

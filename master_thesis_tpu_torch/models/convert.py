@@ -41,6 +41,18 @@ def chn_from_jax(params: Mapping, nb: int) -> Dict[str, torch.Tensor]:
     return sd
 
 
+_VGG16_CONV_IDX = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+
+
+def vgg_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``VGGFeatures`` params (``conv_{i}``) -> a ``VGGFeatures`` state
+    dict, whose keys are torchvision's ``features.{idx}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for j, idx in enumerate(_VGG16_CONV_IDX):
+        _conv(sd, f"features.{idx}", params[f"conv_{j}"]["kernel"], params[f"conv_{j}"]["bias"])
+    return sd
+
+
 def cpn_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX CPN params ``{"A_Encoder": ..., "A_Regressor": ...}`` -> a ``CPN``
     state dict."""

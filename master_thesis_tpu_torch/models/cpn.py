@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from master_thesis_tpu_torch.device import resolve_device
+from master_thesis_tpu_torch.device import constant, resolve_device
 from master_thesis_tpu_torch.models.nn_ext import Conv, uniform_
 from master_thesis_tpu_torch.models.vgg import IMAGENET_MEAN, IMAGENET_STD
 from master_thesis_tpu_torch.ops.grid_sample import affine_grid, grid_sample
@@ -60,8 +60,8 @@ class AEncoder(nn.Module):
             setattr(self, name, _ConvBlock(ci, co, k, s, p, generator=generator, dtype=dtype))
 
     def forward(self, in_f: torch.Tensor, in_v: torch.Tensor) -> torch.Tensor:
-        mean = torch.tensor(IMAGENET_MEAN, dtype=in_f.dtype, device=in_f.device)
-        std = torch.tensor(IMAGENET_STD, dtype=in_f.dtype, device=in_f.device)
+        mean = constant(IMAGENET_MEAN, in_f.dtype, in_f.device)
+        std = constant(IMAGENET_STD, in_f.dtype, in_f.device)
         x = torch.cat([(in_f - mean) / std, in_v], dim=-1)
         x = resize_hw(x, (224, 224), align_corners=False)
         x = x.permute(0, 3, 1, 2)

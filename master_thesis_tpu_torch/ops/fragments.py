@@ -13,6 +13,10 @@ test widths do.)
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import Callable, Optional, Sequence, Tuple
+
 import torch
 
 
@@ -25,29 +29,66 @@ def numel(k: int, n: int) -> int:
     return padded(k) * padded(n)
 
 
-def _lane_index():
+@functools.lru_cache(maxsize=None)
+def _lane_index(device: torch.device):
+    """Made once per device: indexing a tensor on the card with host
+    indices copies them over, which waits for the card's queue."""
     lane = torch.arange(32).view(32, 1, 1)
     reg = torch.arange(4).view(1, 4, 1)
     elem = torch.arange(2).view(1, 1, 2)
     rows = 2 * (lane % 4) + elem + 8 * (reg % 2)
     cols = lane // 4 + 8 * (reg // 2) + 0 * elem
-    return rows, cols  # (32, 4, 2) each
+    with torch.inference_mode(False):  # usable in training after serving
+        return rows.to(device), cols.to(device)  # (32, 4, 2) each
 
 
-def pack(mat: torch.Tensor) -> torch.Tensor:
-    """``(K, N)`` -> 1-D in the kernels' fragment order."""
+def pack(mat: torch.Tensor, fill=0) -> torch.Tensor:
+    """``(K, N)`` -> 1-D in the kernels' fragment order; padding holds
+    ``fill`` (0; for a matrix of source positions, the zero's position)."""
     k, n = mat.shape
     kp, np_ = padded(k), padded(n)
-    mat = torch.nn.functional.pad(mat, (0, np_ - n, 0, kp - k))
+    mat = torch.nn.functional.pad(mat, (0, np_ - n, 0, kp - k), value=fill)
     blocks = mat.reshape(kp // 16, 16, np_ // 16, 16).permute(0, 2, 1, 3)
-    rows, cols = _lane_index()
+    rows, cols = _lane_index(mat.device)
     return blocks[:, :, rows, cols].reshape(-1)
+
+
+def conv_matrix(w: torch.Tensor, fill=0) -> torch.Tensor:
+    """A conv's OIHW kernel as the kernels' packed ``(9 * C, O)`` B matrix,
+    rows ``(ky, kx, c)``."""
+    return pack(w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]), fill)
+
+
+def adjoint_matrix(w: torch.Tensor, o_pad: Optional[int] = None, fill=0) -> torch.Tensor:
+    """The adjoint of the 3x3 conv with OIHW kernel ``w`` (the conv with
+    ``w`` transposed and flipped) as the packed ``(9 * O, C)`` B matrix,
+    rows ``(ky, kx, o)``; with ``o_pad`` each tap's O rows are padded to
+    ``o_pad`` with ``fill``."""
+    o, c = w.shape[0], w.shape[1]
+    adj = w.transpose(0, 1).flip(2, 3)  # (C, O, 3, 3)
+    if o_pad is not None and o_pad > o:
+        adj = torch.nn.functional.pad(adj, (0, 0, 0, 0, 0, o_pad - o), value=fill)
+    return pack(adj.permute(2, 3, 1, 0).reshape(-1, c), fill)
+
+
+def gather_index(layouts: Sequence[Callable], shapes: Sequence[Tuple[int, ...]]) -> torch.Tensor:
+    """Where each element of ``cat(layout_i(w_i))`` comes from in
+    ``cat(w_i.reshape(-1) ..., [0])``: the layouts applied to position
+    tensors. Padding points at the trailing zero. Packing many weights is
+    then one gather (``src[index]``) instead of a few ops per weight."""
+    sizes = [math.prod(s) for s in shapes]
+    zero = sum(sizes)
+    out, off = [], 0
+    for layout, shape, size in zip(layouts, shapes, sizes):
+        out.append(layout(torch.arange(off, off + size).view(shape), zero))
+        off += size
+    return torch.cat(out)
 
 
 def unpack(buf: torch.Tensor, k: int, n: int) -> torch.Tensor:
     """Inverse of :func:`pack`: 1-D ``buf`` -> ``(K, N)``."""
     kp, np_ = padded(k), padded(n)
-    rows, cols = _lane_index()
+    rows, cols = _lane_index(buf.device)
     blocks = torch.empty((kp // 16, np_ // 16, 16, 16), dtype=buf.dtype, device=buf.device)
     blocks[:, :, rows, cols] = buf.reshape(kp // 16, np_ // 16, 32, 4, 2)
     return blocks.permute(0, 2, 1, 3).reshape(kp, np_)[:k, :n]

@@ -19,6 +19,8 @@ rounded to the working dtype before the RRDB residual.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -64,21 +66,64 @@ def pack_rdb(
     input in one GEMM instead; :func:`rdb_plain` keeps the per-source
     regrouping.
     """
-    w = torch.cat([
-        fragments.pack(wt.detach().permute(2, 3, 1, 0).reshape(-1, wt.shape[0]))
-        for wt, _ in convs
-    ])
-    b = torch.cat([bias.detach().reshape(-1) for _, bias in convs])
-    kernels = tuple(wt.detach().to(dtype).contiguous() for wt, _ in convs)
-    return PackedRDB(w.to(dtype).contiguous(), b.float().contiguous(), kernels)
+    return pack_rdbs([convs], dtype)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _gather(kind: str, shapes: Tuple[Tuple[int, ...], ...], device) -> torch.Tensor:
+    """The gather index that packs one RDB of conv ``shapes``
+    (``fragments.gather_index``), made once per layout and device."""
+    layout = fragments.conv_matrix if kind == "conv" else (
+        lambda w, fill: fragments.adjoint_matrix(w, fill=fill))
+    with torch.inference_mode(False):  # usable in training after serving
+        return fragments.gather_index([layout] * len(shapes), shapes).to(device)
+
+
+def _sources(convs_list, dtype: torch.dtype):
+    """The weights of many RDBs in ``dtype``, one row per RDB (its convs'
+    OIHW kernels flattened, then a zero), and their conv shapes."""
+    shapes = tuple(tuple(w.shape) for w, _ in convs_list[0])
+    flat = torch.cat([w.detach().reshape(-1) for convs in convs_list for w, _ in convs])
+    src = F.pad(flat.to(dtype).view(len(convs_list), -1), (0, 1))
+    return src, shapes
+
+
+def pack_rdbs(convs_list: Sequence[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
+              dtype: torch.dtype) -> List[PackedRDB]:
+    """:func:`pack_rdb` for many RDBs of the same widths, with one gather
+    for all their kernel matrices (the training forward packs the whole
+    trunk on every step)."""
+    src, shapes = _sources(convs_list, dtype)
+    w = src[:, _gather("conv", shapes, src.device)]
+    b = torch.cat([bias.detach().reshape(-1) for convs in convs_list for _, bias in convs])
+    b = b.float().view(len(convs_list), -1)
+    sizes = [math.prod(s) for s in shapes]
+    return [
+        PackedRDB(w[r], b[r], tuple(k.view(s) for k, s in zip(src[r, :-1].split(sizes), shapes)))
+        for r in range(len(convs_list))
+    ]
+
+
+def pack_rdb_adjoints(convs_list: Sequence[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
+                      dtype: torch.dtype) -> List[List[torch.Tensor]]:
+    """Each RDB's five adjoint B matrices (``fragments.adjoint_matrix``) in
+    ``dtype``, as ``_rrdb_adj_weights`` rounds them, with one gather for
+    all: ``out[r][k]`` is RDB r's conv k+1."""
+    src, shapes = _sources(convs_list, dtype)
+    adj = src[:, _gather("adjoint", shapes, src.device)]
+    sizes = [fragments.numel(9 * s[0], s[1]) for s in shapes]
+    return [list(adj[r].split(sizes)) for r in range(len(convs_list))]
 
 
 def rdb_plain(
-    x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None
-) -> torch.Tensor:
+    x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
+    keep_hidden: bool = False,
+):
     """Plain PyTorch RDB on NCHW ``x`` in its dtype, after ``rrdb_trunk_xla``:
     one conv per source tensor into every conv it feeds. With ``res``
-    returns ``0.2 * rdb(x) + res`` (the RRDB residual)."""
+    returns ``0.2 * rdb(x) + res`` (the RRDB residual). With
+    ``keep_hidden`` returns ``(y, [x1, .., x4])``, the hidden activations in
+    x's dtype (the backward's recompute, ``_rdb_fwd_block(keep_hidden)``)."""
     dt = x.dtype
     outs = [k.shape[0] for k in p.kernels]
     nf, gc = outs[4], outs[0]
@@ -91,15 +136,17 @@ def rdb_plain(
         return F.conv2d(src.float(), wcat.float(), padding=1)
 
     acc = list(conv_from(x, 0).split(outs, dim=1))
+    hidden = []
     for k in range(4):
         xk = leaky_relu(acc[k] + bs[k].view(1, -1, 1, 1)).to(dt)
+        hidden.append(xk)
         pieces = conv_from(xk, k + 1).split(outs[k + 1:], dim=1)
         for idx, piece in enumerate(pieces):
             acc[k + 1 + idx] = acc[k + 1 + idx] + piece
     y = (0.2 * (acc[4] + bs[4].view(1, -1, 1, 1)) + x.float()).to(dt)
     if res is not None:
         y = (0.2 * y.float() + res.float()).to(dt)
-    return y
+    return (y, hidden) if keep_hidden else y
 
 
 def _check_activation(t: torch.Tensor, what: str) -> None:
@@ -181,16 +228,13 @@ def rdb_flops(n: int, h: int, w: int, nf: int = KERNEL_NF, gc: int = KERNEL_GC) 
     return 2 * n * h * w * 9 * sum(cin * cout for cin, cout in _widths(nf, gc))
 
 
+def rrdb_convs(blk) -> List[List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """An RRDB module's ``(weight, bias)`` pairs: rdb1..rdb3, conv1..conv5."""
+    return [[(getattr(r, f"conv{k}").weight, getattr(r, f"conv{k}").bias) for k in range(1, 6)]
+            for r in (blk.rdb1, blk.rdb2, blk.rdb3)]
+
+
 def pack_rrdb_trunk(rrdbs, dtype: torch.dtype) -> List[List[PackedRDB]]:
     """Packs modules with ``rdb1..rdb3`` each holding ``conv1..conv5``."""
-    return [
-        [
-            pack_rdb(
-                [(getattr(rdb_mod, f"conv{k}").weight, getattr(rdb_mod, f"conv{k}").bias)
-                 for k in range(1, 6)],
-                dtype,
-            )
-            for rdb_mod in (blk.rdb1, blk.rdb2, blk.rdb3)
-        ]
-        for blk in rrdbs
-    ]
+    flat = pack_rdbs([c for blk in rrdbs for c in rrdb_convs(blk)], dtype)
+    return [flat[3 * i: 3 * i + 3] for i in range(len(flat) // 3)]

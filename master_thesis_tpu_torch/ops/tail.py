@@ -46,6 +46,8 @@ def pack_tail(
 
     - ``up{1,2}_fused``: the 4-phase 3x3 kernel as OIHW ``(4*O, C, 3, 3)``,
       phases packed ``(a, b, o)`` (the plain version);
+    - ``up{1,2}_oihw``: the upsample-conv's own 3x3 kernel (the
+      backward's plain version, :mod:`.tail_bwd`);
     - ``up{1,2}_phase``: the same taps as 4 phases of ``(4 taps * C, O)``
       matrices, tap ``(ti, tj)`` reading input offset
       ``(a - 1 + ti, b - 1 + tj)`` (the kernel);
@@ -68,14 +70,15 @@ def pack_tail(
         ])
         p[f"{name}_fused"] = fused.permute(3, 2, 0, 1).to(dtype).contiguous()
         p[f"{name}_phase"] = phase.to(dtype).contiguous()
+        p[f"{name}_oihw"] = w.detach().to(dtype).contiguous()
         p[f"{name}_b"] = b.detach().float().contiguous()
     w, b = hr_conv
     p["hr_oihw"] = w.detach().to(dtype).contiguous()
-    p["hr_w"] = fragments.pack(w.detach().permute(2, 3, 1, 0).reshape(-1, w.shape[0])).to(dtype)
+    p["hr_w"] = fragments.conv_matrix(w.detach()).to(dtype)
     p["hr_b"] = b.detach().float().contiguous()
     w, b = conv_last
     p["last_oihw"] = w.detach().to(dtype).contiguous()
-    p["last_w"] = fragments.pack(w.detach().permute(2, 3, 1, 0).reshape(-1, w.shape[0])).to(dtype)
+    p["last_w"] = fragments.conv_matrix(w.detach()).to(dtype)
     p["last_b"] = b.detach().float().contiguous()
     return p
 

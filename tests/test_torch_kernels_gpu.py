@@ -76,3 +76,68 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         rrdb.rdb_cuda(x, rrdb.PackedRDB(torch.zeros(1, device=cuda), torch.zeros(1, device=cuda), ()))
     with pytest.raises(ValueError, match="bfloat16"):
         tail.tail_cuda(x, {})
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    return ((got - want).norm() / want.norm()).item()
+
+
+# Relative L2 limits of a backward kernel's dx and of each weight or bias
+# grad against the plain version: both round every cotangent to bf16 before
+# a product, and a sum taken in another order flips some of those roundings,
+# which spread through an RDB's dense convs (K3 reads up to ~0.02 at these
+# shapes, as the plain version on the CPU against the card does; a mask
+# with the wrong lrelu slope reads 0.07). chip_smoke.py uses the same.
+K3_L2, K6_L2 = 5e-2, 1e-2
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 8, 16), (1, 13, 21), (2, 60, 120)])
+def test_rrdb_bwd_kernel_matches_plain(cuda, n, h, w):
+    from master_thesis_tpu_torch.ops import rrdb_bwd
+
+    rng = np.random.RandomState(2)
+    nf, gc = rrdb.KERNEL_NF, rrdb.KERNEL_GC
+    convs = [
+        [tuple(t.to(cuda) for t in _conv(rng, nf + k * gc, gc if k < 4 else nf, (1.0 / (9 * (nf + k * gc))) ** 0.5))
+         for k in range(5)]
+        for _ in range(3)
+    ]
+    rdbs = [rrdb.pack_rdb(c, torch.bfloat16) for c in convs]
+    adjs = rrdb.pack_rdb_adjoints(convs, torch.bfloat16)
+    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    g = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = rrdb_bwd.rrdb_bwd_cuda.launches
+    dx, grads = rrdb_bwd.rrdb_bwd_cuda(x, g, rdbs, adjs)
+    torch.cuda.synchronize()
+    assert rrdb_bwd.rrdb_bwd_cuda.launches == before + 51
+    dx_p, grads_p = rrdb_bwd.rrdb_bwd_plain(x, g, rdbs)
+    assert _rel_l2(dx, dx_p) <= K3_L2
+    for (dws, dbs), (dws_p, dbs_p) in zip(grads, grads_p):
+        for a, b in zip(dws + dbs, dws_p + dbs_p):
+            assert a.shape == b.shape and _rel_l2(a, b) <= K3_L2
+    dx2, grads2 = rrdb_bwd.rrdb_bwd_cuda(x, g, rdbs, adjs)
+    assert torch.equal(dx, dx2)  # no float atomics: bit-identical reruns
+    assert all(torch.equal(a, b) for (dws, _), (dws2, _) in zip(grads, grads2) for a, b in zip(dws, dws2))
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 8, 8), (1, 6, 10), (2, 13, 7)])
+def test_tail_bwd_kernel_matches_plain(cuda, n, h, w):
+    from master_thesis_tpu_torch.ops import tail_bwd
+
+    rng = np.random.RandomState(3)
+    nf = tail.KERNEL_NF
+    convs = [tuple(t.to(cuda) for t in _conv(rng, nf, nf, 0.05)) for _ in range(3)]
+    convs.append(tuple(t.to(cuda) for t in _conv(rng, nf, 3, 0.05)))
+    p = tail.pack_tail(*convs, torch.bfloat16)
+    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    g = torch.from_numpy(rng.randn(n, 3, 4 * h, 4 * w).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = tail_bwd.tail_bwd_cuda.launches
+    dx, grads = tail_bwd.tail_bwd_cuda(x, g, p, tail_bwd.pack_tail_adjoint(convs, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert tail_bwd.tail_bwd_cuda.launches == before + 17
+    dx_p, grads_p = tail_bwd.tail_bwd_plain(x, g, p)
+    assert dx.shape == x.shape and _rel_l2(dx, dx_p) <= K6_L2
+    for k in tail_bwd.PARAM_NAMES:
+        assert grads[k].shape == grads_p[k].shape and _rel_l2(grads[k], grads_p[k]) <= K6_L2, k

@@ -101,3 +101,23 @@ def test_rdb_dispatch_rejects_unknown_device():
     x = torch.zeros(1, 16, 4, 4, device="meta")
     with pytest.raises(ValueError, match="no RDB implementation"):
         trrdb.rdb(x, trrdb.PackedRDB(torch.zeros(1), torch.zeros(1), ()))
+
+
+def test_pack_rdbs_matches_pack_per_conv(rng):
+    """Packing many RDBs with one gather gives, for each, what packing each
+    conv on its own gives (``fragments.conv_matrix``, ``adjoint_matrix``),
+    padded widths included (nf=16, gc=8: 8 outputs pad to 16)."""
+    for nf, gc in ((16, 8), (64, 32)):
+        rdbs = [_rrdb_params(rng, nf, gc) for _ in range(2)]
+        convs = [
+            [(torch.from_numpy(p[f"rdb{j}"][f"conv{k}_kernel"]).permute(3, 2, 0, 1),
+              torch.from_numpy(p[f"rdb{j}"][f"conv{k}_bias"])) for k in range(1, 6)]
+            for p in rdbs for j in (1, 2, 3)
+        ]
+        packed = trrdb.pack_rdbs(convs, torch.float32)
+        adjs = trrdb.pack_rdb_adjoints(convs, torch.float32)
+        for c, p, adj in zip(convs, packed, adjs):
+            assert torch.equal(p.w, torch.cat([fragments.conv_matrix(w) for w, _ in c]))
+            assert torch.equal(p.b, torch.cat([b for _, b in c]))
+            assert all(torch.equal(k, w) for k, (w, _) in zip(p.kernels, c))
+            assert all(torch.equal(a, fragments.adjoint_matrix(w)) for a, (w, _) in zip(adj, c))
