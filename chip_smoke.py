@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch/CUDA port's serving step and training step on one
-NVIDIA GPU.
+"""Runs the PyTorch/CUDA port's serving step, training step and CHN+DFPN
+inpaint step on one NVIDIA GPU.
 
 Phases, each fatal on failure:
 
@@ -40,6 +40,25 @@ Phases, each fatal on failure:
    1x2x64x64 batch the grads through the kernels against the grads through
    their plain versions on the card (read also with a planted fault);
    host-clock step time, samples/s, peak memory; one step under
+   ``torch.profiler``;
+7. conv-stack kernels: K7 (the tile stack) at the mixer's shapes (20
+   tiles), at both sep4d stages (5 120 tiles) and at a ragged tile count;
+   K8 (the banded stack) at flow_256's c0-c1 (Cin 10) and c15-c17 (halo 4)
+   segments at 256x256, at VGG's block 1 (Cin 3) and at a ragged 60x120
+   frame; each held against its plain version with TF32 off by relative
+   L2, and read on three faults planted in the kernel's code (compiled
+   with ``-DSTACK_PLANT``: a corner tap left out, the ReLU off a conv, the
+   biases dropped); CUDA-event times of the kernel, its plain version and
+   the same stack as the module route (cuDNN convs in bf16);
+8. the CHN+DFPN path: VGG pool-4 features, ``dfpn_infer_apply`` at base
+   256, ``dfpn_align`` and ``chn_infer_apply`` at B=4, F=5, 256x256,
+   nb=20, bf16, once with the JAX package's default routes (K7 on the
+   mixer) and once with every kernel route (K7 on sep4d too, K8 on both
+   flow estimators and on VGG's pool-4 tower): the launch counts of one
+   step; output checks; on a small input (1x2x64x64, base 64) the DFPN
+   outputs through the kernels against their plain versions on the card,
+   read also with a planted fault; host-clock step time, inpainted
+   frames/s, the DFPN align alone, peak memory; one step under
    ``torch.profiler``.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
@@ -77,6 +96,15 @@ L2_K3, L2_K3_TRUNK, L2_K6, L2_TRAIN = 5e-2, 2e-2, 1e-2, 5e-2
 TRAIN_B, TRAIN_F = 8, 2
 FAULTS = {1: "lrelu slope 0.25 in the masks", 2: "centre tap left out of dW",
           3: "bias grads dropped"}
+# The CHN+DFPN step: B targets, F references, DFPN's base size.
+DFPN_B, DFPN_F, DFPN_BASE = 4, 5, 256
+STACK_FAULTS = {1: "corner tap left out", 2: "ReLU off the last ReLU conv of each launch",
+                3: "biases dropped"}
+# Relative L2 limits of the conv-stack kernels against their plain versions
+# (both round every conv's output to bf16; sums in another order flip some
+# roundings), and of the small CHN+DFPN input's DFPN outputs, whose
+# cascade of ~50 convs carries those flips on.
+L2_STACK, L2_DFPN = 1e-2, 5e-2
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
@@ -163,12 +191,12 @@ def phase_build():
     t0 = time.perf_counter()
     report = _build.build(_build.SOURCES, [
         (name, (f"-DBWD_PLANT={f}",)) for name in ("rrdb_bwd", "tail_bwd") for f in FAULTS
-    ])
+    ] + [("conv_stack", (f"-DSTACK_PLANT={f}",)) for f in STACK_FAULTS])
     print(f"build: {len(report)} libraries in {time.perf_counter() - t0:.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})")
     for name, (secs, log) in sorted(report.items()):
         print(f"build {name}: {secs:.1f} s")
-        if "BWD_PLANT" in name:
+        if "_PLANT" in name:
             continue
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
@@ -446,8 +474,9 @@ def check_groups(name, got, want, limit, planted=None):
     ok = rels[worst] <= limit
     verdict = ("MISSED" if ok else "caught") if planted else ("ok" if ok else "FAIL")
     label = f"planted {name}, {planted}" if planted else f"check {name}"
+    dx = f"dx {rels['dx']:.6g}, " if "dx" in rels else ""
     print(f"{label}: worst rel_l2 {rels[worst]:.6g} ({worst}) over {len(rels)} groups, "
-          f"dx {rels.get('dx', float('nan')):.6g}, limit {limit:g} {verdict}")
+          f"{dx}limit {limit:g} {verdict}")
     if ok == bool(planted):
         raise RuntimeError(f"{name}: " + ("the check does not see a planted fault" if planted
                                           else "kernel disagrees with its plain version"))
@@ -686,6 +715,287 @@ def phase_train(cpn, chn, results, device_line):
     phase_profile(lambda *b: step(st, *b), batch, dt, grad=True)
 
 
+@contextlib.contextmanager
+def planted_stack(fault):
+    """Within: the conv-stack wrappers (K7, K8) launch the library built
+    with ``-DSTACK_PLANT=fault`` (csrc/conv_stack.cu)."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    orig = conv_stack._lib
+    conv_stack._lib = lambda _=(): orig((f"-DSTACK_PLANT={fault}",))
+    try:
+        yield
+    finally:
+        conv_stack._lib = orig
+
+
+@contextlib.contextmanager
+def plain_stacks():
+    """Within: the conv-stack wrappers run their plain versions on card
+    tensors."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    orig = conv_stack.conv_stack_tiles_cuda, conv_stack.conv_stack_banded_cuda
+    conv_stack.conv_stack_tiles_cuda = conv_stack.conv_stack_tiles_plain
+    conv_stack.conv_stack_banded_cuda = conv_stack.conv_stack_banded_plain
+    try:
+        yield
+    finally:
+        conv_stack.conv_stack_tiles_cuda, conv_stack.conv_stack_banded_cuda = orig
+
+
+def module_stack(convs, relus, x):
+    """The same stack as the module route: the convs' modules (cuDNN, the
+    compute dtype) on NCHW ``x``."""
+    for conv, relu in zip(convs, relus):
+        x = conv(x)
+        x = torch.relu(x) if relu else x
+    return x
+
+
+def check_stack(name, run, plain, x, p):
+    """Holds a conv-stack kernel against its plain version by relative L2
+    and reads the check on each planted fault. Returns (max abs error,
+    the plain output)."""
+    want = plain(x, p)
+    got = run(x, p)
+    if got.shape != want.shape:
+        raise RuntimeError(f"{name}: output shape {tuple(got.shape)}, plain {tuple(want.shape)}")
+    err = check(name, got, want, None, L2_STACK, max_abs=False)
+    for fault, label in STACK_FAULTS.items():
+        with planted_stack(fault):
+            check(f"{name}, {label}", run(x, p), want, None, L2_STACK, max_abs=False, planted=True)
+    return err, want
+
+
+def phase_kernels_stack(dfpn, vgg, results):
+    """K7 and K8 against their plain versions at the CHN+DFPN step's shapes
+    (B=4, F=5: 20 correlation tiles for the mixer, 5 120 per sep4d stage;
+    20 frames through flow_256, 24 through VGG) and ragged ones; CUDA-event
+    times of the kernel, the plain version and the module route."""
+    from master_thesis_tpu_torch.models.dfpn import _FLOW_SEGMENTS, _convs
+    from master_thesis_tpu_torch.ops import conv_stack as cst
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(bf)
+    n, cs = DFPN_B * DFPN_F, DFPN_BASE // 16
+    tiles = lambda x, p: cst.conv_stack_tiles_cuda(x, p, cs)
+    tiles_plain = lambda x, p: cst.conv_stack_tiles_plain(x, p, cs)
+
+    # K7: the mixer, sep4d's two stages, a ragged tile count.
+    mixer = dfpn.corr_mixer
+    p_mix = mixer.packed()
+    x_mix = rnd(n, cs * cs, cs * cs)
+    check_stack(f"K7 mixer ({n}, {cs * cs}, {cs * cs})", tiles, tiles_plain, x_mix, p_mix)
+    check_stack("K7 mixer ragged (7 tiles)", tiles, tiles_plain, rnd(7, cs * cs, cs * cs), p_mix)
+    sep = dfpn.corr.conv
+    p1, p2 = sep.packed()
+    nt = n * cs * cs
+    x1 = rnd(nt, 1, cs * cs)
+    check_stack(f"K7 sep4d stage 1 ({nt}, 1, {cs * cs})", tiles, tiles_plain, x1, p1)
+    x2 = rnd(nt, 256, cs * cs)
+    err7, _ = check_stack(f"K7 sep4d stage 2 ({nt}, 256, {cs * cs})", tiles, tiles_plain, x2, p2)
+
+    def sep_k():
+        tiles(x1, p1)
+        tiles(x2, p2)
+
+    def sep_plain():
+        tiles_plain(x1, p1)
+        tiles_plain(x2, p2)
+
+    def sep_module():
+        module_stack(*_convs(sep.conv_1), x1.view(nt, 1, cs, cs))
+        module_stack(*_convs(sep.conv_2), x2.view(nt, 256, cs, cs))
+
+    flops7 = cst.stack_flops(p1, nt, cs, cs) + cst.stack_flops(p2, nt, cs, cs)
+    b_ms, b_by = bound_ms(flops7, nbytes(x1, x2, x2, x1, p1.w, p1.b, p2.w, p2.b))
+    results["K7"] = dict(
+        name="conv stack, whole 16x16 tiles (stack_kernel; sep4d's two stages)", route="cuda",
+        source="master_thesis_tpu_torch/csrc/conv_stack.cu",
+        replaces="master_thesis_tpu/ops/pallas_sep4d.py:192", max_abs_err=err7,
+        ms=cuda_ms(sep_k, iters=10), plain_ms=cuda_ms(sep_plain, iters=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, module_ms=cuda_ms(sep_module, iters=10),
+    )
+    mix_b, _ = bound_ms(cst.stack_flops(p_mix, n, cs, cs), nbytes(x_mix, p_mix.w))
+    print(f"kernel K7 on the mixer ({n} tiles): kernel_ms={cuda_ms(lambda: tiles(x_mix, p_mix)):.4f} "
+          f"plain_ms={cuda_ms(lambda: tiles_plain(x_mix, p_mix)):.4f} "
+          f"module_ms={cuda_ms(lambda: module_stack(*_convs(mixer.mixer), x_mix.view(n, -1, cs, cs))):.4f} "
+          f"bound_ms={mix_b:.4f}")
+
+    # K8: flow_256's first and last segments, VGG's block 1, a ragged frame.
+    band = cst.conv_stack_banded_cuda
+    band_plain = cst.conv_stack_banded_plain
+    est = dfpn.flow_256
+    seg_stacks = []
+    for names, _ in _FLOW_SEGMENTS:
+        convs = [est.layer(nm) for nm in names]
+        relus = [nm != "c17" for nm in names]
+        seg_stacks.append((est.stacks.get(names[0], convs, relus, bf), convs, relus))
+    sizes = (256, 128, 64, 32, 64, 128, 256)
+    xs = [rnd(n, hw, hw, p.specs[0][1]) for (p, _, _), hw in zip(seg_stacks, sizes)]
+    check_stack(f"K8 flow_256 c0-c1 {tuple(xs[0].shape)}", band, band_plain, xs[0], seg_stacks[0][0])
+    err8, _ = check_stack(f"K8 flow_256 c15-c17 {tuple(xs[-1].shape)}", band, band_plain, xs[-1],
+                          seg_stacks[-1][0])
+    check_stack("K8 flow c15-c17 ragged (2, 60, 120, 128)", band, band_plain, rnd(2, 60, 120, 128),
+                seg_stacks[-1][0])
+    blk = [vgg.features[j] for j in (0, 2)]
+    p_vgg = vgg.stacks.get("block1", blk, [True, True], bf)
+    x_vgg = rnd(n + DFPN_B, DFPN_BASE, DFPN_BASE, 3)
+    check_stack(f"K8 VGG block 1 {tuple(x_vgg.shape)}", band, band_plain, x_vgg, p_vgg)
+
+    def flow_k():
+        for (p, _, _), x in zip(seg_stacks, xs):
+            band(x, p)
+
+    def flow_plain():
+        for (p, _, _), x in zip(seg_stacks, xs):
+            band_plain(x, p)
+
+    def flow_module():
+        for (_, convs, relus), x in zip(seg_stacks, xs):
+            module_stack(convs, relus, x.permute(0, 3, 1, 2))
+
+    flops8 = sum(cst.stack_flops(p, n, hw, hw) for (p, _, _), hw in zip(seg_stacks, sizes))
+    outs = [torch.empty(n, hw, hw, p.specs[-1][2], dtype=bf, device="cuda")
+            for (p, _, _), hw in zip(seg_stacks, sizes)]
+    b_ms, b_by = bound_ms(flops8, nbytes(*xs, *outs, *(t for p, _, _ in seg_stacks for t in (p.w, p.b))))
+    results["K8"] = dict(
+        name="conv stack, halo tiles of full frames (stack_kernel; flow_256's 7 segments)",
+        route="cuda", source="master_thesis_tpu_torch/csrc/conv_stack.cu",
+        replaces="master_thesis_tpu/ops/pallas_sep4d.py:316", max_abs_err=err8,
+        ms=cuda_ms(flow_k, iters=10), plain_ms=cuda_ms(flow_plain, iters=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, module_ms=cuda_ms(flow_module, iters=10),
+    )
+    vgg_out = x_vgg.numel() // 3 * 64 * x_vgg.element_size()
+    vgg_b, _ = bound_ms(cst.stack_flops(p_vgg, n + DFPN_B, DFPN_BASE, DFPN_BASE),
+                        nbytes(x_vgg, p_vgg.w) + vgg_out)
+    print(f"kernel K8 on VGG block 1 {tuple(x_vgg.shape)}: kernel_ms={cuda_ms(lambda: band(x_vgg, p_vgg)):.4f} "
+          f"plain_ms={cuda_ms(lambda: band_plain(x_vgg, p_vgg), iters=3, warmup=1):.4f} "
+          f"module_ms={cuda_ms(lambda: module_stack(blk, [True, True], x_vgg.permute(0, 3, 1, 2))):.4f} "
+          f"bound_ms={vgg_b:.4f}")
+    for key in ("K7", "K8"):
+        r = results[key]
+        print(f"kernel {key} {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"module_ms={r['module_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms=null")
+
+
+def dfpn_outputs(dfpn, vgg, x_t, m_t, x_r, m_r):
+    """VGG pool-4 features on K8 and ``dfpn_infer_apply`` with every kernel
+    route, as named groups (for the small-input check)."""
+    from master_thesis_tpu_torch.models.dfpn import dfpn_infer_apply, prepare_vgg_input
+    from master_thesis_tpu_torch.models.vgg import vgg_pool4_pallas
+
+    b, f, h, w, _ = x_r.shape
+    base = dfpn.base_size
+    feats_t = vgg_pool4_pallas(vgg, prepare_vgg_input(x_t, size=base))
+    feats_r = vgg_pool4_pallas(vgg, prepare_vgg_input(x_r.reshape(b * f, h, w, 3), size=base))
+    feats_r = feats_r.reshape(b, f, *feats_r.shape[1:])
+    outs = dfpn_infer_apply(dfpn, x_t, m_t, x_r, m_r, feats_t, feats_r, pallas_sep4d=True,
+                            pallas_mixer=True, pallas_flow=True)
+    return dict(zip(("feats_t", "feats_r", "corr", "flow_16", "flow_64", "flow_full"),
+                    (feats_t, feats_r, *outs)))
+
+
+def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
+    """The CHN+DFPN step at B=4, F=5, 256x256, nb=20, bf16, with the default
+    routes and with every kernel route."""
+    from master_thesis_tpu_torch.models.chn import chn_infer_apply
+    from master_thesis_tpu_torch.models.vgg import VGGFeatures
+    from master_thesis_tpu_torch.ops import conv_stack, rrdb, tail
+    from master_thesis_tpu_torch.train.build import build_dfpn, dfpn_align_fn
+
+    chn.eval()
+    inputs = make_inputs(DFPN_B, DFPN_F, H, W, SEED + 12)
+    x_t, m_t = inputs[0], inputs[1]
+    counters = {"K1": rrdb.rdb_cuda, "K4": tail.tail_cuda, "K7": conv_stack.conv_stack_tiles_cuda,
+                "K8": conv_stack.conv_stack_banded_cuda}
+    routes = {
+        # K7: 5 launches on the mixer, 2 + 3 on sep4d's stages; K8: 15 on
+        # flow_256, 14 on flow_64, 9 on each of the two VGG pool-4 calls
+        # (tests/test_torch_conv_stack.py holds the plans to these).
+        "default routes": (dict(), {"K1": NB * 3, "K4": 3, "K7": 5, "K8": 0}),
+        "every kernel route": (dict(pallas_sep4d=True, pallas_flow=True, pallas_vgg=True),
+                               {"K1": NB * 3, "K4": 3, "K7": 10, "K8": 47}),
+    }
+    for label, (flags, want) in routes.items():
+        align = dfpn_align_fn(dfpn, vgg, **flags)
+
+        def step(x_t, m_t, x_r, m_r):
+            xa, va, vm = align(x_t, m_t, x_r, m_r)
+            return chn_infer_apply(chn, x_t, 1 - m_t, xa, va, vm), (xa, va, vm)
+
+        with torch.inference_mode():
+            for _ in range(2):
+                step(*inputs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            (y_hat, y_comp), (xa, va, vm) = step(*inputs)
+            torch.cuda.synchronize()
+            counts = {k: c.launches for k, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+        print(f"CHN+DFPN step, {label}: launches in one step {counts} (expected {want})")
+        if counts != want:
+            raise RuntimeError(f"the CHN+DFPN step ({label}) did not launch each kernel as expected")
+        if flags:
+            results["K7"]["launches"], results["K8"]["launches"] = counts["K7"], counts["K8"]
+        shape = (DFPN_B, DFPN_F, H, W)
+        if y_hat.shape != (*shape, 3) or y_comp.shape != (*shape, 3) or va.shape != (*shape, 1):
+            raise RuntimeError(f"output shapes {tuple(y_hat.shape)}, {tuple(y_comp.shape)}, {tuple(va.shape)}")
+        if not all(torch.isfinite(t).all() for t in (y_hat, y_comp, xa, va, vm)):
+            raise RuntimeError("a CHN+DFPN output is not finite")
+        if y_hat.min() < 0 or y_hat.max() > 1:
+            raise RuntimeError("y_hat is not in [0, 1]")
+        visible = (1 - m_t)[:, None].expand(*shape, 3) == 1
+        if not torch.equal(y_comp[visible], x_t[:, None].expand(*shape, 3)[visible]):
+            raise RuntimeError("y_hat_comp differs from x_t where the target is visible")
+        if not all(bool(((t == 0) | (t == 1)).all()) for t in (va, vm)):
+            raise RuntimeError("v_aligned or v_map is not binary")
+        print(f"CHN+DFPN step, {label}: outputs finite, y_hat in [{y_hat.min().item():.4f}, "
+              f"{y_hat.max().item():.4f}], y_hat_comp == x_t on visible pixels, v_aligned and v_map "
+              f"in {{0, 1}} (visible share {va.mean().item():.4f})")
+
+        iters = 20
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                step(*inputs)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / iters
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                align(*inputs)
+            torch.cuda.synchronize()
+            da = (time.perf_counter() - t0) / iters
+        print(f"CHN+DFPN step, {label}: B={DFPN_B} F={DFPN_F} {H}x{W} nb={NB} bf16: "
+              f"{1e3 * dt:.3f} ms/step, {DFPN_B / dt:.3f} inpainted frames/s; DFPN align alone "
+              f"{1e3 * da:.3f} ms; max_memory_allocated {peak / 2**30:.3f} GiB on {device_line}")
+        phase_profile(step, inputs, dt)
+
+    # A small input through the kernels against the same DFPN through their
+    # plain versions on the card, read also with a planted fault.
+    small_dfpn = build_dfpn(base_size=64, dtype=torch.bfloat16,
+                            generator=torch.Generator().manual_seed(SEED + 13))
+    small_vgg = VGGFeatures(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED + 14))
+    small = make_inputs(1, 2, 64, 64, SEED + 15)
+    run = lambda: dfpn_outputs(small_dfpn, small_vgg, *small)
+    with torch.inference_mode():
+        with plain_stacks():
+            want = run()
+        check_groups("CHN+DFPN DFPN outputs, 1x2x64x64 base 64, kernels vs plain versions", run(),
+                     want, L2_DFPN)
+        for fault, label in STACK_FAULTS.items():
+            with planted_stack(fault):
+                check_groups("CHN+DFPN DFPN outputs", run(), want, L2_DFPN, planted=label)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -709,6 +1019,15 @@ def main() -> int:
     with torch.no_grad():
         phase_kernels_bwd(chn, results)
     phase_train(cpn, chn, results, smi)
+    from master_thesis_tpu_torch.models.vgg import VGGFeatures
+    from master_thesis_tpu_torch.train.build import build_dfpn
+
+    dfpn = build_dfpn(base_size=DFPN_BASE, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(SEED + 5))
+    vgg = VGGFeatures(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED + 6))
+    with torch.inference_mode():
+        phase_kernels_stack(dfpn, vgg, results)
+    phase_dfpn_path(chn, dfpn, vgg, results, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in results.values()]

@@ -3,7 +3,9 @@
 Counterparts: ``leaky_relu``, ``_uniform`` (here :func:`uniform_`),
 ``Conv`` (here a ``nn.Conv2d`` that computes in a chosen dtype; the JAX
 space-to-depth regrouping of strided convs is a TPU layout trick and is not
-ported), ``fused_upsample_conv_kernel`` and ``pixel_shuffle_2x``.
+ported), ``ConvTranspose2dTorch`` (a ``nn.ConvTranspose2d`` likewise; its
+JAX 4-phase rewrite is a TPU layout trick too),
+``fused_upsample_conv_kernel`` and ``pixel_shuffle_2x``.
 
 Inside the port, activations are NCHW; kernels of the JAX package's
 ``fused_upsample_conv_kernel`` are HWIO, and that layout is kept here.
@@ -54,6 +56,36 @@ class Conv(nn.Conv2d):
         return F.conv2d(
             x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride,
             self.padding,
+        )
+
+
+class ConvTranspose2dTorch(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with f32 parameters that computes in ``dtype``
+    (``nn_ext.ConvTranspose2dTorch``): operands and bias cast to the
+    compute dtype. Its weight ``(I, O, k, k)`` is the JAX HWIO kernel
+    ``(k, k, I, O)`` permuted by ``(2, 3, 0, 1)``, not flipped. The init
+    bound is ``sqrt(3 / (O * k * k))``: torch takes the fan from
+    ``weight.size(1)``, which is O for a transposed conv.
+    """
+
+    def __init__(
+        self, in_c: int, out_c: int, k: int, stride: int = 2, padding: int = 1,
+        output_padding: int = 1, *, generator: torch.Generator, dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__(in_c, out_c, k, stride=stride, padding=padding,
+                         output_padding=output_padding, device="meta")
+        self.weight = nn.Parameter(torch.empty(in_c, out_c, k, k))
+        self.bias = nn.Parameter(torch.empty(out_c))
+        bound = (3.0 / (out_c * k * k)) ** 0.5
+        uniform_(self.weight, bound, generator)
+        uniform_(self.bias, bound, generator)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv_transpose2d(
+            x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding,
+            self.output_padding,
         )
 
 

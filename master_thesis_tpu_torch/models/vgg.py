@@ -1,11 +1,15 @@
 """VGG-16 pool-feature extractor (master_thesis_tpu/models/vgg.py:
-VGGFeatures, normalize_imagenet) and the ImageNet constants.
+VGGFeatures, normalize_imagenet, vgg_pool4_pallas) and the ImageNet
+constants.
 
 :class:`VGGFeatures` returns the five post-pool maps the CHN perceptual
-loss reads. Its convs sit at torchvision's ``features.{idx}`` positions, so
-a torchvision ``vgg16`` state dict loads as it is. They are plain convs
-(cuDNN on the card): the JAX package computes them outside Pallas on the
-serving and training paths.
+loss reads, and :meth:`VGGFeatures.pool4` the pool-4 map alone, which DFPN's
+correlation reads (without computing block 5). Its convs sit at
+torchvision's ``features.{idx}`` positions, so a torchvision ``vgg16``
+state dict loads as it is. They are plain convs (cuDNN on the card), as
+the JAX package computes them outside Pallas on the serving and training
+paths; :func:`vgg_pool4_pallas` runs the pool-4 tower on the banded
+conv-stack kernel K8 instead.
 """
 
 from __future__ import annotations
@@ -13,16 +17,21 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from master_thesis_tpu_torch.device import constant, resolve_device
 from master_thesis_tpu_torch.models.nn_ext import Conv
+from master_thesis_tpu_torch.ops.conv_stack import StackCache, conv_stack_banded
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 # torchvision cfg 'D': conv widths with 'M' max-pool separators.
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512, "M"]
+# ``features`` positions of the convs of blocks 1-4, and of the 4th pool.
+_POOL4_BLOCKS = ((0, 2), (5, 7), (10, 12, 14), (17, 19, 21))
+_POOL4_END = 24
 
 
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
@@ -52,6 +61,7 @@ class VGGFeatures(nn.Module):
                 in_c = v
         self.features = nn.Sequential(*layers)
         self.dtype = dtype
+        self.stacks = StackCache()
         self.to(resolve_device(device))
 
     def forward(self, x: torch.Tensor, normalize_input: bool = True) -> List[torch.Tensor]:
@@ -64,3 +74,24 @@ class VGGFeatures(nn.Module):
             if isinstance(layer, nn.MaxPool2d):
                 feats.append(x.permute(0, 2, 3, 1))
         return feats
+
+    def pool4(self, x: torch.Tensor) -> torch.Tensor:
+        """The pool-4 map ``(N, H/16, W/16, 512)`` of NHWC ``x``, which is
+        already ImageNet-normalised (``forward(x, False)[3]``, block 5 not
+        computed)."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        return self.features[:_POOL4_END](x).permute(0, 2, 3, 1)
+
+
+def vgg_pool4_pallas(vgg: VGGFeatures, x: torch.Tensor) -> torch.Tensor:
+    """:meth:`VGGFeatures.pool4` with each block's convs as one banded
+    conv stack (K8, :func:`..ops.conv_stack.conv_stack_banded`) and the
+    max-pools between them (``vgg_pool4_pallas``). ``x`` NHWC, already
+    ImageNet-normalised."""
+    x = x.to(vgg.dtype).contiguous()
+    for i, block in enumerate(_POOL4_BLOCKS):
+        convs = [vgg.features[j] for j in block]
+        p = vgg.stacks.get(f"block{i + 1}", convs, [True] * len(convs), vgg.dtype)
+        x = conv_stack_banded(x, p)
+        x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1).contiguous()
+    return x

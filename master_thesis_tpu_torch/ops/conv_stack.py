@@ -1,0 +1,416 @@
+"""Fused stacks of same-padded convs: the plain version and the CUDA
+kernels K7 and K8 (master_thesis_tpu/ops/pallas_sep4d.py: conv_stack_tiles,
+conv_stack_banded, sep4d_apply_pallas, mixer_apply_pallas).
+
+A stack is a list of odd k x k convs (k = 3 or 5), each same-padded with
+zeros, with its f32 bias and optionally a ReLU. Rounding, shared by the
+kernel and :func:`conv_stack_plain` (``_accum_taps_tile`` /
+``_conv_stack_kernel``): operands in the working dtype, sums in f32, the
+f32 bias added, then ReLU, each conv's output rounded to the working dtype
+before the next conv.
+
+- :func:`conv_stack_tiles` (K7) maps ``(NT, Cin, hw)`` to ``(NT, Cout,
+  hw)``: NT independent ``tile_side``-square images, channel-major, zero
+  padding at each tile's own border. It carries the DFPN correlation
+  mixer (:func:`mixer_apply`) and the separable 4-D conv
+  (:func:`sep4d_apply`).
+- :func:`conv_stack_banded` (K8) maps NHWC ``(N, H, W, Cin)`` to ``(N, H,
+  W, Cout)`` over full frames, zero padding only at the frame's border. It
+  carries the flow estimators' segments and VGG's pool-4 tower.
+
+Both kernels are ``csrc/conv_stack.cu``: a block runs a group of
+consecutive convs over one output tile, a whole image for K7 and a piece of
+a frame with a halo for K8. :func:`plan` cuts a stack into groups whose
+buffers fit a block's shared memory and picks each group's tile; the JAX
+package's VMEM budget (``_stack_band_rows``) does not carry over. A CUDA
+tensor goes through the kernel, a CPU tensor through the plain version;
+nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import itertools
+from typing import List, NamedTuple, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from master_thesis_tpu_torch import _build
+from master_thesis_tpu_torch.ops import fragments
+
+SMEM_LIMIT = 232448  # bytes of shared memory a block can have on an H100
+MAX_STAGES = 16  # convs per launch (csrc/conv_stack.cu)
+SM_COUNT = 132
+# K8 tile candidates (rows, cols), largest first.
+BAND_TILES = ((32, 32), (16, 32), (16, 16), (8, 16), (4, 16), (2, 16), (1, 16))
+# The planner's exchange rate: a byte of device memory costs about as much
+# time as this many bf16 multiply-adds of the kernel (~150 TFLOP/s against
+# ~3 TB/s on an H100).
+MAC_PER_BYTE = 25
+
+
+def _pad16(c: int) -> int:
+    return -(-c // 16) * 16
+
+
+class PackedStack(NamedTuple):
+    """A stack's weights in the layouts both versions read, made once per
+    weight set by :func:`pack_stack`."""
+
+    w: torch.Tensor  # the kernel's B operands, one matrix per conv (working dtype)
+    b: torch.Tensor  # the biases, each zero-padded to a multiple of 16 (f32)
+    kernels: Tuple[torch.Tensor, ...]  # OIHW (working dtype), for the plain version
+    biases: Tuple[torch.Tensor, ...]  # f32
+    relus: Tuple[bool, ...]
+    w_offs: Tuple[int, ...]  # each matrix's offset in w, in 16-byte words
+    b_offs: Tuple[int, ...]  # each bias's offset in b
+
+    @property
+    def specs(self) -> List[Tuple[int, int, int]]:
+        """``(k, cin, cout)`` of each conv."""
+        return [(k.shape[-1], k.shape[1], k.shape[0]) for k in self.kernels]
+
+
+def conv_matrix(w: torch.Tensor) -> torch.Tensor:
+    """OIHW kernel -> the kernel's packed ``(k * k * cin16, O)`` B matrix:
+    rows ``(ky, kx, c)`` with each tap's channels zero-padded to a multiple
+    of 16 (so a K-step of 16 rows is one tap), columns padded to 16."""
+    o, c, k, _ = w.shape
+    hwio = F.pad(w.permute(2, 3, 1, 0), (0, 0, 0, _pad16(c) - c))
+    return fragments.pack(hwio.reshape(k * k * _pad16(c), o))
+
+
+def pack_stack(
+    convs: Sequence[Tuple[torch.Tensor, torch.Tensor]], relus: Sequence[bool], dtype: torch.dtype
+) -> PackedStack:
+    """``(weight OIHW, bias)`` pairs and their ReLU flags -> :class:`PackedStack`
+    on the weights' device."""
+    if len(convs) != len(relus) or not convs:
+        raise ValueError("one ReLU flag per conv, and at least one conv")
+    kernels = tuple(w.detach().to(dtype) for w, _ in convs)
+    for a, b in zip(kernels, kernels[1:]):
+        if a.shape[0] != b.shape[1]:
+            raise ValueError(f"conv widths do not chain: {tuple(a.shape)} -> {tuple(b.shape)}")
+    for k in kernels:
+        if k.shape[-1] != k.shape[-2] or k.shape[-1] % 2 == 0:
+            raise ValueError(f"kernels must be odd and square, got {tuple(k.shape)}")
+    mats = [conv_matrix(k) for k in kernels]
+    biases = tuple(b.detach().float() for _, b in convs)
+    padded = [F.pad(b, (0, _pad16(b.numel()) - b.numel())) for b in biases]
+    w_offs = tuple(itertools.accumulate([m.numel() // 8 for m in mats[:-1]], initial=0))
+    b_offs = tuple(itertools.accumulate([b.numel() for b in padded[:-1]], initial=0))
+    return PackedStack(torch.cat(mats).contiguous(), torch.cat(padded).contiguous(), kernels,
+                       biases, tuple(bool(r) for r in relus), w_offs, b_offs)
+
+
+class StackCache:
+    """Packed stacks of a module's convs, made on first use and made again
+    when a parameter changed since (keyed on each parameter's storage and
+    version counter, which every in-place update advances)."""
+
+    def __init__(self):
+        self._entries = {}
+
+    def get(self, name: str, convs: Sequence, relus: Sequence[bool], dtype: torch.dtype) -> PackedStack:
+        """``convs``: modules with ``weight`` and ``bias``."""
+        key = (dtype,) + tuple((p.data_ptr(), p._version) for m in convs for p in (m.weight, m.bias))
+        hit = self._entries.get(name)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, pack_stack([(m.weight, m.bias) for m in convs], relus, dtype))
+            self._entries[name] = hit
+        return hit[1]
+
+
+def conv_stack_plain(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
+    """The stack on NCHW ``x`` in its dtype, one ``F.conv2d`` per conv."""
+    dt = x.dtype
+    for k, b, relu in zip(p.kernels, p.biases, p.relus):
+        y = F.conv2d(x.float(), k.float(), padding=k.shape[-1] // 2) + b.view(1, -1, 1, 1)
+        x = (torch.relu(y) if relu else y).to(dt)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Launch planning
+# ---------------------------------------------------------------------------
+
+
+class Group(NamedTuple):
+    """One launch: convs ``[lo, hi)`` of the stack over ``th x tw`` tiles."""
+
+    lo: int
+    hi: int
+    th: int
+    tw: int
+    border: int
+    halo: int
+    rs: int
+    cs: int
+    slack: int
+    cpa: int
+    cpb: int
+    smem: int
+
+
+def group_geometry(specs: Sequence[Tuple[int, int, int]], lo: int, hi: int, h: int, w: int,
+                   th: int, tw: int) -> Group:
+    """The buffers of convs ``[lo, hi)`` over ``th x tw`` tiles of ``h x w``
+    images. A tile that covers the image needs a border of the largest
+    radius only (nothing outside the image is computed); a piece of a
+    frame needs the group's halo, the sum of its radii."""
+    part = specs[lo:hi]
+    radii = [k // 2 for k, _, _ in part]
+    halo, rmax = sum(radii), max(radii)
+    whole = th >= h and tw >= w
+    th, tw = min(th, h), min(tw, w)
+    border = rmax if whole else halo
+    rs, cs = th + 2 * border, tw + 2 * border
+    slack = 32  # the last M-tile pair's overrun (csrc/conv_stack.cu)
+    last = len(part) - 1
+    a_ch = [_pad16(part[0][1])] + [_pad16(part[s][2]) for s in range(1, last, 2)]
+    b_ch = [_pad16(part[s][2]) for s in range(0, last, 2)]
+    cpa = max(a_ch) + 8
+    cpb = max(b_ch) + 8 if b_ch else 0
+    smem = (rs * cs + slack) * (cpa + cpb) * 2
+    return Group(lo, hi, th, tw, border, halo, rs, cs, slack, cpa, cpb, smem)
+
+
+def group_cost(specs: Sequence[Tuple[int, int, int]], g: Group, h: int, w: int) -> int:
+    """The planner's cost of group ``g`` per image, in multiply-adds: each
+    stage over the flat pixel range it computes (halo and wrapped columns
+    included, rounded up to the 32-pixel steps of a warp) with padded
+    channels, plus each block's input tile and the group's output at
+    ``MAC_PER_BYTE``."""
+    tiles = -(-h // g.th) * -(-w // g.tw)
+    macs, done = 0, 0
+    for k, ci, co in specs[g.lo:g.hi]:
+        done += k // 2
+        rows, cols = min(g.th + 2 * (g.halo - done), h), min(g.tw + 2 * (g.halo - done), w)
+        pixels = -(-((rows - 1) * g.cs + cols) // 32) * 32
+        macs += pixels * k * k * _pad16(ci) * _pad16(co)
+    load = g.rs * g.cs * specs[g.lo][1] * 2
+    return tiles * (macs + MAC_PER_BYTE * load) + MAC_PER_BYTE * h * w * specs[g.hi - 1][2] * 2
+
+
+@functools.lru_cache(maxsize=None)
+def plan(specs: Tuple[Tuple[int, int, int], ...], h: int, w: int,
+         tiles: Tuple[Tuple[int, int], ...]) -> List[Group]:
+    """Cuts the stack into launches at the least :func:`group_cost`, each
+    group with its cheapest tile of ``tiles`` whose buffers fit
+    ``SMEM_LIMIT``, the larger on a tie (by dynamic programming over the
+    cut points). Fusing
+    convs saves a device-memory round trip; on halo tiles it also
+    recomputes the halo at every stage, on tiles small enough for both
+    buffers. Made once per shape: callers must not modify the list."""
+    best = [(0, [])] + [None] * len(specs)
+    for hi in range(1, len(specs) + 1):
+        for lo in range(max(0, hi - MAX_STAGES), hi):
+            fits = [g for g in (group_geometry(specs, lo, hi, h, w, *t) for t in tiles)
+                    if g.smem <= SMEM_LIMIT]
+            if best[lo] is None or not fits:
+                continue
+            cost, _, g = min((group_cost(specs, g, h, w), -g.th * g.tw, g) for g in fits)
+            if best[hi] is None or best[lo][0] + cost < best[hi][0]:
+                best[hi] = (best[lo][0] + cost, best[lo][1] + [g])
+        if best[hi] is None:
+            raise ValueError(f"conv {hi - 1} of the stack {list(specs)} does not fit in shared memory")
+    return best[-1][1]
+
+
+def plan_tiles(p: PackedStack, tile_side: int) -> List[Group]:
+    """K7's launches: each tile is one block's whole image."""
+    return plan(tuple(p.specs), tile_side, tile_side, ((tile_side, tile_side),))
+
+
+def plan_banded(p: PackedStack, h: int, w: int) -> List[Group]:
+    """K8's launches over ``h x w`` frames."""
+    return plan(tuple(p.specs), h, w, BAND_TILES)
+
+
+def stack_flops(p: PackedStack, images: int, h: int, w: int) -> int:
+    """Multiply-adds x2 of the stack over ``images`` frames of ``h x w``."""
+    return 2 * images * h * w * sum(k * k * ci * co for k, ci, co in p.specs)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+class _Stage(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in ("k", "cin16", "cout", "cout16", "relu", "w_off", "b_off")]
+
+
+class _Launch(ctypes.Structure):
+    """``Launch`` of csrc/conv_stack.cu, field for field."""
+
+    _fields_ = (
+        [("st", _Stage * MAX_STAGES)]
+        + [(n, ctypes.c_int) for n in ("nst", "cin", "H", "W", "TH", "TW", "tiles_x", "tiles",
+                                       "border", "halo", "RS", "CS", "slack", "cpa", "cpb",
+                                       "n_chunk")]
+        + [("in_sn", ctypes.c_longlong), ("out_sn", ctypes.c_longlong)]
+        + [(n, ctypes.c_int) for n in ("in_sc", "in_sp", "out_sc", "out_sp")]
+    )
+
+
+def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = _build.load("conv_stack", defines)
+    lib.conv_stack_forward.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.POINTER(_Launch), ctypes.c_int, ctypes.c_void_p]
+    lib.conv_stack_forward.restype = ctypes.c_int
+    return lib
+
+
+def _n_chunk(g: Group, cout16: int, blocks: int) -> int:
+    """Output channels per block of a single-conv group: split across
+    blocks (in 32s) until about two blocks per SM are in flight."""
+    if g.hi - g.lo > 1 or cout16 < 64:
+        return cout16
+    split = min(cout16 // 32, max(1, -(-2 * SM_COUNT // blocks)))
+    return -(-cout16 // split // 32) * 32
+
+
+def _check_input(x: torch.Tensor, p: PackedStack, dims: int, channel_axis: int) -> None:
+    if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous() or x.dim() != dims:
+        raise ValueError(f"x must be a contiguous {dims}-D bfloat16 CUDA tensor")
+    if x.shape[channel_axis] != p.specs[0][1]:
+        raise ValueError(f"x has {x.shape[channel_axis]} channels, the stack takes {p.specs[0][1]}")
+    if p.w.dtype != torch.bfloat16 or p.w.device != x.device or p.b.device != x.device:
+        raise ValueError("the stack must be packed in bfloat16 on x's device")
+
+
+def _launch(x: torch.Tensor, out: torch.Tensor, p: PackedStack, g: Group, n: int, h: int, w: int,
+            in_strides: Tuple[int, int, int], out_strides: Tuple[int, int, int],
+            lib: ctypes.CDLL) -> None:
+    specs = p.specs
+    desc = _Launch()
+    for s, i in enumerate(range(g.lo, g.hi)):
+        k, ci, co = specs[i]
+        desc.st[s] = _Stage(k, _pad16(ci), co, _pad16(co), int(p.relus[i]), p.w_offs[i], p.b_offs[i])
+    tiles_x = -(-w // g.tw)
+    tiles = -(-h // g.th) * tiles_x
+    cout16 = _pad16(specs[g.hi - 1][2])
+    desc.nst, desc.cin, desc.H, desc.W = g.hi - g.lo, specs[g.lo][1], h, w
+    desc.TH, desc.TW, desc.tiles_x, desc.tiles = g.th, g.tw, tiles_x, tiles
+    desc.border, desc.halo, desc.RS, desc.CS, desc.slack = g.border, g.halo, g.rs, g.cs, g.slack
+    desc.cpa, desc.cpb, desc.n_chunk = g.cpa, g.cpb, _n_chunk(g, cout16, n * tiles)
+    desc.in_sn, desc.in_sc, desc.in_sp = in_strides
+    desc.out_sn, desc.out_sc, desc.out_sp = out_strides
+    rc = lib.conv_stack_forward(x.data_ptr(), out.data_ptr(), p.w.data_ptr(), p.b.data_ptr(),
+                                ctypes.byref(desc), n, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "conv_stack_forward")
+
+
+def _run(x: torch.Tensor, p: PackedStack, groups: List[Group], n: int, h: int, w: int,
+         channel_major: bool, counter) -> torch.Tensor:
+    """The groups in turn; the first reads ``x`` and the last writes the
+    result in ``x``'s layout, the groups between pass pixel-major
+    intermediates."""
+    lib = _lib()
+    hw = h * w
+    cur, cur_cm = x, channel_major
+    for gi, g in enumerate(groups):
+        cin, cout = p.specs[g.lo][1], p.specs[g.hi - 1][2]
+        out_cm = channel_major and gi == len(groups) - 1
+        out = torch.empty((n, cout, hw) if out_cm else (n, hw, cout), dtype=x.dtype, device=x.device)
+        in_strides = (cin * hw, hw, 1) if cur_cm else (cin * hw, 1, cin)
+        out_strides = (cout * hw, hw, 1) if out_cm else (cout * hw, 1, cout)
+        _launch(cur, out, p, g, n, h, w, in_strides, out_strides, lib)
+        counter.launches += 1
+        cur, cur_cm = out, out_cm
+    return cur
+
+
+def conv_stack_tiles_cuda(x: torch.Tensor, p: PackedStack, tile_side: int) -> torch.Tensor:
+    """K7 on ``(NT, Cin, tile_side**2)`` bf16: one launch per group of
+    :func:`plan_tiles`, each block one tile."""
+    _check_input(x, p, 3, 1)
+    nt, _, hw = x.shape
+    if hw != tile_side * tile_side:
+        raise ValueError(f"x holds {hw} pixels per tile, not {tile_side}**2")
+    return _run(x, p, plan_tiles(p, tile_side), nt, tile_side, tile_side, True, conv_stack_tiles_cuda)
+
+
+conv_stack_tiles_cuda.launches = 0
+
+
+def conv_stack_banded_cuda(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
+    """K8 on NHWC ``(N, H, W, Cin)`` bf16: one launch per group of
+    :func:`plan_banded`."""
+    _check_input(x, p, 4, 3)
+    n, h, w, _ = x.shape
+    out = _run(x, p, plan_banded(p, h, w), n, h, w, False, conv_stack_banded_cuda)
+    return out.view(n, h, w, -1)
+
+
+conv_stack_banded_cuda.launches = 0
+
+
+def conv_stack_tiles_plain(x: torch.Tensor, p: PackedStack, tile_side: int) -> torch.Tensor:
+    """K7's plain version on any device."""
+    nt, cin, hw = x.shape
+    return conv_stack_plain(x.reshape(nt, cin, tile_side, tile_side), p).reshape(nt, -1, hw)
+
+
+def conv_stack_banded_plain(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
+    """K8's plain version on any device."""
+    return conv_stack_plain(x.permute(0, 3, 1, 2), p).permute(0, 2, 3, 1).contiguous()
+
+
+def _check_cpu(x: torch.Tensor) -> None:
+    if x.device.type != "cpu":
+        raise ValueError(f"no conv-stack implementation for device {x.device}")
+
+
+def conv_stack_tiles(x: torch.Tensor, p: PackedStack, tile_side: int) -> torch.Tensor:
+    """``(NT, Cin, hw)`` -> ``(NT, Cout, hw)``: the kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if x.is_cuda:
+        return conv_stack_tiles_cuda(x, p, tile_side)
+    _check_cpu(x)
+    return conv_stack_tiles_plain(x, p, tile_side)
+
+
+def conv_stack_banded(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
+    """NHWC ``(N, H, W, Cin)`` -> ``(N, H, W, Cout)``: the kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if x.is_cuda:
+        return conv_stack_banded_cuda(x, p)
+    _check_cpu(x)
+    return conv_stack_banded_plain(x, p)
+
+
+# ---------------------------------------------------------------------------
+# The DFPN stages on K7
+# ---------------------------------------------------------------------------
+
+
+def mixer_apply(p: PackedStack, corr: torch.Tensor, corr_size: int, dtype: torch.dtype) -> torch.Tensor:
+    """The correlation mixer on K7 (``mixer_apply_pallas``): one tile per
+    (b, f), p-space as channels. ``corr (B, F, cs, cs, cs, cs)`` ->
+    ``(B, F, cs, cs, 2)``; ``corr.reshape(b * f, cs**2, cs**2)`` is already
+    channel-major."""
+    b, f = corr.shape[:2]
+    cs = corr_size
+    x = corr.reshape(b * f, cs * cs, cs * cs).to(dtype).contiguous()
+    y = conv_stack_tiles(x, p, cs)  # (b*f, 2, hw)
+    return y.reshape(b, f, -1, cs, cs).permute(0, 1, 3, 4, 2)
+
+
+def sep4d_apply(p1: PackedStack, p2: PackedStack, corr: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The separable 4-D conv on K7 (``sep4d_apply_pallas``): stage 1 over
+    q-space with one tile per (b, f, p), the p <-> q swap as one permute,
+    stage 2 over p-space with one tile per (b, f, q). ``corr (B, F, h, w,
+    h, w)`` -> the same shape in ``dtype``."""
+    b, f, h, w = corr.shape[:4]
+    hw = h * w
+    x = corr.reshape(b * f * hw, 1, hw).to(dtype).contiguous()
+    y = conv_stack_tiles(x, p1, h)  # (b*f*p, C, q)
+    c1 = y.shape[1]
+    y = y.reshape(b * f, hw, c1, hw).permute(0, 3, 2, 1).reshape(b * f * hw, c1, hw)
+    y = conv_stack_tiles(y.contiguous(), p2, h)  # (b*f*q, 1, p)
+    return y.reshape(b * f, hw, hw).transpose(1, 2).reshape(b, f, h, w, h, w)

@@ -60,3 +60,25 @@ def test_cpn_round_trip():
     assert back.keys() == sd.keys()
     for k in sd:
         assert torch.equal(back[k], sd[k]), k
+
+
+def test_dfpn_round_trip():
+    """``dfpn_from_jax`` inverts the JAX ``dfpn_from_torch`` both ways,
+    transposed convs included (base 64: a 4x4 correlation)."""
+    from master_thesis_tpu.models.dfpn import DFPN as JaxDFPN
+    from master_thesis_tpu_torch.models.convert import dfpn_from_jax
+    from master_thesis_tpu_torch.models.dfpn import DFPN
+
+    z = jnp.zeros
+    params = _np_tree(JaxDFPN(base_size=64).init(
+        jax.random.PRNGKey(0), z((1, 64, 64, 3)), z((1, 64, 64, 1)), z((1, 1, 64, 64, 3)),
+        z((1, 1, 64, 64, 1)), z((1, 4, 4, 512)), z((1, 1, 4, 4, 512)),
+    )["params"])
+    port = DFPN(base_size=64, device="cpu")
+    port.load_state_dict(dfpn_from_jax(params))
+    _assert_trees_equal(params, jconvert.dfpn_from_torch(port.state_dict()))
+    sd = DFPN(base_size=64, device="cpu", generator=torch.Generator().manual_seed(3)).state_dict()
+    back = dfpn_from_jax(jconvert.dfpn_from_torch(sd))
+    assert back.keys() == sd.keys()
+    for k in sd:
+        assert torch.equal(back[k], sd[k]), k

@@ -141,3 +141,73 @@ def test_tail_bwd_kernel_matches_plain(cuda, n, h, w):
     assert dx.shape == x.shape and _rel_l2(dx, dx_p) <= K6_L2
     for k in tail_bwd.PARAM_NAMES:
         assert grads[k].shape == grads_p[k].shape and _rel_l2(grads[k], grads_p[k]) <= K6_L2, k
+
+
+# Relative L2 limit of the conv-stack kernels (K7, K8) against their plain
+# versions: both round every conv's output to bf16, and sums in another
+# order flip some of those roundings (chip_smoke.py uses the same limit).
+STACK_L2 = 1e-2
+
+
+def _stack(rng, spec, cin, cuda):
+    """A packed stack of ``spec`` = [(k, cout, relu), ...] from ``cin``."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    convs, relus = [], []
+    for k, cout, relu in spec:
+        w = rng.randn(cout, cin, k, k).astype(np.float32) * (1.0 / (k * k * cin)) ** 0.5
+        b = rng.randn(cout).astype(np.float32) * 0.1
+        convs.append((torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda)))
+        relus.append(relu)
+        cin = cout
+    return conv_stack.pack_stack(convs, relus, torch.bfloat16)
+
+
+@pytest.mark.parametrize("nt,side,cin,spec", [
+    (6, 16, 1, [(3, 128, True), (5, 16, True), (3, 2, False)]),  # Cin 1, Cout 2
+    (7, 16, 16, [(5, 8, True), (3, 4, True), (3, 1, False)]),  # Cout 1, a ragged tile count
+    (3, 4, 16, [(5, 16, True), (3, 8, True), (3, 2, False)]),  # 4x4 tiles
+    (2, 16, 256, [(5, 256, True), (3, 16, True), (5, 2, False)]),  # the mixer's widths, split N
+])
+def test_conv_stack_tiles_kernel_matches_plain(cuda, nt, side, cin, spec):
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    rng = np.random.RandomState(4)
+    p = _stack(rng, spec, cin, cuda)
+    x = torch.from_numpy(rng.randn(nt, cin, side * side).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = conv_stack.conv_stack_tiles_cuda.launches
+    got = conv_stack.conv_stack_tiles_cuda(x, p, side)
+    torch.cuda.synchronize()
+    assert conv_stack.conv_stack_tiles_cuda.launches == before + len(conv_stack.plan_tiles(p, side))
+    want = conv_stack.conv_stack_tiles_plain(x, p, side)
+    assert got.shape == want.shape and _rel_l2(got, want) <= STACK_L2
+
+
+@pytest.mark.parametrize("n,h,w,cin,spec", [
+    (2, 32, 48, 10, [(5, 128, True), (3, 128, True)]),  # flow c0-c1
+    (1, 40, 24, 128, [(5, 128, True), (3, 128, True), (3, 2, False)]),  # c15-c17, halo 4
+    (2, 60, 120, 3, [(3, 64, True), (3, 64, True)]),  # VGG block 1, a ragged frame
+    (1, 5, 7, 16, [(5, 16, True), (3, 1, False)]),  # a frame smaller than a tile
+])
+def test_conv_stack_banded_kernel_matches_plain(cuda, n, h, w, cin, spec):
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    rng = np.random.RandomState(5)
+    p = _stack(rng, spec, cin, cuda)
+    x = torch.from_numpy(rng.randn(n, h, w, cin).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = conv_stack.conv_stack_banded_cuda.launches
+    got = conv_stack.conv_stack_banded_cuda(x, p)
+    torch.cuda.synchronize()
+    assert conv_stack.conv_stack_banded_cuda.launches == before + len(conv_stack.plan_banded(p, h, w))
+    want = conv_stack.conv_stack_banded_plain(x, p)
+    assert got.shape == want.shape and _rel_l2(got, want) <= STACK_L2
+
+
+def test_conv_stack_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    p = _stack(np.random.RandomState(6), [(3, 16, True)], 8, cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv_stack.conv_stack_banded_cuda(torch.zeros(1, 8, 8, 8, device=cuda), p)
+    with pytest.raises(ValueError, match="channels"):
+        conv_stack.conv_stack_tiles_cuda(torch.zeros(1, 4, 64, device=cuda, dtype=torch.bfloat16), p, 8)
