@@ -59,7 +59,28 @@ Phases, each fatal on failure:
    outputs through the kernels against their plain versions on the card,
    read also with a planted fault; host-clock step time, inpainted
    frames/s, the DFPN align alone, peak memory; one step under
-   ``torch.profiler``.
+   ``torch.profiler``;
+9. banded kernels: K2 (the trunk's RDBs in 32-row bands) on one RRDB and
+   on the 20-RRDB trunk at 8 frames of 128x256, K5 (the tail in 32-row
+   bands) at 8 frames of 128x128 and 128x256, each held against its plain
+   band decomposition by relative L2 with TF32 off and read on a weight
+   fault and on the band-edge fault compiled with ``-DBAND_PLANT=1``; each
+   beside its full-frame twin (K1, K4) on the same input: the largest
+   difference, CUDA-event times, bounds, the memory a call holds;
+10. full video: BASELINE.md config 5 through ``infer.Inpainter``, 12
+   frames at 512x512 (one seeded frame over time, a hole strip moving 12
+   rows a frame), nb=20 bf16 on the seeded serving weights, ff / ip / cp
+   with the identity aligner and with a CPN-cost aligner of near-identity
+   geometry, each once to warm up and once timed: seconds per video,
+   frames/s, frames refined, K1 / K2 / K4 / K5 launches, host syncs, peak
+   memory, PSNR / SSIM against the clean frames (floors, with random
+   weights); output checks (finite, in [0, 1], the input where the mask is
+   0, launches on the routes the shape takes); one ff video under
+   ``torch.profiler``; ff at 512x1024 (the banded trunk's route); and on 4
+   frames, every refine of each algorithm's video through the kernels
+   against the same inputs through their plain versions over the hole
+   pixels, read also with two planted faults, the end-to-end difference of
+   the two videos printed beside it.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card or
@@ -105,6 +126,24 @@ STACK_FAULTS = {1: "corner tap left out", 2: "ReLU off the last ReLU conv of eac
 # roundings), and of the small CHN+DFPN input's DFPN outputs, whose
 # cascade of ~50 convs carries those flips on.
 L2_STACK, L2_DFPN = 1e-2, 5e-2
+# The banded kernels (K2, K5): their checks' shapes, 8 frames of the trunk
+# grids of 512x512 and 512x1024 inputs; the fault compiled into both with
+# -DBAND_PLANT=1 drops the halo row above every band but the first.
+BAND_N, BAND_H, BAND_WS = 8, 128, (128, 256)
+BAND_FAULT = "halo row above each band dropped"
+# Relative L2 limit of K2's 20-RRDB trunk against its plain version: the
+# trunk's bf16 floor reads 0.017 at these shapes, and the band-edge fault,
+# which touches the rows at 3 band edges of 128, 0.064 (PERF.md, Findings).
+L2_TRUNK_BANDED = 4e-2
+# The full-video phase: BASELINE.md config 5 (benchmarks.py:config_5), F
+# frames at VIDEO_H x VIDEO_W, and ff at VIDEO_WIDE; the whole-video check
+# of the kernels against their plain versions runs VIDEO_CHECK_F frames.
+VIDEO_F, VIDEO_H, VIDEO_W, VIDEO_WIDE, VIDEO_CHECK_F = 12, 512, 512, 1024, 4
+# Relative L2 limit of that check, pooled over a video's refines (each one
+# CHN call on the same inputs through both paths, over the hole pixels):
+# correct kernels read 0.011-0.017 there, the planted faults 0.059 and up
+# (PERF.md, Findings).
+L2_REFINE = 3e-2
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
@@ -191,7 +230,8 @@ def phase_build():
     t0 = time.perf_counter()
     report = _build.build(_build.SOURCES, [
         (name, (f"-DBWD_PLANT={f}",)) for name in ("rrdb_bwd", "tail_bwd") for f in FAULTS
-    ] + [("conv_stack", (f"-DSTACK_PLANT={f}",)) for f in STACK_FAULTS])
+    ] + [("conv_stack", (f"-DSTACK_PLANT={f}",)) for f in STACK_FAULTS]
+      + [(name, ("-DBAND_PLANT=1",)) for name in ("rrdb", "tail")])
     print(f"build: {len(report)} libraries in {time.perf_counter() - t0:.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})")
     for name, (secs, log) in sorted(report.items()):
@@ -295,12 +335,13 @@ def phase_kernels(chn):
 
 
 def rrdbnet_forward(net, trunk_w, rdb_fn, tail_fn):
-    """``RRDBNet.forward`` with the given trunk weights, RDB and tail."""
+    """``RRDBNet.forward`` on the full-frame routes with the given trunk
+    weights, RDB and tail."""
     from master_thesis_tpu_torch.ops import rrdb
 
     _, tail_w = net.packed()
 
-    def forward(x):
+    def forward(x, trunk_band_rows=None, tail_band_rows=None):
         y = net.conv_first(x).contiguous()
         t = rrdb.rrdb_trunk(y, trunk_w, rdb_fn=rdb_fn)
         return tail_fn((y + net.trunk_conv(t)).contiguous(), tail_w)
@@ -996,6 +1037,370 @@ def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
                 check_groups("CHN+DFPN DFPN outputs", run(), want, L2_DFPN, planted=label)
 
 
+@contextlib.contextmanager
+def planted_band():
+    """Within: the RDB and tail wrappers launch the libraries built with
+    ``-DBAND_PLANT=1`` (csrc/rdb_fwd.cuh, csrc/tail_fwd.cuh): a band's
+    first tile row loses the halo row above the band. Full-frame launches
+    (K1, K4) start at row 0 and are not touched."""
+    from master_thesis_tpu_torch.ops import rrdb, tail
+
+    orig = rrdb._rdb_lib, tail._tail_lib
+    rrdb._rdb_lib = lambda _=(): orig[0](("-DBAND_PLANT=1",))
+    tail._tail_lib = lambda _=(): orig[1](("-DBAND_PLANT=1",))
+    try:
+        yield
+    finally:
+        rrdb._rdb_lib, tail._tail_lib = orig
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within: the trunk's and the tail's CUDA wrappers (K1, K2, K4, K5) run
+    their plain versions on card tensors."""
+    from master_thesis_tpu_torch.ops import rrdb, tail
+
+    orig = rrdb.rdb_cuda, rrdb.rdb_banded_cuda, tail.tail_cuda, tail.tail_banded_cuda
+    rrdb.rdb_cuda, rrdb.rdb_banded_cuda = rrdb.rdb_plain, rrdb.rdb_banded_plain
+    tail.tail_cuda, tail.tail_banded_cuda = tail.tail_plain, tail.tail_banded_plain
+    try:
+        yield
+    finally:
+        rrdb.rdb_cuda, rrdb.rdb_banded_cuda, tail.tail_cuda, tail.tail_banded_cuda = orig
+
+
+def peak_mb(fn):
+    """Device memory a call holds at its peak beyond what was allocated
+    before it (outputs and scratch), in MB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def phase_kernels_banded(chn, results):
+    """K2 (the trunk's RDBs in row bands) and K5 (the tail in row bands)
+    against their plain band decompositions at the video path's shapes:
+    one RRDB and the 20-RRDB trunk at 8 frames of 128x256, the tail at 8
+    frames of 128x128 and of 128x256; each check read on planted faults (a
+    weight fault, and the band-edge fault compiled into the kernels); each
+    kernel beside its full-frame twin (K1, K4) on the same input, times,
+    bounds and the memory a call holds."""
+    from master_thesis_tpu_torch.ops import rrdb, tail
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trunk_w, tail_w = chn.nn.packed()
+    nf = chn.nn.nf
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+    n, h, w = BAND_N, BAND_H, BAND_WS[-1]
+    br = rrdb.TRUNK_BAND_ROWS
+
+    one = [trunk_w[0]]
+    run_k = lambda x, wts=one: rrdb.rrdb_trunk_banded(x, wts, br)
+    run_p = lambda x: rrdb.rrdb_trunk_banded_plain(x, one, br)
+    x = rnd(n, nf, h, w)
+    want = run_p(x)
+    got = run_k(x)
+    err = check(f"K2 rrdb in {h // br} bands ({n}, 64, {h}, {w})", got, want, 1.2 * x.float(), L2_RRDB)
+    for fault in ("x4", "bias5"):
+        bad = [[*one[0][:2], plant_rdb(one[0][2], fault)]]
+        check(f"K2 rrdb, {fault} fault in rdb3", run_k(x, bad), want, 1.2 * x.float(), L2_RRDB,
+              planted=True)
+    with planted_band():
+        check(f"K2 rrdb, {BAND_FAULT}", run_k(x), want, 1.2 * x.float(), L2_RRDB, planted=True)
+    full = rrdb.rrdb_trunk(x, one)
+    print(f"K2 beside K1 full-frame on the same input: max|K2 - K1| = "
+          f"{(got.float() - full.float()).abs().max().item():.6g}")
+    want_t = rrdb.rrdb_trunk_banded_plain(x, trunk_w, br)
+    base = 1.2 ** NB * x.float()
+    check(f"K2 {NB}-RRDB trunk in bands", rrdb.rrdb_trunk_banded(x, trunk_w, br), want_t, base,
+          L2_TRUNK_BANDED, max_abs=False)
+    check(f"K2 {NB}-RRDB trunk, x4 fault in every rdb", rrdb.rrdb_trunk_banded(x, planted_trunk(trunk_w), br),
+          want_t, base, L2_TRUNK_BANDED, max_abs=False, planted=True)
+    with planted_band():
+        check(f"K2 {NB}-RRDB trunk, {BAND_FAULT}", rrdb.rrdb_trunk_banded(x, trunk_w, br), want_t, base,
+              L2_TRUNK_BANDED, max_abs=False, planted=True)
+    w_all = [t for p in one[0] for t in (p.w, p.b)]
+    b_ms, b_by = bound_ms(3 * rrdb.rdb_flops(n, h, w), nbytes(x, x, *w_all))
+    results["K2"] = dict(
+        name=f"rrdb in row bands (rdb_kernel over {br}-row windows, x3 per RRDB)", route="cuda",
+        source="master_thesis_tpu_torch/csrc/rrdb.cu",
+        replaces="master_thesis_tpu/ops/pallas_rrdb.py:541",
+        max_abs_err=err, ms=cuda_ms(lambda: run_k(x)), full_ms=cuda_ms(lambda: rrdb.rrdb_trunk(x, one)),
+        plain_ms=cuda_ms(lambda: run_p(x), iters=5), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        peak_mb=peak_mb(lambda: run_k(x)), full_peak_mb=peak_mb(lambda: rrdb.rrdb_trunk(x, one)),
+        shape=f"one RRDB, {n}x64x{h}x{w}",
+    )
+
+    tbr = tail.TAIL_BAND_ROWS
+    for tw in BAND_WS:
+        y = rnd(n, nf, h, tw)
+        want = tail.tail_banded_plain(y, tail_w, tbr)
+        got = tail.tail_banded_cuda(y, tail_w, tbr)
+        label = f"K5 tail in {h // tbr} bands ({n}, 64, {h}, {tw}) -> ({n}, 3, {4 * h}, {4 * tw})"
+        err = check(label, got, want, None, L2_TAIL)
+        for key in ("up1_b", "last_b"):
+            bad = dict(tail_w, **{key: torch.zeros_like(tail_w[key])})
+            check(f"K5 tail ({tw} columns), {key} dropped", tail.tail_banded_cuda(y, bad, tbr), want, None,
+                  L2_TAIL, planted=True)
+        with planted_band():
+            check(f"K5 tail ({tw} columns), {BAND_FAULT}", tail.tail_banded_cuda(y, tail_w, tbr), want,
+                  None, L2_TAIL, planted=True)
+        print(f"K5 beside K4 full-frame on the same input ({tw} columns): max|K5 - K4| = "
+              f"{(got.float() - tail.tail_cuda(y, tail_w).float()).abs().max().item():.6g}")
+    out = torch.empty(n, 3, 4 * h, 4 * tw, dtype=y.dtype, device=y.device)
+    b_ms, b_by = bound_ms(tail.tail_flops(n, h, tw), nbytes(y, out))
+    results["K5"] = dict(
+        name=f"tail in row bands (upconv_kernel x2, hr_last_kernel per {tbr}-row band)", route="cuda",
+        source="master_thesis_tpu_torch/csrc/tail.cu",
+        replaces="master_thesis_tpu/ops/pallas_tail.py:292",
+        max_abs_err=err, ms=cuda_ms(lambda: tail.tail_banded_cuda(y, tail_w, tbr)),
+        full_ms=cuda_ms(lambda: tail.tail_cuda(y, tail_w)),
+        plain_ms=cuda_ms(lambda: tail.tail_banded_plain(y, tail_w, tbr), iters=5), bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, peak_mb=peak_mb(lambda: tail.tail_banded_cuda(y, tail_w, tbr)),
+        full_peak_mb=peak_mb(lambda: tail.tail_cuda(y, tail_w)), shape=f"{n}x64x{h}x{tw}",
+    )
+    for key, full in (("K2", "K1"), ("K5", "K4")):
+        r = results[key]
+        print(f"kernel {key} {r['name']} at {r['shape']}: kernel_ms={r['ms']:.4f} ({full} full-frame "
+              f"{r['full_ms']:.4f}) plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}) library_ms=null; holds {r['peak_mb']:.1f} MB at its peak "
+              f"({full} {r['full_peak_mb']:.1f} MB)")
+
+
+def identity_align(x_t, m_t, x_r, m_r):
+    """benchmarks.py:config_5's identity aligner: the references are aligned
+    already and visible where their mask is 0."""
+    v_r = 1 - m_r
+    return x_r, v_r, torch.clamp(v_r - (1 - m_t[:, None]), 0, 1)
+
+
+def plausible_cpn_align(cpn, rng, f_max=32):
+    """benchmarks.py:_plausible_cpn_align on the port: the real CPN cost
+    (``AEncoder`` on target and references, ``ARegressor``, ``affine_grid``
+    and the 4-channel ``grid_sample`` warp, as ``CPN.align``) with the
+    regressed theta swapped for a fixed near-identity jitter drawn from
+    ``rng`` (+-2% scale / shear, +-3% shift), the regressed one kept live at
+    1e-6 through tanh. Random CPN weights would regress arbitrary affines."""
+    from master_thesis_tpu_torch.ops.grid_sample import affine_grid, grid_sample
+
+    ident = np.asarray([[1.0, 0, 0], [0, 1.0, 0]], np.float32)
+    jit_tab = torch.from_numpy((ident + np.concatenate(
+        [rng.uniform(-0.02, 0.02, (f_max, 2, 2)), rng.uniform(-0.03, 0.03, (f_max, 2, 1))],
+        axis=2)).astype(np.float32)).cuda()
+
+    def align_fn(x_t, m_t, x_r, m_r):
+        b, f, h, w, c = x_r.shape
+        x_rf, m_rf = x_r.reshape(b * f, h, w, c), m_r.reshape(b * f, h, w, 1)
+        feat_t = cpn.A_Encoder(x_t, m_t)
+        feat_r = cpn.A_Encoder(x_rf, m_rf)
+        feat_t_rep = feat_t[:, None].expand(b, f, *feat_t.shape[1:]).reshape(feat_r.shape)
+        theta = cpn.A_Regressor(feat_t_rep, feat_r)
+        theta = jit_tab[:f].repeat(b, 1, 1) + 1e-6 * torch.tanh(theta.float())
+        grid = affine_grid(theta, (h, w), align_corners=False)
+        warped = grid_sample(torch.cat([x_rf, 1.0 - m_rf], dim=-1), grid, align_corners=False)
+        x_al = warped[..., :c].reshape(b, f, h, w, c)
+        v_al = (warped[..., c:] > 0.5).to(x_r.dtype).reshape(b, f, h, w, 1)
+        return x_al, v_al, torch.clamp(v_al - (1.0 - m_t[:, None]), 0.0, 1.0)
+
+    return align_fn
+
+
+def video_inputs(f, h, w, rng):
+    """config 5's sequence: one seeded random frame over time, a hole strip
+    moving 12 rows a frame (rows 150+12t..270+12t, columns 200..330), the
+    holes filled with 0.45. Returns (x, m, y) on the card."""
+    y = np.broadcast_to(rng.rand(1, h, w, 3), (f, h, w, 3)).astype(np.float32)
+    m = np.zeros((f, h, w, 1), np.float32)
+    for t in range(f):
+        m[t, 150 + 12 * t: 270 + 12 * t, 200:330] = 1
+    x = (1 - m) * y + m * 0.45
+    return tuple(torch.from_numpy(a).cuda() for a in (x, m, y))
+
+
+VIDEO_COUNTERS = ("K1", "K2", "K4", "K5")
+
+
+def video_counters():
+    from master_thesis_tpu_torch.ops import rrdb, tail
+
+    return dict(zip(VIDEO_COUNTERS, (rrdb.rdb_cuda, rrdb.rdb_banded_cuda, tail.tail_cuda,
+                                     tail.tail_banded_cuda)))
+
+
+def run_video(inp, algo, x, m):
+    """One video through ``inp``'s algorithm with the launch counters set to
+    0 just before and read just after. Returns (output, seconds, counts)."""
+    counters = video_counters()
+    inp.refined = inp.syncs = 0
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = getattr(inp, f"inpaint_{algo}")(x, m, as_numpy=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return out, dt, {k: c.launches for k, c in counters.items()}
+
+
+def check_video(label, out, x, m, counts, per_call):
+    """The video's fatal checks: finite output in [0, 1], equal to the input
+    where its mask is 0, and launches on exactly the expected routes:
+    ``per_call`` maps each expected kernel to its launches in one CHN call,
+    and each must account for the same number of calls, the other kernels
+    for none."""
+    if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise RuntimeError(f"{label}: output not finite in [0, 1]")
+    visible = (m == 0).expand_as(x)
+    if not torch.equal(out[visible], x[visible]):
+        raise RuntimeError(f"{label}: output differs from the input where the mask is 0")
+    calls = {counts[k] / n for k, n in per_call.items()}
+    quiet = [k for k in VIDEO_COUNTERS if k not in per_call and counts[k]]
+    if len(calls) != 1 or not min(calls) or min(calls) % 1 or quiet:
+        raise RuntimeError(f"{label}: launches {counts} are not {per_call} a CHN call")
+
+
+def phase_video(cpn, chn, results, device_line):
+    """BASELINE.md config 5 (benchmarks.py:config_5) through the port's
+    ``Inpainter``: F=12 at 512x512, nb=20 bf16, the identity and the
+    plausible-CPN aligners, ff / ip / cp each once to warm up and once
+    timed; ff at 512x1024 (the banded trunk's shape); and every refine of
+    a whole video through the kernels against its inputs through their
+    plain versions."""
+    from master_thesis_tpu_torch.infer import Inpainter
+    from master_thesis_tpu_torch.ops import measures
+    from master_thesis_tpu_torch.train.build import chn_infer_fn
+
+    from master_thesis_tpu_torch.ops import rrdb, tail
+
+    chn.eval()
+    rng = np.random.RandomState(SEED)
+    x, m, y = video_inputs(VIDEO_F, VIDEO_H, VIDEO_W, rng)
+    # Launches a CHN call makes: an RRDB is 3 RDB launches (in every band
+    # for K2), a tail 3 launches (in every band for K5).
+    trunk_bands = len(rrdb.bands(VIDEO_H // 4, rrdb.TRUNK_BAND_ROWS))
+    tail_bands = len(rrdb.bands(VIDEO_H // 4, tail.TAIL_BAND_ROWS))
+    square = {"K1": 3 * NB, "K5": 3 * tail_bands}
+    wide = {"K2": 3 * NB * trunk_bands, "K5": 3 * tail_bands}
+    aligners = (("identity", identity_align), ("plausible CPN", plausible_cpn_align(cpn, rng)))
+    launches = {}
+    for aname, align in aligners:
+        inp = Inpainter(chn_infer_fn(chn), align)
+        for algo in ("ff", "ip", "cp"):
+            run_video(inp, algo, x, m)
+            torch.cuda.reset_peak_memory_stats()
+            out, dt, counts = run_video(inp, algo, x, m)
+            label = f"video {algo}, {aname} aligner, F={VIDEO_F} {VIDEO_H}x{VIDEO_W}"
+            check_video(label, out, x, m, counts, square)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            psnr, ssim = measures.psnr(out, y).item(), measures.ssim(out, y).item()
+            print(f"{label}: {dt:.4f} s/video, {VIDEO_F / dt:.3f} frames/s; {inp.refined} frames "
+                  f"refined, launches {counts}, {inp.syncs} host syncs, max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; PSNR {psnr:.4f} SSIM "
+                  f"{ssim:.4f} (random weights: floors) on {device_line}")
+            if (aname, algo) == ("identity", "ff"):
+                phase_profile(lambda *a: inp.inpaint_ff(*a, as_numpy=False), (x, m), dt)
+
+    xw, mw, _ = video_inputs(VIDEO_F, VIDEO_H, VIDEO_WIDE, np.random.RandomState(SEED + 1))
+    inp = Inpainter(chn_infer_fn(chn), identity_align)
+    run_video(inp, "ff", xw, mw)
+    torch.cuda.reset_peak_memory_stats()
+    out, dt, counts = run_video(inp, "ff", xw, mw)
+    label = f"video ff, identity aligner, F={VIDEO_F} {VIDEO_H}x{VIDEO_WIDE}"
+    check_video(label, out, xw, mw, counts, wide)
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"{label}: {dt:.4f} s/video, {VIDEO_F / dt:.3f} frames/s; {inp.refined} frames refined, "
+          f"launches {counts}, {inp.syncs} host syncs, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {device_line}")
+    for k in ("K2", "K5"):
+        results[k]["launches"] = launches[k]
+    print(f"video path launches, all timed videos: {launches}")
+
+    # The kernels against their plain versions over whole videos (identity
+    # aligner: the schedule follows the masks alone, so every run takes the
+    # same rounds), over the hole pixels (the visible ones are the input's by
+    # construction). Gated per refine: each CHN call of the kernel path
+    # against the plain path on the same inputs, pooled over the video.
+    # Printed beside it, end to end: ip and cp feed refined frames back as
+    # references, and the random network amplifies differences along them.
+    xs, ms = x[:VIDEO_CHECK_F], m[:VIDEO_CHECK_F]
+    hole = (ms == 1).expand_as(xs)
+    x4 = planted_chn(chn)
+    for algo in ("ff", "ip", "cp"):
+        label = f"video {algo}, F={VIDEO_CHECK_F} {VIDEO_H}x{VIDEO_W}"
+        with plain_kernels():
+            want = getattr(Inpainter(chn_infer_fn(chn), identity_align), f"inpaint_{algo}")(
+                xs, ms, as_numpy=False)
+        reads = {}
+        for fault, ctx in (("kernels", contextlib.nullcontext), ("x4 fault in every rdb", x4),
+                           (f"{BAND_FAULT} in K5", planted_band)):
+            refine = CheckedCHN(chn, ctx)
+            got = getattr(Inpainter(refine, identity_align), f"inpaint_{algo}")(xs, ms, as_numpy=False)
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"{label}, {fault}: output not finite")
+            end = ((got - want)[hole].norm() / want[hole].norm()).item()
+            reads[fault] = (refine.rel_l2(label), end)
+        print(f"check {label}, kernels vs plain versions over the hole pixels, per refine (limit "
+              f"{L2_REFINE:g}) / end to end: " + "; ".join(f"{k} {a:.6g} / {b:.6g}" for k, (a, b) in reads.items()))
+        ok, *faults = (a for a, _ in reads.values())
+        if not ok <= L2_REFINE:
+            raise RuntimeError(f"{label}: the kernel path disagrees with the plain path")
+        if not min(faults) > L2_REFINE:
+            raise RuntimeError(f"{label}: the whole-video check does not see a planted fault")
+
+
+class CheckedCHN:
+    """``chn_apply`` through the kernels, with ``fault`` (a context) planted,
+    that also runs each call's inputs through the plain versions and sums
+    the squared differences of ``y_hat`` over the hole pixels (v_t = 0)."""
+
+    def __init__(self, chn, fault):
+        self.chn, self.fault = chn, fault
+        self.sq_diff = self.sq_plain = 0.0
+        self.calls = 0
+
+    def __call__(self, x_t, v_t, xa, va, vm):
+        from master_thesis_tpu_torch.models.chn import chn_infer_apply
+
+        with self.fault():
+            out = chn_infer_apply(self.chn, x_t, v_t, xa, va, vm)
+        with plain_kernels():
+            y_plain, _ = chn_infer_apply(self.chn, x_t, v_t, xa, va, vm)
+        hole = (v_t == 0)[:, None].expand_as(y_plain)
+        self.sq_diff += ((out[0] - y_plain)[hole].norm() ** 2).item()
+        self.sq_plain += (y_plain[hole].norm() ** 2).item()
+        self.calls += 1
+        return out
+
+    def rel_l2(self, label):
+        if not self.sq_plain > 0:
+            raise RuntimeError(f"{label}: the plain path's y_hat is zero on every hole pixel")
+        return (self.sq_diff / self.sq_plain) ** 0.5
+
+
+def planted_chn(chn):
+    """A context within which ``chn`` runs with the x4 fault planted in
+    every RDB (planted_trunk), packed once."""
+    trunk_w, tail_w = chn.nn.packed()
+    bad = planted_trunk(trunk_w)
+
+    @contextlib.contextmanager
+    def ctx():
+        chn.nn.packed = lambda: (bad, tail_w)
+        try:
+            yield
+        finally:
+            del chn.nn.packed
+
+    return ctx
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1028,9 +1433,15 @@ def main() -> int:
     with torch.inference_mode():
         phase_kernels_stack(dfpn, vgg, results)
     phase_dfpn_path(chn, dfpn, vgg, results, smi)
+    with torch.inference_mode():
+        phase_kernels_banded(chn, results)
+    # The video phase's CHN: the serving weights as seeded (the training
+    # phase has moved the shared one).
+    video_chn = CHN(nb=NB, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED + 1))
+    phase_video(cpn, video_chn, results, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: r[k] for k in keys} for r in results.values()]
+    kernels = [{k: r[k] for k in keys} for _, r in sorted(results.items())]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -14,7 +14,9 @@ the CHN forward (:mod:`.models.chn`) with the fused RDB kernel
 (:mod:`.ops.rrdb`) and the tail kernels (:mod:`.ops.tail`); and the CHN
 training step (:mod:`.train.chn_task`, :mod:`.train.state`), whose trunk
 and tail backward passes are kernels too (:mod:`.ops.rrdb_bwd`,
-:mod:`.ops.tail_bwd`).
+:mod:`.ops.tail_bwd`); DFPN alignment (:mod:`.models.dfpn`) on the
+conv-stack kernels (:mod:`.ops.conv_stack`); and full-video inpainting
+(:mod:`.infer`), whose large frames take the banded trunk and tail.
 """
 
 from master_thesis_tpu_torch.device import resolve_device

@@ -32,6 +32,16 @@
 // use, and the input tile is loaded as 16-byte words. The halo recompute
 // costs about 1.8x the ideal operations; one launch per RRDB and wgmma are
 // later work.
+//
+// Row window (K2, replacing pallas_rrdb.py:rrdb_trunk_pallas_banded, body
+// _rdb_band_kernel): a launch may cover only the frame rows [r0, r1) of
+// every frame. Its grid then holds that band's 8x16 tiles, each reading
+// its 5-row halo in place from the frame tensor (zeros outside [0, H), as
+// for K1), so no band copies are made. A TPU band existed because a frame
+// did not fit in VMEM; here every tile already carries its halo, and a
+// band is a set of tile rows: the outputs equal K1's. Compiled with
+// -DBAND_PLANT=1, the first tile row of a band with r0 > 0 drops its halo
+// row r0 - 1 (a fault the checks on the card must catch).
 #pragma once
 
 #include "conv_tile.cuh"
@@ -110,11 +120,11 @@ template <bool HIDDEN>
 __global__ void __launch_bounds__(NTHREAD, 1)
 rdb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res, const uint4* __restrict__ w,
            const float* __restrict__ bias, bf16* __restrict__ out, bf16* __restrict__ hidden,
-           int H, int W) {
+           int H, int W, int r0, int r1) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* buf = reinterpret_cast<bf16*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
+  const int n = blockIdx.z, ty0 = r0 + blockIdx.y * TH, tx0 = blockIdx.x * TW;
   const int gy0 = ty0 - HALO, gx0 = tx0 - HALO;
   const size_t frame = (size_t)NF * H * W;
 
@@ -124,6 +134,13 @@ rdb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res, const uint4
   bf16* hid = HIDDEN ? hidden + (size_t)n * 4 * GC * H * W : nullptr;
   ct::load_tile<CP>(b0, x + n * frame, NF, H, W, gy0, gx0, RS, CS);
   __syncthreads();
+#ifdef BAND_PLANT
+  if (r0 > 0 && blockIdx.y == 0) {  // tile row HALO - 1 holds frame row r0 - 1
+    uint4* row = reinterpret_cast<uint4*>(b0 + (ptrdiff_t)(HALO - 1) * CS * CP);
+    for (int i = threadIdx.x; i < CS * CP / 8; i += NTHREAD) row[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+#endif
   dense_stage<1, HIDDEN>(b0, w, bias, hid, gy0, gx0, H, W, warp, lane);
   __syncthreads();
   dense_stage<2, HIDDEN>(b0, w, bias, hid, gy0, gx0, H, W, warp, lane);
@@ -149,7 +166,7 @@ rdb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res, const uint4
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = g + 8 * h, ox = tx0 + row;
-      if (oy >= H || ox >= W) continue;
+      if (oy >= r1 || ox >= W) continue;
 #pragma unroll
       for (int jn = 0; jn < 2; ++jn) {
 #pragma unroll
@@ -171,19 +188,22 @@ rdb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res, const uint4
 
 namespace rdb {
 
-// Launches rdb_kernel<HIDDEN> on `stream`; returns the CUDA error code.
+// Launches rdb_kernel<HIDDEN> on `stream` over the frame rows [r0, r1)
+// (r1 < 0: to the last row); returns the CUDA error code.
 template <bool HIDDEN>
 inline int launch(const void* x, const void* res, const void* w, const void* b, void* out,
-                  void* hidden, int n, int h, int w_img, void* stream) {
+                  void* hidden, int n, int h, int w_img, void* stream, int r0 = 0, int r1 = -1) {
+  if (r1 < 0) r1 = h;
+  if (r0 < 0 || r1 > h || r0 >= r1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(rdb_kernel<HIDDEN>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((w_img + TW - 1) / TW, (h + TH - 1) / TH, n);
+  const dim3 grid((w_img + TW - 1) / TW, (r1 - r0 + TH - 1) / TH, n);
   rdb_kernel<HIDDEN><<<grid, NTHREAD, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(res), static_cast<const uint4*>(w),
       static_cast<const float*>(b), static_cast<bf16*>(out), static_cast<bf16*>(hidden), h,
-      w_img);
+      w_img, r0, r1);
   return (int)cudaGetLastError();
 }
 

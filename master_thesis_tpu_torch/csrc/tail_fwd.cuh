@@ -25,6 +25,20 @@
 // 128x128 and 256x256 intermediates (about 1.7 GB per step), and the halo
 // of hr_conv costs 1.75x its operations. Fusing all four stages over halo
 // tiles is later work.
+//
+// Row windows (K5, replacing the banded branch of rrdbnet_tail_pallas,
+// body _tail_band_kernel): upconv_kernel computes the input rows [r0, r0 +
+// rows) of its input tensor into an output of 2 * rows rows, reading its
+// 1-row halo in place; hr_last_kernel computes the rows [q0, q0 + nq) of
+// its input and writes them at row o0 of an output of OH rows. The banded
+// tail (ops/tail.py:tail_banded) runs the three launches per band of
+// low-resolution rows with a 4-row halo clipped to the frame, the 2x and
+// 4x intermediates in band-sized scratch, and hr_last writing the band's
+// interior rows straight into the full output; rows outside a tensor read
+// as zeros, and a band clipped at the frame edge has the frame's border.
+// Compiled with -DBAND_PLANT=1, hr_last_kernel drops the input row q0 - 1
+// when q0 > 0 (one halo row at a band edge: a fault the checks on the card
+// must catch).
 #pragma once
 
 #include "conv_tile.cuh"
@@ -46,17 +60,18 @@ static_assert(NWARP * 2 == UP_TH && UP_TW == 16, "two 16-pixel tile rows per war
 
 __global__ void __launch_bounds__(NTHREAD)
 upconv_kernel(const bf16* __restrict__ x, const uint4* __restrict__ w,
-              const float* __restrict__ bias, bf16* __restrict__ out, int h, int w_img) {
+              const float* __restrict__ bias, bf16* __restrict__ out, int h, int w_img, int r0,
+              int rows) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* buf = reinterpret_cast<bf16*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int n = blockIdx.z, ty0 = blockIdx.y * UP_TH, tx0 = blockIdx.x * UP_TW;
+  const int n = blockIdx.z, ty0 = r0 + blockIdx.y * UP_TH, tx0 = blockIdx.x * UP_TW;
   ct::load_tile<CP>(buf, x + (size_t)n * NF * h * w_img, NF, h, w_img, ty0 - 1, tx0 - 1, UP_RS,
                     UP_CS);
   __syncthreads();
 
-  const int H2 = 2 * h, W2 = 2 * w_img;
+  const int H2 = 2 * rows, W2 = 2 * w_img;
   const int m0 = 2 * warp;
   const int pix = (1 + m0) * UP_CS + 1;  // low-res pixel (ty0 + m0, tx0)
 #pragma unroll 1
@@ -68,12 +83,12 @@ upconv_kernel(const bf16* __restrict__ x, const uint4* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int iy = ty0 + m0 + i;
-      if (iy >= h) continue;
+      if (iy >= r0 + rows) continue;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int ix = tx0 + g + 8 * hh;
         if (ix >= w_img) continue;
-        bf16* o_px = out + ((size_t)n * NF * H2 + 2 * iy + a) * W2 + 2 * ix + b;
+        bf16* o_px = out + ((size_t)n * NF * H2 + 2 * (iy - r0) + a) * W2 + 2 * ix + b;
 #pragma unroll
         for (int jn = 0; jn < NF / 8; ++jn) {
 #pragma unroll
@@ -106,13 +121,14 @@ static_assert(HL_TH == NWARP && HL_TW == 16, "one conv_last row per warp");
 __global__ void __launch_bounds__(NTHREAD, 2)
 hr_last_kernel(const bf16* __restrict__ x, const uint4* __restrict__ w_hr,
                const float* __restrict__ b_hr, const uint4* __restrict__ w_last,
-               const float* __restrict__ b_last, bf16* __restrict__ out, int H, int W) {
+               const float* __restrict__ b_last, bf16* __restrict__ out, int H, int W, int q0,
+               int nq, int o0, int OH) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* in_buf = reinterpret_cast<bf16*>(smem);
   bf16* h3_buf = in_buf + (size_t)HL_BUF_PIX * CP;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int n = blockIdx.z, ty0 = blockIdx.y * HL_TH, tx0 = blockIdx.x * HL_TW;
+  const int n = blockIdx.z, ty0 = q0 + blockIdx.y * HL_TH, tx0 = blockIdx.x * HL_TW;
   const int gy0 = ty0 - HL_HALO, gx0 = tx0 - HL_HALO;
 
   ct::zero_smem(in_buf, (int)HL_SMEM);
@@ -121,6 +137,13 @@ hr_last_kernel(const bf16* __restrict__ x, const uint4* __restrict__ w_hr,
   bf16* h30 = h3_buf + HL_PAD * CP;
   ct::load_tile<CP>(in0, x + (size_t)n * NF * H * W, NF, H, W, gy0, gx0, HL_RS, HL_CS);
   __syncthreads();
+#ifdef BAND_PLANT
+  if (q0 > 0 && blockIdx.y == 0) {  // tile row HL_HALO - 1 holds input row q0 - 1
+    uint4* row = reinterpret_cast<uint4*>(in0 + (ptrdiff_t)(HL_HALO - 1) * HL_CS * CP);
+    for (int i = threadIdx.x; i < HL_CS * CP / 8; i += NTHREAD) row[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+#endif
 
   // hr_conv + lrelu; zero outside the frame (conv_last's zero padding).
   if (warp < HL_NPAIR) {
@@ -154,7 +177,7 @@ hr_last_kernel(const bf16* __restrict__ x, const uint4* __restrict__ w_hr,
   const int pix = (HL_HALO + warp) * HL_CS + HL_HALO;
   float acc[1][2][4];
   ct::mma_taps<NF, 1, 1, 3, 3, HL_CS, CP, 1>(acc, h30, pix - HL_CS - 1, 0, w_last, 0, lane);
-  if (t > 1 || oy >= H) return;
+  if (t > 1 || oy >= q0 + nq) return;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int ox = tx0 + g + 8 * hh;
@@ -163,7 +186,7 @@ hr_last_kernel(const bf16* __restrict__ x, const uint4* __restrict__ w_hr,
     for (int e = 0; e < 2; ++e) {
       const int o = 2 * t + e;
       if (o < 3)
-        out[(((size_t)n * 3 + o) * H + oy) * W + ox] =
+        out[(((size_t)n * 3 + o) * OH + o0 + oy - q0) * W + ox] =
             __float2bfloat16(acc[0][0][2 * hh + e] + b_last[o]);
     }
   }
@@ -174,17 +197,39 @@ hr_last_kernel(const bf16* __restrict__ x, const uint4* __restrict__ w_hr,
 namespace tail {
 
 // x: (n, 64, h, w) bf16 NCHW; w: 4 phases of (4 * 64, 64) bf16 matrices,
-// rows (tap, channel), each in fragment order; bias: 64 f32;
-// out: (n, 64, 2h, 2w). Returns the CUDA error code of the launch.
+// rows (tap, channel), each in fragment order; bias: 64 f32; out: (n, 64,
+// 2 * rows, 2w), the input rows [r0, r0 + rows) upsampled (rows < 0: all
+// h). Returns the CUDA error code of the launch.
 inline int upconv(const void* x, const void* w, const void* bias, void* out, int n, int h,
-                  int w_img, void* stream) {
+                  int w_img, void* stream, int r0 = 0, int rows = -1) {
+  if (rows < 0) rows = h;
+  if (r0 < 0 || rows <= 0 || r0 + rows > h) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(upconv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)UP_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((w_img + UP_TW - 1) / UP_TW, (h + UP_TH - 1) / UP_TH, n);
+  const dim3 grid((w_img + UP_TW - 1) / UP_TW, (rows + UP_TH - 1) / UP_TH, n);
   upconv_kernel<<<grid, NTHREAD, UP_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const uint4*>(w), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), h, w_img);
+      static_cast<bf16*>(out), h, w_img, r0, rows);
+  return (int)cudaGetLastError();
+}
+
+// x: (n, 64, h, w) bf16 NCHW; w_hr: (9 * 64, 64) and w_last: (9 * 64, 16)
+// (outputs 3..15 zero), rows (tap, channel), in fragment order; out: (n,
+// 3, oh, w) bf16, whose rows [o0, o0 + nq) receive the input rows [q0, q0 +
+// nq). Returns the CUDA error code of the launch.
+inline int hr_last(const void* x, const void* w_hr, const void* b_hr, const void* w_last,
+                   const void* b_last, void* out, int n, int h, int w_img, int q0, int nq, int o0,
+                   int oh, void* stream) {
+  if (q0 < 0 || nq <= 0 || q0 + nq > h || o0 < 0 || o0 + nq > oh) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(hr_last_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)HL_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((w_img + HL_TW - 1) / HL_TW, (nq + HL_TH - 1) / HL_TH, n);
+  hr_last_kernel<<<grid, NTHREAD, HL_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const uint4*>(w_hr),
+      static_cast<const float*>(b_hr), static_cast<const uint4*>(w_last),
+      static_cast<const float*>(b_last), static_cast<bf16*>(out), h, w_img, q0, nq, o0, oh);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,31 @@ from master_thesis_tpu_torch.ops.tail_bwd import TailFunction
 _HEAD_STRIDES = (1, 1, 2, 1, 2)
 
 
+def kernel_routes(h: int, w: int, nf: int = 64, gc: int = 32) -> Tuple[bool, bool]:
+    """``(trunk banded, tail banded)`` for a trunk grid of ``h x w`` pixels:
+    the decomposition the JAX package's serving path takes at that shape in
+    bf16, so both packages band the same frames.
+
+    - The trunk is banded (K2) past ``pallas_trunk_fits_big``: a 72 MiB
+      budget at ``_trunk_bytes_per_lane`` = 2 432 B a pixel for nf 64, gc
+      32, i.e. past 31 043 pixels (``make_hybrid_trunk``). Where
+      ``banded_trunk_fits`` fails too (grids wider than 287 columns) the
+      JAX package falls back to XLA; the port keeps K2.
+    - The tail is banded (K5) past ``tail_pallas_fits``: 60 nf-row planes
+      of 2 bytes a pixel plus 4 MiB within 88 MiB, i.e. past 11 469 pixels
+      (``make_hybrid_tail``; ``_tail_band_rows`` >= 8 keeps it on the band
+      kernel there, as the port does everywhere).
+
+    These are the TPU's VMEM budgets, kept as the route rule so that the
+    two packages decompose the same shapes alike; they say nothing of the
+    card."""
+    itemsize = 2
+    trunk_px_bytes = 9 * nf * itemsize + nf * 4 + (nf + 4 * gc) * 4 + 2 * nf * itemsize
+    trunk_banded = trunk_px_bytes * h * w > 72 << 20
+    tail_banded = 60 * nf * itemsize * h * w + (4 << 20) > 88 << 20
+    return trunk_banded, tail_banded
+
+
 class ResidualDenseBlock5C(nn.Module):
     """Five dense 3x3 convs (reference model_chn.py:588-623); holds the
     parameters, the packed kernels compute it (:mod:`..ops.rrdb`)."""
@@ -116,16 +141,29 @@ class RRDBNet(nn.Module):
             self._packed_key = key
         return self._packed
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, trunk_band_rows: Optional[int] = None,
+        tail_band_rows: Optional[int] = None,
+    ) -> torch.Tensor:
         """``(N, in_nc, H, W)`` -> ``(N, out_nc, H, W)`` in the compute dtype
         (``rrdbnet_infer_apply``). With grad enabled on trainable
-        parameters this is the training forward (:meth:`forward_train`)."""
+        parameters this is the training forward (:meth:`forward_train`).
+
+        The trunk and the tail take the full-frame or the banded kernels as
+        :func:`kernel_routes` picks for the trunk grid; a band height given
+        for either forces its banded route with that height."""
         if torch.is_grad_enabled() and self.conv_last.weight.requires_grad:
             return self.forward_train(x)
         trunk_w, tail_w = self.packed()
         y = self.conv_first(x).contiguous()
-        trunk = rrdb_ops.rrdb_trunk(y, trunk_w)
+        trunk_banded, tail_banded = kernel_routes(y.shape[2], y.shape[3], self.nf, self.gc)
+        if trunk_band_rows is not None or trunk_banded:
+            trunk = rrdb_ops.rrdb_trunk_banded(y, trunk_w, trunk_band_rows or 0)
+        else:
+            trunk = rrdb_ops.rrdb_trunk(y, trunk_w)
         y = (y + self.trunk_conv(trunk)).contiguous()
+        if tail_band_rows is not None or tail_banded:
+            return tail_ops.tail_banded(y, tail_w, tail_band_rows or 0)
         return tail_ops.tail(y, tail_w)
 
     def forward_train(self, x: torch.Tensor) -> torch.Tensor:
@@ -151,13 +189,18 @@ def chn_infer_apply(
     x_refs_aligned: torch.Tensor,
     v_refs_aligned: torch.Tensor,
     v_maps: torch.Tensor,
+    trunk_band_rows: Optional[int] = None,
+    tail_band_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CHN forward (models/chn.py:430): returns ``(y_hat, y_hat_comp)``,
     both ``(B, F, H, W, 3)``.
 
     Network input channels are ``[x_t, x_ref, v_t, v_ref, v_map]``
     (chn.py:494-503); the output is de-normalized, clipped to [0, 1] and
-    composited with the visible target pixels (chn.py:510-512).
+    composited with the visible target pixels (chn.py:510-512). The trunk
+    and the tail route by shape (:func:`kernel_routes`); a band height for
+    either forces its banded route, as the JAX functions' ``band_rows=``
+    do.
     """
     b, f, h, w, c = x_refs_aligned.shape
     mean = constant(IMAGENET_MEAN, x_target.dtype, x_target.device)
@@ -169,7 +212,8 @@ def chn_infer_apply(
         dim=-1,
     ).reshape(b * f, h, w, 9)
     nn_input = nn_input.permute(0, 3, 1, 2).to(chn.dtype).contiguous()
-    nn_output = chn.nn(nn_input).permute(0, 2, 3, 1).reshape(b, f, h, w, 3)
+    nn_output = chn.nn(nn_input, trunk_band_rows, tail_band_rows)
+    nn_output = nn_output.permute(0, 2, 3, 1).reshape(b, f, h, w, 3)
     out_dtype = torch.promote_types(x_target.dtype, torch.float32)
     y_hat = torch.clamp(nn_output.to(out_dtype) * std + mean, 0.0, 1.0)
     y_hat_comp = v_t * x_t + (1 - v_t) * y_hat

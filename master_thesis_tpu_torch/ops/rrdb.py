@@ -1,6 +1,6 @@
-"""The RRDB trunk: weight packing, plain version and the CUDA RDB kernel
+"""The RRDB trunk: weight packing, plain versions and the CUDA RDB kernel
 (master_thesis_tpu/ops/pallas_rrdb.py: rrdb_pallas, rrdb_trunk_pallas,
-_split_rdb_weights, rrdb_trunk_xla).
+rrdb_trunk_pallas_banded, _split_rdb_weights, rrdb_trunk_xla).
 
 An RRDB is three residual dense blocks (RDBs) and a residual:
 ``rrdb(x) = 0.2 * rdb3(rdb2(rdb1(x))) + x``. Each RDB runs five dense 3x3
@@ -10,6 +10,9 @@ convs, ``x_k = lrelu(conv_k(cat(x, x1..x_{k-1})))`` for k < 5, and returns
 The CUDA kernel (``csrc/rrdb.cu``) computes one whole RDB per launch over
 (frame, spatial tile), so an RRDB is three launches and the third adds the
 RRDB residual in its epilogue. Layout inside: NCHW in the working dtype.
+The banded trunk (K2, :func:`rrdb_trunk_banded`) launches the same kernel
+once per row band of every frame, each band's tiles reading their 5-row
+halo in place from the frame.
 
 Rounding, shared by the kernel and :func:`rdb_plain`: conv operands and
 x1..x4 in the working dtype, sums, bias and lrelu in f32, the RDB output
@@ -160,18 +163,17 @@ _RDB_W_NUMEL = sum(fragments.numel(9 * cin, cout) for cin, cout in _widths(KERNE
 _RDB_B_NUMEL = sum(cout for _, cout in _widths(KERNEL_NF, KERNEL_GC))
 
 
-def _rdb_lib() -> ctypes.CDLL:
-    lib = _build.load("rrdb")
-    lib.rdb_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.rdb_forward.restype = ctypes.c_int
+def _rdb_lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = _build.load("rrdb", defines)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rdb_forward.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    lib.rdb_forward.restype = ci
+    lib.rdb_forward_rows.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+    lib.rdb_forward_rows.restype = ci
     return lib
 
 
-def rdb_cuda(
-    x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None
-) -> torch.Tensor:
-    """One RDB through the CUDA kernel (``csrc/rrdb.cu``); bf16 NCHW with
-    nf=64, gc=32. With ``res`` the epilogue adds the RRDB residual."""
+def _check_rdb_args(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor]) -> None:
     _check_activation(x, "x")
     if res is not None:
         _check_activation(res, "res")
@@ -184,12 +186,20 @@ def rdb_cuda(
         )
     if (b.dtype, b.numel(), b.device) != (torch.float32, _RDB_B_NUMEL, x.device) or not b.is_contiguous():
         raise ValueError("b must be the packed f32 RDB biases on x's device")
+
+
+def rdb_cuda(
+    x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """One RDB through the CUDA kernel (``csrc/rrdb.cu``); bf16 NCHW with
+    nf=64, gc=32. With ``res`` the epilogue adds the RRDB residual."""
+    _check_rdb_args(x, p, res)
     n, _, h, wd = x.shape
     out = torch.empty_like(x)
     lib = _rdb_lib()
     rc = lib.rdb_forward(
-        x.data_ptr(), None if res is None else res.data_ptr(), w.data_ptr(),
-        b.data_ptr(), out.data_ptr(), n, h, wd,
+        x.data_ptr(), None if res is None else res.data_ptr(), p.w.data_ptr(),
+        p.b.data_ptr(), out.data_ptr(), n, h, wd,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, "rdb_forward")
@@ -198,6 +208,64 @@ def rdb_cuda(
 
 
 rdb_cuda.launches = 0
+
+# Rows of halo a band of one RDB needs: one per conv (_BAND_HALO).
+BAND_HALO = 5
+# The banded trunk's default band height on the card: four 8-row tile rows
+# of the kernel, so no tile row straddles two bands (the TPU kernel's band
+# height, _band_rows, came from its VMEM budget).
+TRUNK_BAND_ROWS = 32
+
+
+def bands(h: int, band_rows: int) -> List[Tuple[int, int]]:
+    """The row bands ``[r0, r1)`` of a frame of ``h`` rows, ``band_rows``
+    each (the last one shorter when it does not divide ``h``)."""
+    if band_rows <= 0:
+        raise ValueError(f"band_rows must be positive, got {band_rows}")
+    return [(r0, min(r0 + band_rows, h)) for r0 in range(0, h, band_rows)]
+
+
+def rdb_banded_cuda(
+    x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
+    band_rows: int = TRUNK_BAND_ROWS,
+) -> torch.Tensor:
+    """One RDB through the CUDA kernel in row bands (K2): one launch per
+    band of every frame, over that band's tiles only. The output equals
+    :func:`rdb_cuda`'s."""
+    _check_rdb_args(x, p, res)
+    n, _, h, wd = x.shape
+    out = torch.empty_like(x)
+    lib = _rdb_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for r0, r1 in bands(h, band_rows):
+        rc = lib.rdb_forward_rows(
+            x.data_ptr(), None if res is None else res.data_ptr(), p.w.data_ptr(),
+            p.b.data_ptr(), out.data_ptr(), n, h, wd, r0, r1, stream,
+        )
+        _build.check(lib, rc, "rdb_forward_rows")
+        rdb_banded_cuda.launches += 1
+    return out
+
+
+rdb_banded_cuda.launches = 0
+
+
+def rdb_banded_plain(
+    x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
+    band_rows: int = TRUNK_BAND_ROWS,
+) -> torch.Tensor:
+    """:func:`rdb_plain` in the TPU kernel's band decomposition
+    (``rrdb_trunk_pallas_banded``): each band of rows with a
+    :data:`BAND_HALO`-row halo, clipped at the frame so the conv's zero
+    padding there is the frame's own border, through :func:`rdb_plain`;
+    only the band's own rows are kept."""
+    h = x.shape[2]
+    outs = []
+    for r0, r1 in bands(h, band_rows):
+        lo, hi = max(r0 - BAND_HALO, 0), min(r1 + BAND_HALO, h)
+        y = rdb_plain(x[:, :, lo:hi], p, None if res is None else res[:, :, lo:hi])
+        outs.append(y[:, :, r0 - lo: r1 - lo])
+    return torch.cat(outs, dim=2)
 
 
 def rdb(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -221,6 +289,29 @@ def rrdb_trunk(
             y = rdb_fn(y, p, res=x if j == 2 else None)
         x = y
     return x
+
+
+def rrdb_trunk_banded(
+    x: torch.Tensor, packed: Sequence[Sequence[PackedRDB]], band_rows: int = 0
+) -> torch.Tensor:
+    """The trunk with every RDB in row bands of ``band_rows`` rows
+    (:data:`TRUNK_BAND_ROWS` for 0): K2 for a CUDA tensor, the plain band
+    decomposition for a CPU tensor."""
+    br = band_rows or TRUNK_BAND_ROWS
+    if x.is_cuda:
+        return rrdb_trunk(x, packed, rdb_fn=functools.partial(rdb_banded_cuda, band_rows=br))
+    if x.device.type != "cpu":
+        raise ValueError(f"no RDB implementation for device {x.device}")
+    return rrdb_trunk_banded_plain(x, packed, br)
+
+
+def rrdb_trunk_banded_plain(
+    x: torch.Tensor, packed: Sequence[Sequence[PackedRDB]], band_rows: int = 0
+) -> torch.Tensor:
+    """The plain banded trunk (:func:`rdb_banded_plain` for every RDB) on
+    any device."""
+    br = band_rows or TRUNK_BAND_ROWS
+    return rrdb_trunk(x, packed, rdb_fn=functools.partial(rdb_banded_plain, band_rows=br))
 
 
 def rdb_flops(n: int, h: int, w: int, nf: int = KERNEL_NF, gc: int = KERNEL_GC) -> int:

@@ -1,5 +1,5 @@
-"""Model construction and aligner closures (master_thesis_tpu/train/build.py:
-build_dfpn, dfpn_align_fn).
+"""Model construction and the closures the algorithms call
+(master_thesis_tpu/train/build.py: build_dfpn, dfpn_align_fn, chn_infer_fn).
 
 :func:`dfpn_align_fn` is the DFPN aligner with ``CPN.align``'s interface:
 VGG-16 pool-4 features of the normalised, ``base_size``-resized frames,
@@ -15,6 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
+from master_thesis_tpu_torch.models.chn import CHN, chn_infer_apply
 from master_thesis_tpu_torch.models.dfpn import (
     DFPN,
     dfpn_align,
@@ -56,3 +57,10 @@ def dfpn_align_fn(
         return dfpn_align(apply_fn, x_t, m_t, x_r, m_r, feats_t, feats_r)
 
     return align_fn
+
+
+def chn_infer_fn(chn: CHN) -> Callable:
+    """``chn_apply(x_t, v_t, x_refs, v_refs, v_maps) -> (y_hat,
+    y_hat_comp)`` through :func:`chn_infer_apply` (the serving routes), the
+    closure :class:`..infer.Inpainter` calls."""
+    return partial(chn_infer_apply, chn)

@@ -70,12 +70,53 @@ def test_tail_kernels_match_plain(cuda, n, h, w):
     _assert_close(got, tail.tail_plain(x, p))
 
 
+@pytest.mark.parametrize("n,h,w,band_rows", [(2, 20, 16, 8), (1, 13, 21, 5), (2, 60, 120, 32)])
+def test_rdb_banded_kernel_matches_plain_and_full_frame(cuda, n, h, w, band_rows):
+    """K2: one launch per band; equal to K1 (each output pixel reads the same
+    tile of its frame), and to the plain band decomposition within TOL."""
+    rng = np.random.RandomState(7)
+    nf, gc = rrdb.KERNEL_NF, rrdb.KERNEL_GC
+    convs = [_conv(rng, nf + k * gc, gc if k < 4 else nf, (1.0 / (9 * (nf + k * gc))) ** 0.5) for k in range(5)]
+    packed = rrdb.pack_rdb([(w_.to(cuda), b.to(cuda)) for w_, b in convs], torch.bfloat16)
+    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    res = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = rrdb.rdb_banded_cuda.launches
+    got = rrdb.rdb_banded_cuda(x, packed, res, band_rows)
+    torch.cuda.synchronize()
+    assert rrdb.rdb_banded_cuda.launches == before + len(rrdb.bands(h, band_rows))
+    assert torch.equal(got, rrdb.rdb_cuda(x, packed, res))
+    _assert_close(got, rrdb.rdb_banded_plain(x, packed, res, band_rows))
+
+
+@pytest.mark.parametrize("n,h,w,band_rows", [(2, 20, 8, 8), (1, 13, 7, 4), (2, 60, 120, 32)])
+def test_tail_banded_kernels_match_plain_and_full_frame(cuda, n, h, w, band_rows):
+    """K5: three launches per band; equal to K4 on every output row (a
+    band's halo covers the four stages' reach), and to the plain band
+    decomposition within TOL."""
+    rng = np.random.RandomState(8)
+    nf = tail.KERNEL_NF
+    convs = [_conv(rng, nf, nf, 0.05) for _ in range(3)] + [_conv(rng, nf, 3, 0.05)]
+    p = {k: v.to(cuda) for k, v in tail.pack_tail(*convs, torch.bfloat16).items()}
+    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = tail.tail_banded_cuda.launches
+    got = tail.tail_banded_cuda(x, p, band_rows)
+    torch.cuda.synchronize()
+    assert tail.tail_banded_cuda.launches == before + 3 * len(rrdb.bands(h, band_rows))
+    assert got.shape == (n, 3, 4 * h, 4 * w)
+    assert torch.equal(got, tail.tail_cuda(x, p))
+    _assert_close(got, tail.tail_banded_plain(x, p, band_rows))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 64, 8, 8, device=cuda)  # f32: the kernels take bf16
     with pytest.raises(ValueError, match="bfloat16"):
         rrdb.rdb_cuda(x, rrdb.PackedRDB(torch.zeros(1, device=cuda), torch.zeros(1, device=cuda), ()))
     with pytest.raises(ValueError, match="bfloat16"):
         tail.tail_cuda(x, {})
+    with pytest.raises(ValueError, match="bfloat16"):
+        rrdb.rdb_banded_cuda(x, rrdb.PackedRDB(torch.zeros(1, device=cuda), torch.zeros(1, device=cuda), ()))
+    with pytest.raises(ValueError, match="bfloat16"):
+        tail.tail_banded_cuda(x, {})
 
 
 def _rel_l2(got, want):

@@ -1,12 +1,17 @@
-"""The port's RRDB plain version against the JAX fused RRDB kernel
-(``rrdb_pallas`` / ``rrdb_trunk_pallas`` in interpret mode), f32."""
+"""The port's RRDB plain versions against the JAX fused RRDB kernels
+(``rrdb_pallas`` / ``rrdb_trunk_pallas`` / ``rrdb_trunk_pallas_banded`` in
+interpret mode), f32."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from master_thesis_tpu.ops.pallas_rrdb import rrdb_pallas, rrdb_trunk_pallas
+from master_thesis_tpu.ops.pallas_rrdb import (
+    rrdb_pallas,
+    rrdb_trunk_pallas,
+    rrdb_trunk_pallas_banded,
+)
 from master_thesis_tpu_torch.ops import fragments
 from master_thesis_tpu_torch.ops import rrdb as trrdb
 
@@ -68,6 +73,36 @@ def test_rrdb_plain_chain_matches_trunk(rng):
         [_pack(p1), _pack(p2)],
     )
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want), atol=5e-5)
+
+
+@pytest.mark.parametrize("band_rows", [3, 4, 12])
+def test_rrdb_trunk_banded_plain_matches_pallas_banded(rng, band_rows):
+    """Two RRDBs at nf 16, gc 8 on a 14x8 frame in row bands: 3 and 4 give
+    5 and 4 bands whose last one is 2 rows, 12 a band of 12 and one of 2;
+    the first and last bands are clipped by the frame, the halos of the
+    others read their neighbours. Tolerance as the full-frame trunk's."""
+    nf, gc, h, w, n = 16, 8, 14, 8, 2
+    p1, p2 = _rrdb_params(rng, nf, gc), _rrdb_params(rng, nf, gc)
+    x = rng.rand(n, h, w, nf).astype(np.float32)
+    want = rrdb_trunk_pallas_banded(
+        jnp.asarray(x), {"rrdb_0": _to_jax(p1), "rrdb_1": _to_jax(p2)}, nb=2,
+        nf=nf, gc=gc, interpret=True, band_rows=band_rows,
+    )
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    packed = [_pack(p1), _pack(p2)]
+    got = trrdb.rrdb_trunk_banded_plain(xt, packed, band_rows)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want), atol=5e-5)
+    # The CPU dispatch takes the plain version; the bands change nothing.
+    torch.testing.assert_close(trrdb.rrdb_trunk_banded(xt, packed, band_rows), got, atol=0, rtol=0)
+    torch.testing.assert_close(got, trrdb.rrdb_trunk(xt, packed), atol=1e-5, rtol=0)
+
+
+def test_bands_cover_the_frame():
+    assert trrdb.bands(14, 4) == [(0, 4), (4, 8), (8, 12), (12, 14)]
+    assert trrdb.bands(128, trrdb.TRUNK_BAND_ROWS) == [(0, 32), (32, 64), (64, 96), (96, 128)]
+    assert trrdb.bands(5, 8) == [(0, 5)]
+    with pytest.raises(ValueError, match="positive"):
+        trrdb.bands(5, 0)
 
 
 def test_pack_rdb_layout(rng):

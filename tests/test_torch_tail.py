@@ -1,6 +1,6 @@
-"""The port's tail plain version against the JAX phase-space tail kernel
-(``rrdbnet_tail_pallas`` in interpret mode), f32; and the packed layouts
-the CUDA tail kernels read."""
+"""The port's tail plain versions against the JAX phase-space tail kernel
+(``rrdbnet_tail_pallas`` in interpret mode, full frame and in row bands),
+f32; and the packed layouts the CUDA tail kernels read."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +41,25 @@ def test_tail_plain_matches_pallas(rng, h, w, n):
     got = ttail.tail(torch.from_numpy(y).permute(0, 3, 1, 2).contiguous(), _pack(p))
     assert got.shape == (n, 3, 4 * h, 4 * w)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want), atol=5e-5)
+
+
+@pytest.mark.parametrize("band_rows", [2, 4])
+def test_tail_banded_plain_matches_pallas_banded(rng, band_rows):
+    """A 10x6 input in row bands with the 4-row halo: 2 gives 5 bands, 4
+    gives 4, 4 and a last band of 2; only the first and last are clipped by
+    the frame at both band heights. Tolerance as the full-frame tail's."""
+    nf, h, w, n = 16, 10, 6, 2
+    p = _tail_params(rng, nf)
+    y = rng.randn(n, h, w, nf).astype(np.float32)
+    want = rrdbnet_tail_pallas({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(y), jnp.float32,
+                               interpret=True, band_rows=band_rows)
+    x = torch.from_numpy(y).permute(0, 3, 1, 2).contiguous()
+    packed = _pack(p)
+    got = ttail.tail_banded_plain(x, packed, band_rows)
+    assert got.shape == (n, 3, 4 * h, 4 * w)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want), atol=5e-5)
+    torch.testing.assert_close(ttail.tail_banded(x, packed, band_rows), got, atol=0, rtol=0)
+    torch.testing.assert_close(got, ttail.tail_plain(x, packed), atol=1e-5, rtol=0)
 
 
 def test_tail_kernel_layouts(rng):
