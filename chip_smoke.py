@@ -9,12 +9,19 @@ Phases, each fatal on failure:
    csrc/`` with nvcc for ``sm_90a`` (registers, shared memory and spills
    from ``-Xptxas -v``);
 3. kernels: each kernel wrapper on card tensors at the main path's shapes
-   (and a ragged shape), held against its plain PyTorch version with TF32
+   (and ragged shapes), held against its plain PyTorch version with TF32
    off: max|kernel - plain| <= 1e-2 * max|plain| (both round operands to
    bf16 at the same points and sum in different orders), and a relative
    L2 limit on the part the convs compute (an RRDB's output less its
    identity part ``1.2 x``); each check is also read on a fault planted in
-   the kernel's weights and must catch it; CUDA-event times;
+   the kernel's weights (and, for K1, in its code: ``-DRDB_PLANT=1`` on
+   the ragged 2x60x120 check) and must catch it; K1's x1..x4 against the
+   plain version's and against the first K1 design (``rdb_forward_tiles``
+   / ``rdb_forward_hidden``, an independent implementation); K1 beside
+   that first design and the cuDNN route (five ``F.conv2d`` a RDB) on the
+   same inputs at 80x64x64 and 8x128x128 (fatal unless K1 is faster than
+   the first design); each of an RDB's five convs against its floor;
+   CUDA-event times;
 4. main path: ``CPN.align`` then ``chn_infer_apply`` at B=16, F=5, 256x256,
    nb=20, bf16 compute on seeded random weights (bench.py's step); the
    launch counts of one step; output checks; a small input through the
@@ -29,7 +36,8 @@ Phases, each fatal on failure:
    off by the relative L2 of dx and of each weight / bias grad group, each
    check also read on three faults planted in the kernels' code (compiled
    with ``-DBWD_PLANT``: lrelu slope 0.25 in the masks, the centre tap left
-   out of the weight grads, the bias grads dropped); device times (the
+   out of the weight grads, the bias grads dropped); the cost of the
+   trunk's layout conversions (K1 channels-last, K3 NCHW); device times (the
    kernels' sum under ``torch.profiler``: a backward is a chain of short
    launches, and CUDA events around it also count the host's gaps, which
    are printed beside);
@@ -66,7 +74,9 @@ Phases, each fatal on failure:
    band decomposition by relative L2 with TF32 off and read on a weight
    fault and on the band-edge fault compiled with ``-DBAND_PLANT=1``; each
    beside its full-frame twin (K1, K4) on the same input: the largest
-   difference, CUDA-event times, bounds, the memory a call holds;
+   difference (K2 must equal K1 bit for bit, on one RRDB and on the
+   trunk), CUDA-event times, bounds, the memory a call holds; K2's RRDB
+   also beside the first K1 design and the cuDNN route;
 10. full video: BASELINE.md config 5 through ``infer.Inpainter``, 12
    frames at 512x512 (one seeded frame over time, a hole strip moving 12
    rows a frame), nb=20 bf16 on the seeded serving weights, ff / ip / cp
@@ -144,6 +154,11 @@ VIDEO_F, VIDEO_H, VIDEO_W, VIDEO_WIDE, VIDEO_CHECK_F = 12, 512, 512, 1024, 4
 # correct kernels read 0.011-0.017 there, the planted faults 0.059 and up
 # (PERF.md, Findings).
 L2_REFINE = 3e-2
+# Relative L2 limit of K1's x1..x4 against the plain version's and the first
+# design's (each one conv deep in bf16: correct kernels read ~3e-4), and
+# the fault compiled into K1 / K2 with -DRDB_PLANT=1.
+L2_HIDDEN = 5e-3
+RDB_FAULT = "right halo column of every row run read as zeros"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
@@ -231,7 +246,8 @@ def phase_build():
     report = _build.build(_build.SOURCES, [
         (name, (f"-DBWD_PLANT={f}",)) for name in ("rrdb_bwd", "tail_bwd") for f in FAULTS
     ] + [("conv_stack", (f"-DSTACK_PLANT={f}",)) for f in STACK_FAULTS]
-      + [(name, ("-DBAND_PLANT=1",)) for name in ("rrdb", "tail")])
+      + [(name, ("-DBAND_PLANT=1",)) for name in ("rrdb", "tail")]
+      + [("rrdb", ("-DRDB_PLANT=1",))])
     print(f"build: {len(report)} libraries in {time.perf_counter() - t0:.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})")
     for name, (secs, log) in sorted(report.items()):
@@ -239,7 +255,7 @@ def phase_build():
         if "_PLANT" in name:
             continue
         for line in log.splitlines():
-            if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "smem", "wgmma")):
                 print(f"  ptxas {name}: {line.strip()}")
 
 
@@ -264,11 +280,76 @@ def planted_trunk(trunk_w, fault="x4"):
     return [[plant_rdb(p, fault) for p in rdbs] for rdbs in trunk_w]
 
 
+def channels_last(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+@contextlib.contextmanager
+def planted_rdb():
+    """Within: the RDB wrappers (K1, K2) launch the library built with
+    ``-DRDB_PLANT=1`` (csrc/conv3x3_wgmma.cuh): every row run's right halo
+    column is read as zeros, which only a frame wider than one 64-pixel
+    run shows."""
+    from master_thesis_tpu_torch.ops import rrdb
+
+    orig = rrdb._rdb_lib
+    rrdb._rdb_lib = lambda _=(): orig(("-DRDB_PLANT=1",))
+    try:
+        yield
+    finally:
+        rrdb._rdb_lib = orig
+
+
+def rrdb_tiles(x, rdbs):
+    """One RRDB through the first K1 design (``csrc/rrdb.cu:
+    rdb_forward_tiles``: fused RDBs over 8x16 tiles, NCHW, B in mma.sync
+    fragment order), an independent implementation that only this script
+    runs, on contiguous NCHW ``x``."""
+    import ctypes
+
+    from master_thesis_tpu_torch import _build
+
+    lib = _build.load("rrdb")
+    lib.rdb_forward_tiles.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.rdb_forward_tiles.restype = ctypes.c_int
+    n, _, h, w = x.shape
+    y = x
+    for j, p in enumerate(rdbs):
+        out = torch.empty_like(x)
+        rc = lib.rdb_forward_tiles(y.data_ptr(), x.data_ptr() if j == 2 else None, p.w.data_ptr(),
+                                   p.b.data_ptr(), out.data_ptr(), n, h, w,
+                                   torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, rc, "rdb_forward_tiles")
+        y = out
+    return y
+
+
+def rrdb_cudnn(x, rdbs):
+    """One RRDB as the cuDNN route: each RDB's five ``F.conv2d`` in bf16
+    channels-last with the concatenations (TF32 off). K1's yardstick beside
+    it; the port never calls it."""
+    import torch.nn.functional as F
+
+    y = x
+    for j, p in enumerate(rdbs):
+        ks = [channels_last(k) for k in p.kernels]
+        bs = [b.to(x.dtype) for b in p.b.split([k.shape[0] for k in ks])]
+        feats = [y]
+        for k in range(4):
+            feats.append(F.leaky_relu(F.conv2d(torch.cat(feats, 1), ks[k], bs[k], padding=1), 0.2))
+        out = 0.2 * F.conv2d(torch.cat(feats, 1), ks[4], bs[4], padding=1) + y
+        y = 0.2 * out + x if j == 2 else out
+    return y
+
+
 def phase_kernels(chn):
-    """K1 (RRDB = 3 RDB launches) and K4 (tail = 3 launches) against their
-    plain versions, at the main path's shapes and a ragged one; each check
-    also read on a planted fault."""
-    from master_thesis_tpu_torch.ops import rrdb, tail
+    """K1 (RRDB = 3 RDB calls of 5 conv launches) and K4 (tail = 3
+    launches) against their plain versions, at the main path's shapes and
+    ragged ones; each check also read on a planted fault; K1's x1..x4
+    against the plain version's and the first design's; K1 beside the
+    first design and the cuDNN route on the same inputs; each conv of an
+    RDB against its floor."""
+    from master_thesis_tpu_torch.ops import rrdb, rrdb_bwd, tail
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -282,30 +363,69 @@ def phase_kernels(chn):
     one = [trunk_w[0]]
     run_k = lambda x, w=one: rrdb.rrdb_trunk(x, w)
     run_p = lambda x: rrdb.rrdb_trunk(x, one, rdb_fn=rrdb.rdb_plain)
-    x = rnd(n, nf, H // 4, W // 4)
+    x = channels_last(rnd(n, nf, H // 4, W // 4))
     want = run_p(x)
     err = check("K1 rrdb (80, 64, 64, 64)", run_k(x), want, 1.2 * x.float(), L2_RRDB)
     for fault in ("x4", "bias5"):
         bad = [[*one[0][:2], plant_rdb(one[0][2], fault)]]
         check(f"K1 rrdb, {fault} fault in rdb3", run_k(x, bad), want, 1.2 * x.float(), L2_RRDB,
               planted=True)
-    xr = rnd(2, nf, 60, 120)
-    check("K1 rrdb ragged (2, 64, 60, 120)", run_k(xr), run_p(xr), 1.2 * xr.float(), L2_RRDB)
+    for shape in ((2, 60, 120), (1, 13, 21)):
+        xr = channels_last(rnd(shape[0], nf, *shape[1:]))
+        want_r = run_p(xr)
+        label = f"K1 rrdb ragged ({shape[0]}, 64, {shape[1]}, {shape[2]})"
+        check(label, run_k(xr), want_r, 1.2 * xr.float(), L2_RRDB)
+        if shape[2] > 64:
+            with planted_rdb():
+                check(f"{label}, {RDB_FAULT}", run_k(xr), want_r, 1.2 * xr.float(), L2_RRDB,
+                      planted=True)
     want = rrdb.rrdb_trunk(x, trunk_w, rdb_fn=rrdb.rdb_plain)
     base = 1.2 ** NB * x.float()
     check(f"K1 {NB}-RRDB trunk", rrdb.rrdb_trunk(x, trunk_w), want, base, L2_TRUNK, max_abs=False)
     check(f"K1 {NB}-RRDB trunk, x4 fault in every rdb", rrdb.rrdb_trunk(x, planted_trunk(trunk_w)),
           want, base, L2_TRUNK, max_abs=False, planted=True)
-    w_all = [t for p in one[0] for t in (p.w, p.b)]
+
+    # x1..x4 and the output of one RDB against the plain version's and the
+    # first design's (rdb_forward_hidden, K3's recompute): an independent
+    # implementation on the same input.
+    p0 = one[0][0]
+    out, hid = rrdb.rdb_cuda(x, p0, keep_hidden=True)
+    _, want_h = rrdb.rdb_plain(x, p0, keep_hidden=True)
+    x_nchw = x.contiguous()
+    out_old, hid_old = rrdb_bwd._rdb_hidden(rrdb_bwd._lib(), SimpleNamespace(launches=0), x_nchw, p0)
+    for k in range(4):
+        got = hid[..., 32 * k: 32 * k + 32].permute(0, 3, 1, 2)
+        check(f"K1 x{k + 1} vs the plain version", got, want_h[k], None, L2_HIDDEN)
+        check(f"K1 x{k + 1} vs the first design", got, hid_old[:, 32 * k: 32 * k + 32], None, L2_HIDDEN)
+    check("K1 rdb output vs the first design", out, out_old, x.float(), L2_RRDB)
+
+    w_all = [t for p in one[0] for t in (p.wg, p.b)]
     b_ms, b_by = bound_ms(3 * rrdb.rdb_flops(n, H // 4, W // 4), nbytes(x, x, *w_all))
     results["K1"] = dict(
-        name="rrdb (rdb_kernel x3 per RRDB)", route="cuda",
+        name="rrdb (conv_kernel x5 per RDB, 3 RDBs per RRDB)", route="cuda",
         source="master_thesis_tpu_torch/csrc/rrdb.cu",
         replaces="master_thesis_tpu/ops/pallas_rrdb.py:181",
         max_abs_err=err, ms=cuda_ms(lambda: run_k(x)),
         plain_ms=cuda_ms(lambda: run_p(x)), bound_ms=b_ms, bound_by=b_by,
-        library_ms=None,
+        library_ms=None, tiles_ms=cuda_ms(lambda: rrdb_tiles(x_nchw, one[0])),
+        cudnn_ms=cuda_ms(lambda: rrdb_cudnn(x, one[0])),
     )
+    print(f"K1 kernel launches per RDB call: {rrdb.RDB_CONVS} (one per conv); rdb_cuda.launches "
+          f"counts RDB calls")
+    x8 = channels_last(rnd(8, nf, 128, 128))
+    x8_nchw = x8.contiguous()
+    for label, xs, xs_nchw in (("80x64x64", x, x_nchw), ("8x128x128", x8, x8_nchw)):
+        t_new, t_old = cuda_ms(lambda: run_k(xs)), cuda_ms(lambda: rrdb_tiles(xs_nchw, one[0]))
+        t_cudnn = cuda_ms(lambda: rrdb_cudnn(xs, one[0]))
+        print(f"K1 old vs new, one RRDB at {label}: new {t_new:.4f} ms, first design {t_old:.4f} ms "
+              f"({t_old / t_new:.2f}x), cuDNN route {t_cudnn:.4f} ms")
+        if not t_new < t_old:
+            raise RuntimeError(f"K1 at {label} is not faster than the first design")
+    for k in range(1, 6):  # out and hid from the x1..x4 check above
+        t = cuda_ms(lambda: rrdb.rdb_conv_cuda(k, x, p0, out, hid))
+        floor, _ = bound_ms(*rrdb.rdb_conv_cost(k, n, H // 4, W // 4))
+        print(f"K1 conv{k} alone at {n}x64x64: {1e3 * t:.2f} us, floor {1e3 * floor:.1f} us "
+              f"({floor / t:.1%} of it)")
 
     y = rnd(n, nf, H // 4, W // 4)
     out = tail.tail_cuda(y, tail_w)
@@ -329,8 +449,10 @@ def phase_kernels(chn):
         bound_by=b_by, library_ms=None,
     )
     for key, r in results.items():
+        beside = (f" first_design_ms={r['tiles_ms']:.4f} cudnn_route_ms={r['cudnn_ms']:.4f}"
+                  if "tiles_ms" in r else "")
         print(f"kernel {key} {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) library_ms=null")
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) library_ms=null{beside}")
     return results
 
 
@@ -342,7 +464,7 @@ def rrdbnet_forward(net, trunk_w, rdb_fn, tail_fn):
     _, tail_w = net.packed()
 
     def forward(x, trunk_band_rows=None, tail_band_rows=None):
-        y = net.conv_first(x).contiguous()
+        y = channels_last(net.conv_first(x))
         t = rrdb.rrdb_trunk(y, trunk_w, rdb_fn=rdb_fn)
         return tail_fn((y + net.trunk_conv(t)).contiguous(), tail_w)
 
@@ -570,10 +692,17 @@ def phase_kernels_bwd(chn, results):
     xr, gr = rnd(2, nf, 60, 120), rnd(2, nf, 60, 120)
     check_groups("K3 rrdb backward ragged (2, 64, 60, 120)", k3(xr, gr), p3(xr, gr), L2_K3)
 
-    # The trunk: the same RRDB inputs (from K1) into both backward chains.
+    # The trunk: the same RRDB inputs (from K1, channels-last; K3 takes
+    # NCHW) into both backward chains.
     inters = [x]
     for rdbs in trunk_w[:-1]:
-        inters.append(rrdb.rrdb_trunk(inters[-1], [rdbs]))
+        inters.append(rrdb.rrdb_trunk(channels_last(inters[-1]), [rdbs]).contiguous())
+    # TrunkFunction's layout conversions at this shape: one to channels-last
+    # (the forward's input) and one back to NCHW per RRDB (the backward).
+    x_cl = channels_last(x)
+    print(f"layout conversion at ({n}, {nf}, {h}, {w}) bf16: to channels-last "
+          f"{cuda_ms(lambda: channels_last(x)):.4f} ms, back to NCHW "
+          f"{cuda_ms(lambda: x_cl.contiguous()):.4f} ms")
 
     def chain(bwd):
         gg, out = g, {}
@@ -1087,7 +1216,8 @@ def phase_kernels_banded(chn, results):
     frames of 128x128 and of 128x256; each check read on planted faults (a
     weight fault, and the band-edge fault compiled into the kernels); each
     kernel beside its full-frame twin (K1, K4) on the same input, times,
-    bounds and the memory a call holds."""
+    bounds and the memory a call holds; K2 also beside the first K1 design
+    and the cuDNN route."""
     from master_thesis_tpu_torch.ops import rrdb, tail
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1102,7 +1232,7 @@ def phase_kernels_banded(chn, results):
     one = [trunk_w[0]]
     run_k = lambda x, wts=one: rrdb.rrdb_trunk_banded(x, wts, br)
     run_p = lambda x: rrdb.rrdb_trunk_banded_plain(x, one, br)
-    x = rnd(n, nf, h, w)
+    x = channels_last(rnd(n, nf, h, w))
     want = run_p(x)
     got = run_k(x)
     err = check(f"K2 rrdb in {h // br} bands ({n}, 64, {h}, {w})", got, want, 1.2 * x.float(), L2_RRDB)
@@ -1113,27 +1243,33 @@ def phase_kernels_banded(chn, results):
     with planted_band():
         check(f"K2 rrdb, {BAND_FAULT}", run_k(x), want, 1.2 * x.float(), L2_RRDB, planted=True)
     full = rrdb.rrdb_trunk(x, one)
-    print(f"K2 beside K1 full-frame on the same input: max|K2 - K1| = "
-          f"{(got.float() - full.float()).abs().max().item():.6g}")
+    diff = (got.float() - full.float()).abs().max().item()
+    print(f"K2 beside K1 full-frame on the same input: max|K2 - K1| = {diff:.6g}")
+    if not torch.equal(got, full):
+        raise RuntimeError("K2 differs from K1 on the same input")
     want_t = rrdb.rrdb_trunk_banded_plain(x, trunk_w, br)
     base = 1.2 ** NB * x.float()
-    check(f"K2 {NB}-RRDB trunk in bands", rrdb.rrdb_trunk_banded(x, trunk_w, br), want_t, base,
-          L2_TRUNK_BANDED, max_abs=False)
+    got_t = rrdb.rrdb_trunk_banded(x, trunk_w, br)
+    check(f"K2 {NB}-RRDB trunk in bands", got_t, want_t, base, L2_TRUNK_BANDED, max_abs=False)
+    if not torch.equal(got_t, rrdb.rrdb_trunk(x, trunk_w)):
+        raise RuntimeError(f"K2's {NB}-RRDB trunk differs from K1's on the same input")
+    print(f"K2 {NB}-RRDB trunk equals K1's bit for bit")
     check(f"K2 {NB}-RRDB trunk, x4 fault in every rdb", rrdb.rrdb_trunk_banded(x, planted_trunk(trunk_w), br),
           want_t, base, L2_TRUNK_BANDED, max_abs=False, planted=True)
     with planted_band():
         check(f"K2 {NB}-RRDB trunk, {BAND_FAULT}", rrdb.rrdb_trunk_banded(x, trunk_w, br), want_t, base,
               L2_TRUNK_BANDED, max_abs=False, planted=True)
-    w_all = [t for p in one[0] for t in (p.w, p.b)]
+    w_all = [t for p in one[0] for t in (p.wg, p.b)]
     b_ms, b_by = bound_ms(3 * rrdb.rdb_flops(n, h, w), nbytes(x, x, *w_all))
     results["K2"] = dict(
-        name=f"rrdb in row bands (rdb_kernel over {br}-row windows, x3 per RRDB)", route="cuda",
+        name=f"rrdb in row bands (conv_kernel x5 per {br}-row band, x3 per RRDB)", route="cuda",
         source="master_thesis_tpu_torch/csrc/rrdb.cu",
         replaces="master_thesis_tpu/ops/pallas_rrdb.py:541",
         max_abs_err=err, ms=cuda_ms(lambda: run_k(x)), full_ms=cuda_ms(lambda: rrdb.rrdb_trunk(x, one)),
         plain_ms=cuda_ms(lambda: run_p(x), iters=5), bound_ms=b_ms, bound_by=b_by, library_ms=None,
         peak_mb=peak_mb(lambda: run_k(x)), full_peak_mb=peak_mb(lambda: rrdb.rrdb_trunk(x, one)),
-        shape=f"one RRDB, {n}x64x{h}x{w}",
+        shape=f"one RRDB, {n}x64x{h}x{w}", cudnn_ms=cuda_ms(lambda: rrdb_cudnn(x, one[0])),
+        tiles_ms=cuda_ms(lambda x_nchw=x.contiguous(): rrdb_tiles(x_nchw, one[0])),
     )
 
     tbr = tail.TAIL_BAND_ROWS
@@ -1169,7 +1305,8 @@ def phase_kernels_banded(chn, results):
         print(f"kernel {key} {r['name']} at {r['shape']}: kernel_ms={r['ms']:.4f} ({full} full-frame "
               f"{r['full_ms']:.4f}) plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) library_ms=null; holds {r['peak_mb']:.1f} MB at its peak "
-              f"({full} {r['full_peak_mb']:.1f} MB)")
+              f"({full} {r['full_peak_mb']:.1f} MB)"
+              + (f"; first design {r['tiles_ms']:.4f}, cuDNN route {r['cudnn_ms']:.4f}" if key == "K2" else ""))
 
 
 def identity_align(x_t, m_t, x_r, m_r):

@@ -143,6 +143,9 @@ __device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
 
 }  // namespace ct
 
+// A launcher's error code: a CUDA error, or 100000 + the CUresult of a
+// failed tensor-map encode (conv3x3_wgmma.cuh).
 extern "C" const char* kernel_error_string(int e) {
+  if (e >= 100000) return "cuTensorMapEncodeTiled failed (code - 100000 is its CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }

@@ -155,7 +155,10 @@ class RRDBNet(nn.Module):
         if torch.is_grad_enabled() and self.conv_last.weight.requires_grad:
             return self.forward_train(x)
         trunk_w, tail_w = self.packed()
-        y = self.conv_first(x).contiguous()
+        y = self.conv_first(x)
+        # The trunk's kernels take channels-last on the card (trunk_conv, a
+        # cuDNN conv, takes it as it is); the CPU path keeps NCHW.
+        y = y.contiguous(memory_format=torch.channels_last if y.is_cuda else torch.contiguous_format)
         trunk_banded, tail_banded = kernel_routes(y.shape[2], y.shape[3], self.nf, self.gc)
         if trunk_band_rows is not None or trunk_banded:
             trunk = rrdb_ops.rrdb_trunk_banded(y, trunk_w, trunk_band_rows or 0)

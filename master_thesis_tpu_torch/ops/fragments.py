@@ -1,5 +1,6 @@
 """Weight layout of the CUDA kernels' tensor-core B operands
-(``csrc/conv_tile.cuh``).
+(``csrc/conv_tile.cuh``; :func:`wgmma_conv_matrix` for
+``csrc/conv3x3_wgmma.cuh``).
 
 A conv's weights form a row-major ``(K, N)`` matrix, rows ordered
 ``(tap, input channel)``. It is zero-padded to multiples of 16 and stored
@@ -69,6 +70,27 @@ def adjoint_matrix(w: torch.Tensor, o_pad: Optional[int] = None, fill=0) -> torc
     if o_pad is not None and o_pad > o:
         adj = torch.nn.functional.pad(adj, (0, 0, 0, 0, 0, o_pad - o), value=fill)
     return pack(adj.permute(2, 3, 1, 0).reshape(-1, c), fill)
+
+
+def wgmma_conv_matrix(w: torch.Tensor, fill=0) -> torch.Tensor:
+    """A 3x3 conv's OIHW kernel as the B operand of ``csrc/conv3x3_wgmma.cuh``
+    (``fill`` is unused: the layout has no padding). Input channels run in
+    chunks of 32; each chunk is one block the kernel copies whole, its nine
+    taps in turn, each tap two k16 steps of 16 channels; a step is two
+    8-channel halves, each ``O / 8`` core matrices of 8 outputs x 8
+    channels (16 bytes an output): index order ``(chunk, tap, step, half,
+    o // 8, o % 8, c % 8)``."""
+    o, c = w.shape[0], w.shape[1]
+    if c % 32 or o % 8:
+        raise ValueError(f"the wgmma layout needs Cin % 32 == 0 and Cout % 8 == 0, got {c}, {o}")
+    blocks = w.reshape(o // 8, 8, c // 32, 2, 2, 8, 9)  # (o8, o%8, chunk, step, half, c%8, tap)
+    return blocks.permute(2, 6, 3, 4, 0, 1, 5).reshape(-1)
+
+
+def wgmma_unpack(buf: torch.Tensor, o: int, c: int) -> torch.Tensor:
+    """Inverse of :func:`wgmma_conv_matrix`: 1-D ``buf`` -> OIHW ``(o, c, 3, 3)``."""
+    blocks = buf.reshape(c // 32, 9, 2, 2, o // 8, 8, 8)
+    return blocks.permute(4, 5, 0, 2, 3, 6, 1).reshape(o, c, 3, 3)
 
 
 def gather_index(layouts: Sequence[Callable], shapes: Sequence[Tuple[int, ...]]) -> torch.Tensor:

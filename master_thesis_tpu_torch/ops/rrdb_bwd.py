@@ -217,10 +217,14 @@ def rrdb_bwd(
 class TrunkFunction(torch.autograd.Function):
     """The trunk of RRDBs with the fused forward and backward kernels.
 
-    ``apply(x, dtype, *params)``: ``x`` NCHW in the working ``dtype``;
-    ``params`` the f32 ``(weight OIHW, bias)`` of every RRDB's rdb1..rdb3
-    conv1..conv5, flattened in that order. The forward packs them afresh,
-    so it always runs the current weights."""
+    ``apply(x, dtype, *params)``: ``x`` (N, C, H, W) in the working
+    ``dtype``; ``params`` the f32 ``(weight OIHW, bias)`` of every RRDB's
+    rdb1..rdb3 conv1..conv5, flattened in that order. The forward packs
+    them afresh, so it always runs the current weights.
+
+    On the card the forward runs K1 on a channels-last copy of ``x`` (one
+    conversion; the output is channels-last), and the backward converts
+    each kept RRDB input back to NCHW for K3 (one conversion an RRDB)."""
 
     @staticmethod
     def forward(ctx, x, dtype, *params):
@@ -228,6 +232,8 @@ class TrunkFunction(torch.autograd.Function):
                  for r in range(len(params) // 10)]
         flat = pack_rdbs(convs, dtype)
         packed = [flat[i: i + 3] for i in range(0, len(flat), 3)]
+        if x.is_cuda:
+            x = x.contiguous(memory_format=torch.channels_last)
         inters = []
         for rdbs in packed:
             inters.append(x)
@@ -244,7 +250,8 @@ class TrunkFunction(torch.autograd.Function):
             adjs = [flat[i: i + 3] for i in range(0, len(flat), 3)]
         grads = []
         for i in reversed(range(len(ctx.inters))):
-            g, per_rdb = rrdb_bwd(ctx.inters[i], g, ctx.packed[i], None if adjs is None else adjs[i])
+            x = ctx.inters[i].contiguous()  # K3 takes NCHW
+            g, per_rdb = rrdb_bwd(x, g, ctx.packed[i], None if adjs is None else adjs[i])
             flat = [t for dws, dbs in per_rdb for k in range(5) for t in (dws[k], dbs[k])]
             grads = flat + grads
         ctx.inters = ctx.packed = ctx.convs = None

@@ -42,19 +42,64 @@ def _assert_close(got, want):
     assert err <= TOL * scale, (err, scale)
 
 
-@pytest.mark.parametrize("n,h,w,with_res", [(2, 8, 16, False), (1, 13, 21, True), (2, 60, 120, True)])
-def test_rdb_kernel_matches_plain(cuda, n, h, w, with_res):
-    rng = np.random.RandomState(0)
+def _rdb_weights(rng, cuda):
     nf, gc = rrdb.KERNEL_NF, rrdb.KERNEL_GC
     convs = [_conv(rng, nf + k * gc, gc if k < 4 else nf, (1.0 / (9 * (nf + k * gc))) ** 0.5) for k in range(5)]
-    packed = rrdb.pack_rdb([(w.to(cuda), b.to(cuda)) for w, b in convs], torch.bfloat16)
-    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
-    res = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16) if with_res else None
+    return rrdb.pack_rdb([(w.to(cuda), b.to(cuda)) for w, b in convs], torch.bfloat16)
+
+
+def _activation(rng, cuda, n, h, w):
+    """(n, 64, h, w) bf16 on the card, channels-last: the RDB kernels' layout."""
+    x = torch.from_numpy(rng.randn(n, rrdb.KERNEL_NF, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+# Widths 13, 60, 64, 120 and 128: under, at and over one 64-pixel row run,
+# ragged and whole.
+@pytest.mark.parametrize("n,h,w,with_res", [
+    (2, 8, 16, False), (1, 13, 21, True), (2, 60, 120, True), (1, 9, 13, True), (2, 20, 60, False),
+    (3, 64, 64, True), (1, 30, 128, True),
+])
+def test_rdb_kernel_matches_plain(cuda, n, h, w, with_res):
+    rng = np.random.RandomState(0)
+    packed = _rdb_weights(rng, cuda)
+    x = _activation(rng, cuda, n, h, w)
+    res = _activation(rng, cuda, n, h, w) if with_res else None
     before = rrdb.rdb_cuda.launches
     got = rrdb.rdb_cuda(x, packed, res)
     torch.cuda.synchronize()
     assert rrdb.rdb_cuda.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
     _assert_close(got, rrdb.rdb_plain(x, packed, res))
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 8, 16), (1, 13, 21), (2, 60, 120)])
+def test_rdb_kernel_hidden_matches_plain(cuda, n, h, w):
+    """x1..x4 from the kernel's scratch (NHWC, x_k in channels 32 (k - 1)..)
+    against ``rdb_plain(keep_hidden=True)``, within TOL."""
+    rng = np.random.RandomState(9)
+    packed = _rdb_weights(rng, cuda)
+    x = _activation(rng, cuda, n, h, w)
+    out, hid = rrdb.rdb_cuda(x, packed, keep_hidden=True)
+    torch.cuda.synchronize()
+    assert hid.shape == (n, h, w, 4 * rrdb.KERNEL_GC)
+    want, want_h = rrdb.rdb_plain(x, packed, keep_hidden=True)
+    _assert_close(out, want)
+    for k in range(4):
+        _assert_close(hid[..., 32 * k: 32 * k + 32].permute(0, 3, 1, 2), want_h[k])
+
+
+def test_rdb_wrappers_refuse_nchw(cuda):
+    """The RDB kernels take channels-last only: a contiguous NCHW bf16
+    activation (x or res) is refused, not misread."""
+    packed = _rdb_weights(np.random.RandomState(10), cuda)
+    x = torch.zeros(1, rrdb.KERNEL_NF, 8, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="channels-last"):
+        rrdb.rdb_cuda(x, packed)
+    with pytest.raises(ValueError, match="channels-last"):
+        rrdb.rdb_banded_cuda(x, packed)
+    with pytest.raises(ValueError, match="channels-last"):
+        rrdb.rdb_cuda(x.contiguous(memory_format=torch.channels_last), packed, x)
 
 
 @pytest.mark.parametrize("n,h,w", [(2, 8, 8), (1, 6, 10), (2, 13, 7)])
@@ -72,14 +117,13 @@ def test_tail_kernels_match_plain(cuda, n, h, w):
 
 @pytest.mark.parametrize("n,h,w,band_rows", [(2, 20, 16, 8), (1, 13, 21, 5), (2, 60, 120, 32)])
 def test_rdb_banded_kernel_matches_plain_and_full_frame(cuda, n, h, w, band_rows):
-    """K2: one launch per band; equal to K1 (each output pixel reads the same
-    tile of its frame), and to the plain band decomposition within TOL."""
+    """K2: one call (five conv launches) per band; equal to K1 bit for bit
+    (each output pixel sums the same products in the same order), and to
+    the plain band decomposition within TOL."""
     rng = np.random.RandomState(7)
-    nf, gc = rrdb.KERNEL_NF, rrdb.KERNEL_GC
-    convs = [_conv(rng, nf + k * gc, gc if k < 4 else nf, (1.0 / (9 * (nf + k * gc))) ** 0.5) for k in range(5)]
-    packed = rrdb.pack_rdb([(w_.to(cuda), b.to(cuda)) for w_, b in convs], torch.bfloat16)
-    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
-    res = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    packed = _rdb_weights(rng, cuda)
+    x = _activation(rng, cuda, n, h, w)
+    res = _activation(rng, cuda, n, h, w)
     before = rrdb.rdb_banded_cuda.launches
     got = rrdb.rdb_banded_cuda(x, packed, res, band_rows)
     torch.cuda.synchronize()

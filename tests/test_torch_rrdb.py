@@ -139,9 +139,10 @@ def test_rdb_dispatch_rejects_unknown_device():
 
 
 def test_pack_rdbs_matches_pack_per_conv(rng):
-    """Packing many RDBs with one gather gives, for each, what packing each
-    conv on its own gives (``fragments.conv_matrix``, ``adjoint_matrix``),
-    padded widths included (nf=16, gc=8: 8 outputs pad to 16)."""
+    """Packing many RDBs with one gather per layout gives, for each, what
+    packing each conv on its own gives (``fragments.conv_matrix``,
+    ``wgmma_conv_matrix``, ``adjoint_matrix``), padded widths included
+    (nf=16, gc=8: 8 outputs pad to 16)."""
     for nf, gc in ((16, 8), (64, 32)):
         rdbs = [_rrdb_params(rng, nf, gc) for _ in range(2)]
         convs = [
@@ -153,6 +154,136 @@ def test_pack_rdbs_matches_pack_per_conv(rng):
         adjs = trrdb.pack_rdb_adjoints(convs, torch.float32)
         for c, p, adj in zip(convs, packed, adjs):
             assert torch.equal(p.w, torch.cat([fragments.conv_matrix(w) for w, _ in c]))
+            if nf == trrdb.KERNEL_NF:
+                assert torch.equal(p.wg, torch.cat([fragments.wgmma_conv_matrix(w) for w, _ in c]))
             assert torch.equal(p.b, torch.cat([b for _, b in c]))
             assert all(torch.equal(k, w) for k, (w, _) in zip(p.kernels, c))
             assert all(torch.equal(a, fragments.adjoint_matrix(w)) for a, (w, _) in zip(adj, c))
+
+
+def _conv_params(rng, cin, cout):
+    w = (rng.randn(cout, cin, 3, 3) * (1.0 / (9 * cin)) ** 0.5).astype(np.float32)
+    return torch.from_numpy(w), torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32))
+
+
+def test_wgmma_packing_unpacks_to_the_kernels(rng):
+    """K1's B blocks (``PackedRDB.wg``, ``fragments.wgmma_conv_matrix``)
+    unpack exactly to each of the five OIHW kernels at the production
+    widths; widths the kernel does not take get none."""
+    nf, gc = trrdb.KERNEL_NF, trrdb.KERNEL_GC
+    convs = [_conv_params(rng, cin, cout) for cin, cout in trrdb._widths(nf, gc)]
+    packed = trrdb.pack_rdb(convs, torch.float32)
+    assert packed.wg.numel() == trrdb._RDB_W_NUMEL
+    offset = 0
+    for (w, _), (cin, cout) in zip(convs, trrdb._widths(nf, gc)):
+        size = 9 * cin * cout
+        assert torch.equal(fragments.wgmma_unpack(packed.wg[offset: offset + size], cout, cin), w)
+        offset += size
+    # conv1, chunk 1 (channels 32..63), tap 4 (ky=1, kx=1), k16 step 1,
+    # half 0, output 8 * 2 + 3, channel 32 + 16 + 0 + 5.
+    idx = ((((1 * 9 + 4) * 2 + 1) * 2 + 0) * (gc // 8) + 2) * 64 + 3 * 8 + 5
+    assert packed.wg[idx].item() == convs[0][0][19, 53, 1, 1].item()
+    small = trrdb.pack_rdb([_conv_params(rng, cin, cout) for cin, cout in trrdb._widths(16, 8)],
+                           torch.float32)
+    assert small.wg is None
+
+
+# The wgmma kernel's shared-memory geometry (csrc/conv3x3_wgmma.cuh): a CTA
+# computes ROWS rows x 64 pixels from a (ROWS + 2) x 66 pixel tile, each
+# 8-channel group of a 32-channel K-chunk one plane of 16-byte pixels.
+_RUN, _TW = 64, 66
+
+
+def _emulate_conv(src, wg, cout, rows=2):
+    """One 3x3 conv (no bias) as the kernel's packed per-tap GEMM, read
+    through its descriptors: ``src`` (n, H, W, cin) f32 NHWC, ``wg`` the
+    conv's B blocks. For each CTA tile and 32-channel chunk the four TMA
+    boxes fill a flat shared-memory image (zeros outside the frame); each
+    k16 step reads A (64 pixels x 16 channels) at the tap's shifted start
+    address with SBO 128 bytes and LBO one plane, and B (16 x cout) with
+    SBO 128 bytes and LBO cout / 8 core matrices. f32 sums."""
+    n, h, w, cin = src.shape
+    tr = rows + 2
+    plane = -(-tr * _TW * 16 // 128) * 128  # bytes
+    runs = -(-w // _RUN)
+    pad = torch.zeros(n, h + rows + 2, runs * _RUN + 2, cin)
+    pad[:, 1: h + 1, 1: w + 1] = src
+    m = torch.arange(64).view(64, 1)
+    k = torch.arange(16).view(1, 16)
+    kb = torch.arange(16).view(16, 1)
+    o = torch.arange(cout).view(1, cout)
+    b_addr = (o // 8) * 128 + (o % 8) * 16 + (kb // 8) * (cout // 8 * 128) + (kb % 8) * 2
+    out = torch.zeros(n, h, w, cout)
+    for f in range(n):
+        for y0 in range(0, h, rows):
+            for x0 in range(0, runs * _RUN, _RUN):
+                acc = torch.zeros(rows, _RUN, cout)
+                for c in range(cin // 32):
+                    tile = pad[f, y0: y0 + tr, x0: x0 + _TW, 32 * c: 32 * c + 32]  # (tr, 66, 32)
+                    smem = torch.zeros(4 * plane // 2)
+                    for g in range(4):
+                        flat = tile[:, :, 8 * g: 8 * g + 8].reshape(-1)
+                        smem[g * plane // 2: g * plane // 2 + flat.numel()] = flat
+                    block = wg[c * 9 * 32 * cout: (c + 1) * 9 * 32 * cout]
+                    for t in range(9):
+                        for s in range(2):
+                            b_mat = block[(((t * 2 + s) * 2 * (cout // 8) * 128) + b_addr) // 2]
+                            for r in range(rows):
+                                start = 2 * s * plane + ((r + t // 3) * _TW + t % 3) * 16
+                                a_addr = start + (m // 8) * 128 + (m % 8) * 16 + (k // 8) * plane + (k % 8) * 2
+                                acc[r] += smem[a_addr // 2] @ b_mat
+                for r in range(min(rows, h - y0)):
+                    cols = min(_RUN, w - x0)
+                    out[f, y0 + r, x0: x0 + cols] = acc[r, :cols]
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_wgmma_packed_gemm_emulation_matches_conv2d(rng, k):
+    """The packed per-tap GEMM, emulated through the kernel's descriptor
+    addressing (``_emulate_conv``: im2col by the nine shifts, 32-channel
+    chunks, f32), equals ``F.conv2d`` with zero padding for each of the five
+    convs, at a ragged shape (3 rows: a CTA past the last row; 70 columns:
+    a second row run 6 pixels wide). Tolerance: f32 sums in two orders."""
+    cin, cout = trrdb._widths(trrdb.KERNEL_NF, trrdb.KERNEL_GC)[k - 1]
+    w, _ = _conv_params(rng, cin, cout)
+    src = torch.from_numpy(rng.randn(1, 3, 70, cin).astype(np.float32))
+    want = torch.nn.functional.conv2d(src.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+    got = _emulate_conv(src, fragments.wgmma_conv_matrix(w), cout)
+    torch.testing.assert_close(got, want, atol=2e-5 * want.abs().max().item(), rtol=0)
+
+
+def test_rrdb_channels_last_matches_pallas(rng):
+    """A channels-last trunk input (the layout the kernels take on the card)
+    through ``rrdb_trunk`` on the CPU against ``rrdb_pallas`` in interpret
+    mode, at the production widths; equal to the NCHW input's output."""
+    nf, gc, h, w, n = 64, 32, 8, 8, 1
+    p = _rrdb_params(rng, nf, gc)
+    x = rng.rand(n, nf, h, w).astype(np.float32)
+    want = rrdb_pallas(jnp.asarray(x.reshape(n, nf, h * w)), _to_jax(p), nf, gc, w, interpret=True)
+    xt = torch.from_numpy(x).contiguous(memory_format=torch.channels_last)
+    assert xt.is_contiguous(memory_format=torch.channels_last) and not xt.is_contiguous()
+    got = trrdb.rrdb_trunk(xt, [_pack(p)])
+    np.testing.assert_allclose(got.numpy().reshape(n, nf, h * w), np.asarray(want), atol=5e-5)
+    torch.testing.assert_close(got, trrdb.rrdb_trunk(torch.from_numpy(x), [_pack(p)]), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("h,band_rows", [(14, 4), (128, trrdb.TRUNK_BAND_ROWS), (5, 8), (20, 3)])
+def test_band_windows_cover_each_band_and_clip(h, band_rows):
+    """K2's row windows (``band_windows``, as ``csrc/rrdb.cu`` computes them):
+    conv k of band [r0, r1) covers [r0 - (5 - k), r1 + (5 - k)) clipped to
+    the frame, so each conv computes every row the next conv reads and
+    conv5 exactly the band; conv1's window is the band scratch."""
+    spans = trrdb.bands(h, band_rows)
+    covered = []
+    for r0, r1 in spans:
+        wins = trrdb.band_windows(h, r0, r1)
+        assert len(wins) == 5 and wins[4] == (r0, r1)
+        for k, (lo, hi) in enumerate(wins, start=1):
+            assert (lo, hi) == (max(r0 - (5 - k), 0), min(r1 + (5 - k), h))
+            assert 0 <= lo < hi <= h
+        for (lo_a, hi_a), (lo_b, hi_b) in zip(wins, wins[1:]):
+            # conv k+1 reads rows [lo_b - 1, hi_b + 1) of x_k within the frame
+            assert lo_a <= max(lo_b - 1, 0) and hi_a >= min(hi_b + 1, h)
+        covered.extend(range(r0, r1))
+    assert covered == list(range(h))
