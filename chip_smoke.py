@@ -30,17 +30,20 @@ Phases, each fatal on failure:
    drift from the f32 plain path on the CPU printed beside it; host-clock
    step time; one step under ``torch.profiler`` (device time by kernel,
    busy share);
-5. backward kernels: K3 (an RRDB's backward) and K6 (the tail's) on card
-   tensors at the train step's shapes (8 frames at 64x64; the 20-RRDB
-   trunk; a ragged shape), held against their plain versions with TF32
-   off by the relative L2 of dx and of each weight / bias grad group, each
-   check also read on three faults planted in the kernels' code (compiled
-   with ``-DBWD_PLANT``: lrelu slope 0.25 in the masks, the centre tap left
-   out of the weight grads, the bias grads dropped); the cost of the
-   trunk's layout conversions (K1 channels-last, K3 NCHW); device times (the
-   kernels' sum under ``torch.profiler``: a backward is a chain of short
-   launches, and CUDA events around it also count the host's gaps, which
-   are printed beside);
+5. backward kernels: K3 (an RRDB's backward over the activations K1
+   keeps, one call) and K6 (the tail's) on card tensors at the train
+   step's shapes (8 frames at 64x64; the 20-RRDB trunk; a ragged shape),
+   held against their plain versions with TF32 off by the relative L2 of
+   dx and of each weight / bias grad group, each check also read on three
+   faults planted in the kernels' code (compiled with ``-DBWD_PLANT``:
+   lrelu slope 0.25 in the masks, the centre tap left out of the weight
+   grads, the bias grads dropped); K3 run twice must agree bit for bit;
+   the first K3 design (``rrdb_bwd_first``) held to the plain version too;
+   device times (the kernels' sum under ``torch.profiler``: a backward is
+   a chain of short launches, and CUDA events around it also count the
+   host's gaps, which are printed beside), K3's beside the first design's
+   and the cuDNN route's (autograd through the five ``F.conv2d`` of each
+   RDB; fatal unless K3 beats the first design);
 6. training: the CHN train step (frozen CPN, CHN forward with autograd,
    the five-part loss with VGG-16, backward, Adam, repack) at B=8,
    frames_n=2, 256x256, nb=20, bf16 compute on seeded inputs; the launch
@@ -48,7 +51,7 @@ Phases, each fatal on failure:
    1x2x64x64 batch the grads through the kernels against the grads through
    their plain versions on the card (read also with a planted fault);
    host-clock step time, samples/s, peak memory; one step under
-   ``torch.profiler``;
+   ``torch.profiler`` (host time in ``TrunkFunctionBackward``);
 7. conv-stack kernels: K7 (the tile stack) at the mixer's shapes (20
    tiles), at both sep4d stages (5 120 tiles) and at a ragged tile count;
    K8 (the banded stack) at flow_256's c0-c1 (Cin 10) and c15-c17 (halo 4)
@@ -324,22 +327,43 @@ def rrdb_tiles(x, rdbs):
     return y
 
 
-def rrdb_cudnn(x, rdbs):
+def rrdb_cudnn(x, rdbs, convs=None):
     """One RRDB as the cuDNN route: each RDB's five ``F.conv2d`` in bf16
-    channels-last with the concatenations (TF32 off). K1's yardstick beside
-    it; the port never calls it."""
+    channels-last with the concatenations (TF32 off); ``convs``, if given,
+    the RDBs' (kernels, biases) to use (autograd leaves for the backward's
+    yardstick). K1's and K3's yardstick beside them; the port never calls
+    it."""
     import torch.nn.functional as F
 
     y = x
     for j, p in enumerate(rdbs):
-        ks = [channels_last(k) for k in p.kernels]
-        bs = [b.to(x.dtype) for b in p.b.split([k.shape[0] for k in ks])]
+        ks, bs = convs[j] if convs is not None else cudnn_convs(p, x.dtype)
         feats = [y]
         for k in range(4):
             feats.append(F.leaky_relu(F.conv2d(torch.cat(feats, 1), ks[k], bs[k], padding=1), 0.2))
         out = 0.2 * F.conv2d(torch.cat(feats, 1), ks[4], bs[4], padding=1) + y
         y = 0.2 * out + x if j == 2 else out
     return y
+
+
+def cudnn_convs(p, dtype):
+    ks = [channels_last(k) for k in p.kernels]
+    return ks, [b.to(dtype) for b in p.b.split([k.shape[0] for k in ks])]
+
+
+def rrdb_cudnn_backward(x, rdbs):
+    """The cuDNN route's backward of one RRDB (autograd through the five
+    ``F.conv2d`` of each RDB, bf16 channels-last, TF32 off): a function of
+    the output cotangent returning dx and every conv's weight and bias
+    grads, over a forward graph made once. K3's yardstick; the port never
+    calls it."""
+    xs = x.detach().requires_grad_()
+    convs = [tuple([t.detach().requires_grad_() for t in part] for part in cudnn_convs(p, x.dtype))
+             for p in rdbs]
+    with torch.enable_grad():
+        y = rrdb_cudnn(xs, rdbs, convs)
+    leaves = [xs] + [t for ks, bs in convs for t in ks + bs]
+    return lambda g: torch.autograd.grad(y, leaves, g, retain_graph=True)
 
 
 def phase_kernels(chn):
@@ -386,7 +410,8 @@ def phase_kernels(chn):
           want, base, L2_TRUNK, max_abs=False, planted=True)
 
     # x1..x4 and the output of one RDB against the plain version's and the
-    # first design's (rdb_forward_hidden, K3's recompute): an independent
+    # first design's (rdb_forward_hidden, the first K3 design's recompute):
+    # an independent
     # implementation on the same input.
     p0 = one[0][0]
     out, hid = rrdb.rdb_cuda(x, p0, keep_hidden=True)
@@ -586,6 +611,10 @@ def phase_profile(step, inputs, step_s, grad=False):
                       reverse=True)
         for ms, count, key in host[:10]:
             print(f"profile host: {ms:10.3f} ms {count:6d}x {key[:90]}")
+        for e in prof.key_averages():
+            if e.key == "TrunkFunctionBackward":
+                print(f"profile host: TrunkFunctionBackward {e.self_cpu_time_total / 1e3:.3f} ms "
+                      f"self, {e.cpu_time_total / 1e3:.3f} ms with its callees, {e.count}x")
 
 
 @contextlib.contextmanager
@@ -611,7 +640,12 @@ def plain_backward():
     from master_thesis_tpu_torch.ops import rrdb_bwd, tail_bwd
 
     orig = rrdb_bwd.rrdb_bwd, tail_bwd.tail_bwd
-    rrdb_bwd.rrdb_bwd = lambda x, g, rdbs, convs: rrdb_bwd.rrdb_bwd_plain(x, g, rdbs)
+
+    def rrdb_plain(x, g, rdbs, pulls, kept, out, scratch=None):
+        dx, grads = rrdb_bwd.rrdb_bwd_plain(x, g, rdbs, kept)
+        return dx, rrdb_bwd.flat_grads(grads, out)
+
+    rrdb_bwd.rrdb_bwd = rrdb_plain
     tail_bwd.tail_bwd = lambda x, g, p, convs: tail_bwd.tail_bwd_plain(x, g, p)
     try:
         yield
@@ -657,10 +691,11 @@ def rrdb_groups(dx, grads, prefix=""):
 
 
 def phase_kernels_bwd(chn, results):
-    """K3 (one RRDB's backward, 51 launches) and K6 (the tail's backward, 17
-    launches) against their plain versions at the train step's shapes, the
-    20-RRDB trunk and a ragged shape; each check read on the planted
-    faults."""
+    """K3 (one RRDB's backward, one call of 20 launches, over the
+    activations K1 keeps) and K6 (the tail's backward, 17 launches)
+    against their plain versions at the train step's shapes, the 20-RRDB
+    trunk and a ragged shape; each check read on the planted faults. K3
+    beside the first K3 design and the cuDNN route on the same input."""
     from master_thesis_tpu_torch.ops import rrdb, rrdb_bwd, tail, tail_bwd
 
     torch.backends.cudnn.allow_tf32 = False
@@ -670,44 +705,58 @@ def phase_kernels_bwd(chn, results):
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(bf)
     net = chn.nn
     trunk_w, tail_w = net.packed()
-    adjs = [rrdb.pack_rdb_adjoints(rrdb.rrdb_convs(blk), bf) for blk in net.rrdb_trunk]
+    pulls = [rrdb.pack_rdb_pulls(rrdb.rrdb_convs(blk), bf) for blk in net.rrdb_trunk]
     nf, n, h, w = net.nf, TRAIN_B * (TRAIN_F - 1), H // 4, W // 4
 
-    def k3(x, g, i=0):
-        dx, grads = rrdb_bwd.rrdb_bwd_cuda(x, g, trunk_w[i], adjs[i])
+    def k3(x, g, kept, i=0):
+        dx, flat = rrdb_bwd.rrdb_bwd_cuda(x, g, pulls[i], kept)
+        return rrdb_groups(dx, rrdb_bwd.rdb_grads(flat))
+
+    def p3(x, g, kept, i=0):
+        dx, grads = rrdb_bwd.rrdb_bwd_plain(x, g, trunk_w[i], kept)
         return rrdb_groups(dx, grads)
 
-    def p3(x, g, i=0):
-        dx, grads = rrdb_bwd.rrdb_bwd_plain(x, g, trunk_w[i])
-        return rrdb_groups(dx, grads)
+    def inputs(*shape, i=0):
+        x, g = channels_last(rnd(*shape)), channels_last(rnd(*shape))
+        return x, g, rrdb_bwd.rrdb_forward_kept(x, trunk_w[i])[1]
 
-    x, g = rnd(n, nf, h, w), rnd(n, nf, h, w)
-    want = p3(x, g)
-    got = k3(x, g)
+    x, g, kept = inputs(n, nf, h, w)
+    want = p3(x, g, kept)
+    got = k3(x, g, kept)
     check_groups(f"K3 rrdb backward ({n}, {nf}, {h}, {w})", got, want, L2_K3)
     err = (got["dx"].float() - want["dx"].float()).abs().max().item()
+    again = k3(x, g, kept)
+    same = all(torch.equal(got[k], again[k]) for k in got)
+    print(f"K3 rerun bit-identical (dx, {len(got) - 1} dW / db groups): {same}")
+    if not same:
+        raise RuntimeError("K3: two runs on the same input differ")
     for fault, label in FAULTS.items():
         with planted_bwd(fault):
-            check_groups("K3 rrdb backward", k3(x, g), want, L2_K3, planted=label)
-    xr, gr = rnd(2, nf, 60, 120), rnd(2, nf, 60, 120)
-    check_groups("K3 rrdb backward ragged (2, 64, 60, 120)", k3(xr, gr), p3(xr, gr), L2_K3)
+            check_groups("K3 rrdb backward", k3(x, g, kept), want, L2_K3, planted=label)
+    xr, gr, kr = inputs(2, nf, 60, 120)
+    check_groups("K3 rrdb backward ragged (2, 64, 60, 120)", k3(xr, gr, kr), p3(xr, gr, kr), L2_K3)
+    adjs = rrdb.pack_rdb_adjoints(rrdb.rrdb_convs(net.rrdb_trunk[0]), bf)
+    x_nchw, g_nchw = x.contiguous(), g.contiguous()
 
-    # The trunk: the same RRDB inputs (from K1, channels-last; K3 takes
-    # NCHW) into both backward chains.
-    inters = [x]
-    for rdbs in trunk_w[:-1]:
-        inters.append(rrdb.rrdb_trunk(channels_last(inters[-1]), [rdbs]).contiguous())
-    # TrunkFunction's layout conversions at this shape: one to channels-last
-    # (the forward's input) and one back to NCHW per RRDB (the backward).
-    x_cl = channels_last(x)
-    print(f"layout conversion at ({n}, {nf}, {h}, {w}) bf16: to channels-last "
-          f"{cuda_ms(lambda: channels_last(x)):.4f} ms, back to NCHW "
-          f"{cuda_ms(lambda: x_cl.contiguous()):.4f} ms")
+    def first():
+        dx, grads = rrdb_bwd.rrdb_bwd_first(x_nchw, g_nchw, trunk_w[0], adjs)
+        return rrdb_groups(dx, grads)
+
+    check_groups("K3 first design (recompute, 51 launches) vs the plain version", first(), want,
+                 L2_K3)
+
+    # The trunk: the RRDB inputs and kept activations from K1 into both
+    # backward chains.
+    inters, kepts = [x], []
+    for rdbs in trunk_w:
+        y, k = rrdb_bwd.rrdb_forward_kept(inters[-1], rdbs)
+        inters.append(y)
+        kepts.append(k)
 
     def chain(bwd):
         gg, out = g, {}
         for i in reversed(range(len(trunk_w))):
-            groups = bwd(inters[i], gg, i)
+            groups = bwd(inters[i], gg, kepts[i], i)
             gg = groups.pop("dx")
             out[f"rrdb{i}.dW"] = torch.cat([v.reshape(-1) for k, v in groups.items() if k.endswith(".w")])
             out[f"rrdb{i}.db"] = torch.cat([v.reshape(-1) for k, v in groups.items() if k.endswith(".b")])
@@ -720,18 +769,40 @@ def phase_kernels_bwd(chn, results):
         with planted_bwd(fault):
             check_groups(f"K3 {NB}-RRDB trunk backward", chain(k3), want_t, L2_K3_TRUNK, planted=label)
 
-    weights = [t for p in trunk_w[0] for t in (p.w, p.b)] + [a for r in adjs[0] for a in r]
+    # Times at the train shape: K3 with its grad buffer and scratch made
+    # once (as TrunkFunction does), the first design, the cuDNN route.
+    out = torch.empty(3 * rrdb_bwd.RDB_GRAD_NUMEL, dtype=torch.float32, device="cuda")
+    scratch = torch.empty(rrdb_bwd.scratch_bytes(n, h, w), dtype=torch.uint8, device="cuda")
+    run = lambda: rrdb_bwd.rrdb_bwd_cuda(x, g, pulls[0], kept, out, scratch)
+    cudnn_bwd = rrdb_cudnn_backward(x, trunk_w[0])
+    kept_t = [t for part in kept for t in part]
     grads_bytes = 4 * sum(p.numel() for p in net.rrdb_trunk[0].parameters())
-    b_ms, b_by = bound_ms(rrdb_bwd.rrdb_bwd_flops(n, h, w), nbytes(x, g, x, *weights) + grads_bytes)
+    io = nbytes(g, x, x, *kept_t[1:], pulls[0]) + grads_bytes  # g, x, the rest kept in, dx out
+    b_ms, b_by = bound_ms(rrdb_bwd.rrdb_bwd_flops(n, h, w), io)
+    old_b_ms, _ = bound_ms(rrdb_bwd.rrdb_bwd_first_flops(n, h, w), io)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        run()
+    host_ms = 1e3 * (time.perf_counter() - t0) / 50
+    torch.cuda.synchronize()
     results["K3"] = dict(
-        name="rrdb backward (rdb_kernel<hidden> x3, prep / wgrad / conv3x3 x5 + reduce per RDB)",
+        name=f"rrdb backward (one call: prep, 3 x (5 pulls + wgrad), reduce = "
+             f"{rrdb_bwd.RRDB_BWD_KERNELS} launches)",
         route="cuda", source="master_thesis_tpu_torch/csrc/rrdb_bwd.cu",
         replaces="master_thesis_tpu/ops/pallas_rrdb.py:625",
-        max_abs_err=err, ms=device_ms(lambda: k3(x, g)),
-        stream_ms=cuda_ms(lambda: k3(x, g), iters=10),
-        plain_ms=device_ms(lambda: p3(x, g)), bound_ms=b_ms, bound_by=b_by,
-        library_ms=None,
+        max_abs_err=err, ms=device_ms(run), stream_ms=cuda_ms(run, iters=20),
+        plain_ms=device_ms(lambda: p3(x, g, kept)), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, first_ms=device_ms(first), first_stream_ms=cuda_ms(first, iters=10),
+        cudnn_ms=cuda_ms(lambda: cudnn_bwd(g), iters=10), first_bound_ms=old_b_ms,
     )
+    r = results["K3"]
+    print(f"K3 one RRDB at ({n}, {nf}, {h}, {w}): kernel {r['ms']:.4f} ms (device; CUDA events "
+          f"{r['stream_ms']:.4f}), host enqueue {host_ms:.4f} ms a call; first design "
+          f"{r['first_ms']:.4f} (events {r['first_stream_ms']:.4f}); cuDNN route (autograd "
+          f"through the five F.conv2d of each RDB) {r['cudnn_ms']:.4f}; bound {b_ms:.4f} ms "
+          f"({b_by}; the first design's work: {old_b_ms:.4f})")
+    if r["ms"] >= r["first_ms"]:
+        raise RuntimeError("K3: the redesigned backward is not faster than the first design")
 
     tconvs = [(m.weight, m.bias) for m in (net.upconv1, net.upconv2, net.hr_conv, net.conv_last)]
     tadj = tail_bwd.pack_tail_adjoint(tconvs, bf)
@@ -827,8 +898,9 @@ def phase_train(cpn, chn, results, device_line):
     torch.cuda.synchronize()
     counts = dict(zip(("K1", "K3", "K4", "K6"), (c.launches for c in counters)))
     st.apply_gradients = orig
-    want = {"K1": NB * 3, "K3": NB * 51, "K4": 3, "K6": 17}
-    print(f"train step launches in one step: {counts} (expected {want})")
+    want = {"K1": NB * 3, "K3": NB, "K4": 3, "K6": 17}
+    print(f"train step launches in one step: {counts} (expected {want}; K1 and K3 count calls: "
+          f"{rrdb.RDB_CONVS} and {rrdb_bwd.RRDB_BWD_KERNELS} kernel launches a call)")
     if counts != want:
         raise RuntimeError("the train step did not launch each kernel as expected")
     for key in ("K3", "K6"):

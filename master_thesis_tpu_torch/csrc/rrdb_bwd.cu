@@ -1,43 +1,51 @@
-// K3: the backward of one RRDB of the CHN trunk.
+// K3: the backward of one RRDB of the CHN trunk, one call (rrdb_backward)
+// an RRDB: wgmma implicit GEMMs over the activations the forward kept. The
+// kernels, their design note and their bound are in conv_bwd_wgmma.cuh.
 //
-// Replaces: master_thesis_tpu/ops/pallas_rrdb.py:rrdb_bwd_pallas (body
-// _rrdb_bwd_kernel / _rdb_bwd_block), which per frame recomputes the RRDB
-// in VMEM, sweeps rdb3, rdb2, rdb1 in reverse and writes dx and per-frame
-// dW / db that XLA sums over the frames.
-//
-// Here the same computation is a chain of launches over the whole batch
-// (the layered design; ops/rrdb_bwd.py drives it):
-//   recompute  rdb_kernel<true> (rdb_fwd.cuh, K1 writing x1..x4) for rdb1,
-//              rdb2, rdb3: their inputs and hidden activations;
-//   per RDB, conv5 .. conv1 (conv_bwd.cuh):
-//     prep     dP_t = mask(d) in bf16, bias-grad partial sums: d is 0.2 x
-//              the RDB's output cotangent for conv5, else the f32 source
-//              cotangent of x_t, masked by the sign of x_t;
-//     wgrad    dW_t against cat(x, x1..x_{t-1}), partial sums over pixels;
-//     adjoint  cat(x, x1..x_{t-1})'s cotangent += conv3x3(dP_t, W_t
-//              transposed and flipped), f32; conv1's epilogue forms the
-//              RDB's input cotangent g_out + dsrc[x] (f32) and, for rdb1,
-//              the RRDB's dx = bf16(that + g);
-//     reduce   the partial sums of the RDB's 5 dW and 5 db, in order.
-// 3 + 3 x 16 = 51 launches per RRDB. Rounding as _rdb_bwd_block: dP in
-// bf16 before every product, f32 source cotangents and cotangents between
-// the RDBs of an RRDB, bf16 between RRDBs, f32 dW / db.
-//
-// Bound on an H100 SXM (train step: 8 frames at 64x64 per RRDB): the
-// adjoint convs and the weight grads are each one forward's dense 3x3
-// operations (47 GFLOP per RRDB), plus the forward recompute (47 more): 141
-// GFLOP, 0.143 ms at 989 TFLOP/s bf16; bytes (x, g in, dx out, the weights
-// and their grads) about 13 MB, 0.004 ms. So it is bound by operations,
-// and every product runs on bf16 tensor cores. Against that bound this
-// first version pays for: the K1 halo recompute (1.8x), intermediates
-// through device memory between launches (the f32 source cotangents, 3 x 4
-// bytes x 192 channels per pixel and RDB), and partial sums of the weight
-// grads (64 K-splits) reduced in a second pass. Fusing an RDB's backward
-// over halo tiles is later work.
+// The first design stays beside it (rdb_forward_hidden and the bwd_*
+// entries over conv_bwd.cuh, driven from ops/rrdb_bwd.py:rrdb_bwd_first)
+// as an independent implementation to time the new one against on the
+// card; no path of the port calls it. It recomputed rdb1..rdb3 and their
+// x1..x4 with the fused first K1 design (rdb_fwd.cuh), then per RDB ran
+// conv5 .. conv1 as prep (dP_t = mask(d) in bf16 and bias partials), wgrad
+// (mma.sync, partial sums over pixels) and adjoint conv (f32 source
+// cotangents through device memory), and a reduce: 3 + 3 x 16 = 51
+// launches an RRDB, NCHW.
 #include "rdb_fwd.cuh"
 #include "conv_bwd.cuh"
+#include "conv_bwd_wgmma.cuh"
 
 using cb::bf16;
+
+// The bytes of scratch rrdb_backward needs for n frames of h x w.
+extern "C" long long rrdb_backward_scratch(int n, int h, int w) {
+  return kb::carve(nullptr, (long long)n * h * w).bytes;
+}
+
+// One RRDB's backward (20 kernel launches on `stream`), all activations
+// NHWC bf16: ins[j] rdb j+1's input (n, h, w, 64) (x, then rdb1's and
+// rdb2's outputs as the forward kept them), hid[j] its x1..x4 (n, h, w,
+// 128), g the RRDB's output cotangent, dx (n, h, w, 64) the input's;
+// pulls the three RDBs' pull matrices (ops/fragments.py:wgmma_pull_matrix,
+// sources 0..4 each); grads (3 x 239 808 f32) each RDB's conv1..conv5
+// (dW OIHW, db); scratch rrdb_backward_scratch(n, h, w) bytes. Returns the
+// first CUDA error code.
+extern "C" int rrdb_backward(const void* x, const void* y1, const void* y2, const void* h1,
+                             const void* h2, const void* h3, const void* g, const void* pulls,
+                             void* dx, void* grads, void* scratch, int n, int h, int w,
+                             void* stream) {
+  const kb::bf16* ins[3] = {static_cast<const kb::bf16*>(x), static_cast<const kb::bf16*>(y1),
+                            static_cast<const kb::bf16*>(y2)};
+  const kb::bf16* hid[3] = {static_cast<const kb::bf16*>(h1), static_cast<const kb::bf16*>(h2),
+                            static_cast<const kb::bf16*>(h3)};
+  return kb::rrdb_backward(ins, hid, static_cast<const kb::bf16*>(g),
+                           static_cast<const kb::bf16*>(pulls), static_cast<kb::bf16*>(dx),
+                           static_cast<float*>(grads), scratch, n, h, w,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Kernel launches of one rrdb_backward call.
+extern "C" int rrdb_backward_launches() { return kb::LAUNCHES; }
 
 // As rdb_forward (csrc/rrdb.cu), also writing x1..x4 to hidden, (n, 128, h,
 // w) bf16.

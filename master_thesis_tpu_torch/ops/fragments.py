@@ -1,6 +1,7 @@
 """Weight layout of the CUDA kernels' tensor-core B operands
 (``csrc/conv_tile.cuh``; :func:`wgmma_conv_matrix` for
-``csrc/conv3x3_wgmma.cuh``).
+``csrc/conv3x3_wgmma.cuh``, :func:`wgmma_pull_matrix` for
+``csrc/conv_bwd_wgmma.cuh``).
 
 A conv's weights form a row-major ``(K, N)`` matrix, rows ordered
 ``(tap, input channel)``. It is zero-padded to multiples of 16 and stored
@@ -85,6 +86,28 @@ def wgmma_conv_matrix(w: torch.Tensor, fill=0) -> torch.Tensor:
         raise ValueError(f"the wgmma layout needs Cin % 32 == 0 and Cout % 8 == 0, got {c}, {o}")
     blocks = w.reshape(o // 8, 8, c // 32, 2, 2, 8, 9)  # (o8, o%8, chunk, step, half, c%8, tap)
     return blocks.permute(2, 6, 3, 4, 0, 1, 5).reshape(-1)
+
+
+def pull_kernels(ws: Sequence[torch.Tensor]) -> list:
+    """The adjoint of an RDB in pull form (``csrc/conv_bwd_wgmma.cuh``):
+    from conv1..conv5's OIHW kernels ``ws`` (conv t reads cat(x, x1..x_{t-1})),
+    for each source s (x, then x1..x4) the OIHW kernel of the one 3x3 conv
+    that maps cat(dP_{s+1}..dP_5) to the source's cotangent: each conv's
+    slice of the source's channels, transposed and flipped, stacked on the
+    input axis."""
+    gc, nf = ws[0].shape[0], ws[4].shape[0]
+    out = []
+    for s in range(5):
+        lo = 0 if s == 0 else nf + (s - 1) * gc
+        hi = nf if s == 0 else lo + gc
+        out.append(torch.cat([ws[t][:, lo:hi].transpose(0, 1).flip(2, 3) for t in range(s, 5)], dim=1))
+    return out
+
+
+def wgmma_pull_matrix(ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The B operands of an RDB's five pulls (:func:`pull_kernels`, sources
+    0..4) in the layout of :func:`wgmma_conv_matrix`, concatenated."""
+    return torch.cat([wgmma_conv_matrix(k) for k in pull_kernels(ws)])
 
 
 def wgmma_unpack(buf: torch.Tensor, o: int, c: int) -> torch.Tensor:

@@ -44,7 +44,7 @@ class PackedRDB(NamedTuple):
     """One RDB's weights in the layouts both versions read, made once per
     weight set by :func:`pack_rdb`."""
 
-    w: torch.Tensor  # mma.sync B fragments (K3's recompute; working dtype)
+    w: torch.Tensor  # mma.sync B fragments (the first K1 / K3 designs; working dtype)
     b: torch.Tensor  # the five biases, concatenated (f32)
     kernels: Tuple[torch.Tensor, ...]  # conv1..conv5 OIHW (working dtype)
     wg: Optional[torch.Tensor] = None  # K1 / K2's wgmma B blocks (working dtype)
@@ -65,7 +65,7 @@ def pack_rdb(
     implicit GEMMs (made where every conv's input width is a multiple of
     32, else None). ``w`` concatenates each as a ``(9 * Cin_k, out_k)``
     matrix, rows ordered ``(ky, kx, c)`` (HWIO flattened), in the mma.sync
-    fragment order of :mod:`.fragments`, which K3's recompute reads.
+    fragment order of :mod:`.fragments`, which the first K1 and K3 designs read.
     ``kernels`` keeps the OIHW weights for :func:`rdb_plain`.
 
     The TPU kernel regroups the convs per *source* tensor
@@ -81,9 +81,13 @@ def pack_rdb(
 def _gather(kind: str, shapes: Tuple[Tuple[int, ...], ...], device) -> torch.Tensor:
     """The gather index that packs one RDB of conv ``shapes``
     (``fragments.gather_index``), made once per layout and device."""
-    layout = {"conv": fragments.conv_matrix, "wgmma": fragments.wgmma_conv_matrix,
-              "adjoint": lambda w, fill: fragments.adjoint_matrix(w, fill=fill)}[kind]
     with torch.inference_mode(False):  # usable in training after serving
+        if kind == "pull":  # one layout over all five convs
+            sizes = [math.prod(s) for s in shapes]
+            pos = torch.arange(sum(sizes)).split(sizes)
+            return fragments.wgmma_pull_matrix([p.view(s) for p, s in zip(pos, shapes)]).to(device)
+        layout = {"conv": fragments.conv_matrix, "wgmma": fragments.wgmma_conv_matrix,
+                  "adjoint": lambda w, fill: fragments.adjoint_matrix(w, fill=fill)}[kind]
         return fragments.gather_index([layout] * len(shapes), shapes).to(device)
 
 
@@ -97,11 +101,12 @@ def _sources(convs_list, dtype: torch.dtype):
 
 
 def pack_rdbs(convs_list: Sequence[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
-              dtype: torch.dtype) -> List[PackedRDB]:
+              dtype: torch.dtype, sources=None) -> List[PackedRDB]:
     """:func:`pack_rdb` for many RDBs of the same widths, with one gather
     per layout for all their kernel matrices (the training forward packs
-    the whole trunk on every step)."""
-    src, shapes = _sources(convs_list, dtype)
+    the whole trunk on every step). ``sources``: ``_sources(convs_list,
+    dtype)`` if the caller has it already."""
+    src, shapes = _sources(convs_list, dtype) if sources is None else sources
     w = src[:, _gather("conv", shapes, src.device)]
     wgmma = all(s[1] % 32 == 0 and s[0] % 8 == 0 for s in shapes)
     wg = src[:, _gather("wgmma", shapes, src.device)] if wgmma else None
@@ -124,6 +129,16 @@ def pack_rdb_adjoints(convs_list: Sequence[Sequence[Tuple[torch.Tensor, torch.Te
     adj = src[:, _gather("adjoint", shapes, src.device)]
     sizes = [fragments.numel(9 * s[0], s[1]) for s in shapes]
     return [list(adj[r].split(sizes)) for r in range(len(convs_list))]
+
+
+def pack_rdb_pulls(convs_list: Sequence[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
+                   dtype: torch.dtype, sources=None) -> torch.Tensor:
+    """Each RDB's five pull matrices (``fragments.wgmma_pull_matrix``, the
+    B operands of K3's adjoint convs) in ``dtype``, as ``_rrdb_adj_weights``
+    rounds them, with one gather for all: row r is RDB r's, sources 0..4.
+    ``sources`` as for :func:`pack_rdbs`."""
+    src, shapes = _sources(convs_list, dtype) if sources is None else sources
+    return src[:, _gather("pull", shapes, src.device)]
 
 
 def rdb_plain(

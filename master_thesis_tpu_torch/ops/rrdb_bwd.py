@@ -4,10 +4,13 @@ _rdb_bwd_block, _rrdb_bwd_kernel, make_hybrid_trunk).
 
 :class:`TrunkFunction` pairs the forward (K1, ``csrc/rrdb.cu``) with the
 backward (K3, ``csrc/rrdb_bwd.cu``) as ``make_hybrid_trunk``'s
-``custom_vjp`` does: the forward packs the f32 parameters it is given,
-runs the trunk and keeps each RRDB's input; the backward sweeps the RRDBs
-in reverse. Per RRDB it recomputes the inputs of rdb2 / rdb3 and every
-RDB's hidden x1..x4, then per RDB walks conv5 .. conv1:
+``custom_vjp`` does: the forward packs the f32 parameters it is given and
+runs the trunk one RDB call at a time, keeping each RDB's input and its
+hidden x1..x4; the backward sweeps the RRDBs in reverse over those kept
+activations, recomputing nothing. (The TPU kernel keeps only each RRDB's
+input and recomputes the rest in VMEM; K1 rounds x1..x4 as the plain
+forward does, so the kept values are the recomputed ones.) Per RDB it
+walks conv5 .. conv1:
 
 - ``dP_t = 0.2 * g_out`` for conv5, else the source cotangent of x_t times
   the lrelu slope from the sign of x_t; ``db_t = sum(dP_t)`` (f32);
@@ -17,8 +20,11 @@ RDB's hidden x1..x4, then per RDB walks conv5 .. conv1:
 
 and ends with ``dx = g_out + dsrc[x]`` (f32 between the RDBs of an RRDB);
 the RRDB's ``dx = (d + g)`` is rounded to the working dtype
-(``_rrdb_bwd_kernel``). A CUDA tensor goes through the kernels, a CPU
-tensor through :func:`rrdb_bwd_plain`; nothing falls back.
+(``_rrdb_bwd_kernel``). On the card one ctypes call runs an RRDB's
+backward (:data:`RRDB_BWD_KERNELS` launches; the design is in
+``csrc/conv_bwd_wgmma.cuh``), channels-last. A CUDA tensor goes through
+the kernels, a CPU tensor through :func:`rrdb_bwd_plain`; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -38,12 +44,13 @@ from master_thesis_tpu_torch.ops.rrdb import (
     KERNEL_NF,
     PackedRDB,
     _check_activation,
+    _sources,
     _widths,
-    pack_rdb_adjoints,
+    pack_rdb_pulls,
     pack_rdbs,
     rdb_flops,
+    rdb_cuda,
     rdb_plain,
-    rrdb_trunk,
 )
 
 Grads = Tuple[List[torch.Tensor], List[torch.Tensor]]  # one RDB's (dW OIHW, db)
@@ -80,21 +87,55 @@ def rdb_bwd_plain(
 
 
 def rrdb_bwd_plain(
-    x: torch.Tensor, g: torch.Tensor, rdbs: Sequence[PackedRDB]
+    x: torch.Tensor, g: torch.Tensor, rdbs: Sequence[PackedRDB], kept=None,
 ) -> Tuple[torch.Tensor, List[Grads]]:
     """One RRDB's backward: ``x`` its input, ``g`` its output cotangent, both
-    in the working dtype. Returns ``(dx, [grads of rdb1, rdb2, rdb3])``."""
-    y1, h1 = rdb_plain(x, rdbs[0], keep_hidden=True)
-    y2, h2 = rdb_plain(y1, rdbs[1], keep_hidden=True)
-    _, h3 = rdb_plain(y2, rdbs[2], res=x, keep_hidden=True)
+    in the working dtype. ``kept`` is ``(ins, hids)`` as the forward kept
+    them: each RDB's input and its x1..x4 as one (N, 4 gc, H, W) tensor
+    (any memory format); without it the RDBs are recomputed from ``x``.
+    Returns ``(dx, [grads of rdb1, rdb2, rdb3])``."""
+    if kept is None:
+        y1, h1 = rdb_plain(x, rdbs[0], keep_hidden=True)
+        y2, h2 = rdb_plain(y1, rdbs[1], keep_hidden=True)
+        _, h3 = rdb_plain(y2, rdbs[2], res=x, keep_hidden=True)
+        ins, hids = (x, y1, y2), (h1, h2, h3)
+    else:
+        ins = kept[0]
+        gc = rdbs[0].kernels[0].shape[0]
+        hids = [list(h.split(gc, dim=1)) for h in kept[1]]
     gf = g.float()
     d = 0.2 * gf
     grads: List[Grads] = [None] * 3
-    for j, (xin, hid) in reversed(list(enumerate(((x, h1), (y1, h2), (y2, h3))))):
-        d, grads[j] = rdb_bwd_plain(xin, hid, d, rdbs[j])
+    for j in (2, 1, 0):
+        d, grads[j] = rdb_bwd_plain(ins[j], hids[j], d, rdbs[j])
     return (d + gf).to(x.dtype), grads
 
 
+def flat_grads(grads: Sequence[Grads], out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """An RRDB's grads as K3 writes them: per RDB conv1..conv5, each dW
+    (OIHW) then db, flattened (into ``out`` if given)."""
+    parts = [t.reshape(-1) for dws, dbs in grads for k in range(5) for t in (dws[k], dbs[k])]
+    if out is None:
+        return torch.cat(parts)
+    return torch.cat(parts, out=out)
+
+
+def rdb_grads(flat: torch.Tensor) -> List[Grads]:
+    """Inverse of :func:`flat_grads`: views of ``flat`` per RDB."""
+    out, off = [], 0
+    for _ in range(3):
+        dws, dbs = [], []
+        for cin, cout in _widths(KERNEL_NF, KERNEL_GC):
+            dws.append(flat[off: off + 9 * cin * cout].view(cout, cin, 3, 3))
+            off += 9 * cin * cout
+            dbs.append(flat[off: off + cout])
+            off += cout
+        out.append((dws, dbs))
+    return out
+
+
+# The first design's partial-sum row: each conv's weight grads, then the
+# bias grads.
 _W_OFF = [0]
 for _cin, _cout in _widths(KERNEL_NF, KERNEL_GC):
     _W_OFF.append(_W_OFF[-1] + 9 * _cin * _cout)
@@ -105,13 +146,19 @@ _KS_MAX = 64  # K-splits of the weight-grad sums over pixels
 
 
 def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The kernels' library; ``defines`` selects a variant (a planted fault
-    of ``csrc/conv_bwd.cuh`` for the checks on the card)."""
+    """The kernels' library; ``defines`` selects a variant (a planted fault,
+    ``-DBWD_PLANT``, for the checks on the card, or a tuning flag)."""
     lib = _build.load("rrdb_bwd", defines)
     if not hasattr(lib, "_bound"):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
         conv_bwd.bind(lib)
-        lib.rdb_forward_hidden.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.rdb_forward_hidden.restype = ctypes.c_int
+        lib.rdb_forward_hidden.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+        lib.rdb_forward_hidden.restype = ci
+        lib.rrdb_backward.argtypes = [vp] * 11 + [ci] * 3 + [vp]
+        lib.rrdb_backward.restype = ci
+        lib.rrdb_backward_scratch.argtypes = [ci] * 3
+        lib.rrdb_backward_scratch.restype = ctypes.c_longlong
+        lib.rrdb_backward_launches.restype = ci
         lib._bound = True
     return lib
 
@@ -134,14 +181,17 @@ def _ksplits(n: int, h: int, w: int) -> int:
     return min(_KS_MAX, n * -(-h // 8) * -(-w // 16))
 
 
-def rrdb_bwd_cuda(
+def rrdb_bwd_first(
     x: torch.Tensor, g: torch.Tensor, rdbs: Sequence[PackedRDB],
     adjs: Sequence[Sequence[torch.Tensor]],
 ) -> Tuple[torch.Tensor, List[Grads]]:
-    """One RRDB's backward through the CUDA kernels (``csrc/rrdb_bwd.cu``,
-    51 launches): bf16 NCHW ``x`` and ``g`` with nf=64, gc=32; ``rdbs`` the
-    packed forward weights (``pack_rdb``), ``adjs`` the packed adjoints
-    (``pack_rdb_adjoints``) of the three RDBs."""
+    """The first K3 design (``csrc/rrdb_bwd.cu``: ``rdb_forward_hidden`` and
+    the ``bwd_*`` entries over ``conv_bwd.cuh``, 51 launches), kept to time
+    the current one against on the card; no path of the port calls it.
+    bf16 NCHW ``x`` and ``g`` with nf=64, gc=32; ``rdbs`` the packed forward
+    weights (``pack_rdb``), ``adjs`` the packed adjoints
+    (``pack_rdb_adjoints``) of the three RDBs. It recomputes the RDBs
+    from ``x`` and counts its launches in ``rrdb_bwd_first.launches``."""
     _check_activation(x, "x")
     _check_activation(g, "g")
     if g.shape != x.shape or g.device != x.device:
@@ -154,7 +204,7 @@ def rrdb_bwd_cuda(
         if (p.b.dtype, p.b.numel(), p.b.device) != (torch.float32, _RDB_B_NUMEL, x.device):
             raise ValueError("rdbs must hold f32 biases on x's device")
     lib = _lib()
-    me = rrdb_bwd_cuda
+    me = rrdb_bwd_first
     n, nf, h, w = x.shape
     ins, hid = [x], []
     for j in range(3):
@@ -198,68 +248,190 @@ def rrdb_bwd_cuda(
     return dx, grads
 
 
+rrdb_bwd_first.launches = 0
+
+# An RDB's grads as K3 writes them (:func:`flat_grads`), and its five pull
+# matrices (``rrdb.pack_rdb_pulls``).
+RDB_GRAD_NUMEL = sum(9 * cin * cout + cout for cin, cout in _widths(KERNEL_NF, KERNEL_GC))
+PULL_NUMEL = sum(9 * cin * cout for cin, cout in _widths(KERNEL_NF, KERNEL_GC))
+# Kernel launches of one K3 call (csrc/conv_bwd_wgmma.cuh: prep, 3 x (5
+# pulls + wgrad), reduce).
+RRDB_BWD_KERNELS = 20
+
+
+def scratch_bytes(n: int, h: int, w: int) -> int:
+    """Bytes of the scratch one K3 call needs for n frames of h x w."""
+    return _lib().rrdb_backward_scratch(n, h, w)
+
+
+def _check_kept(kept, x: torch.Tensor) -> None:
+    ins, hids = kept
+    if len(ins) != 3 or len(hids) != 3:
+        raise ValueError("kept must hold the three RDBs' inputs and hidden activations")
+    for i, t in enumerate(ins):
+        _check_activation(t, f"kept input {i}", torch.channels_last)
+        if t.shape != x.shape or t.device != x.device:
+            raise ValueError("kept inputs must match x in shape and device")
+    n, _, h, w = x.shape
+    for t in hids:
+        if (not t.is_cuda or t.dtype != torch.bfloat16 or t.shape != (n, 4 * KERNEL_GC, h, w)
+                or not t.is_contiguous(memory_format=torch.channels_last) or t.device != x.device):
+            raise ValueError(f"kept x1..x4 must be channels-last bf16 ({n}, {4 * KERNEL_GC}, {h}, {w}) "
+                             "on x's device")
+
+
+def rrdb_bwd_cuda(
+    x: torch.Tensor, g: torch.Tensor, pulls: torch.Tensor, kept,
+    out: Optional[torch.Tensor] = None, scratch: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One RRDB's backward through K3 (``csrc/rrdb_bwd.cu:rrdb_backward``,
+    one ctypes call, :data:`RRDB_BWD_KERNELS` launches), nf=64, gc=32, bf16.
+
+    ``x`` and ``g`` channels-last (N, 64, H, W); ``pulls`` the three RDBs'
+    pull matrices, (3, PULL_NUMEL) contiguous (rows of
+    ``rrdb.pack_rdb_pulls``); ``kept`` = ``(ins, hids)`` from the forward:
+    the RDBs' inputs (x and rdb1's and rdb2's outputs, channels-last) and
+    their x1..x4, channels-last (N, 128, H, W) (``rdb_cuda``'s NHWC
+    scratch, permuted). ``out`` (3 * RDB_GRAD_NUMEL f32) receives the grads
+    (:func:`flat_grads` order) and ``scratch`` (uint8,
+    :func:`scratch_bytes`) is the launches' workspace; each is allocated
+    here when not given. Returns ``(dx, out)``, dx channels-last."""
+    _check_activation(x, "x", torch.channels_last)
+    _check_activation(g, "g", torch.channels_last)
+    if g.shape != x.shape or g.device != x.device:
+        raise ValueError("g must match x in shape and device")
+    _check_kept(kept, x)
+    if (pulls.dtype, pulls.shape, pulls.device) != (torch.bfloat16, (3, PULL_NUMEL), x.device) \
+            or not pulls.is_contiguous():
+        raise ValueError("pulls must be three RDBs' bf16 pull matrices (pack_rdb_pulls) on x's device")
+    n, _, h, w = x.shape
+    lib = _lib()
+    if out is None:
+        out = torch.empty(3 * RDB_GRAD_NUMEL, dtype=torch.float32, device=x.device)
+    if scratch is None:
+        scratch = torch.empty(lib.rrdb_backward_scratch(n, h, w), dtype=torch.uint8, device=x.device)
+    if (out.dtype, out.numel(), out.device) != (torch.float32, 3 * RDB_GRAD_NUMEL, x.device) \
+            or not out.is_contiguous():
+        raise ValueError("out must be a contiguous f32 tensor of 3 * RDB_GRAD_NUMEL on x's device")
+    if scratch.device != x.device or scratch.nbytes < lib.rrdb_backward_scratch(n, h, w):
+        raise ValueError("scratch is smaller than rrdb_backward_scratch(n, h, w)")
+    ins, hids = kept
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    rc = lib.rrdb_backward(
+        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in hids), g.data_ptr(),
+        pulls.data_ptr(), dx.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, h, w,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, rc, "rrdb_backward")
+    rrdb_bwd_cuda.launches += 1
+    return dx, out
+
+
 rrdb_bwd_cuda.launches = 0
 
 
 def rrdb_bwd(
-    x: torch.Tensor, g: torch.Tensor, rdbs: Sequence[PackedRDB],
-    adjs: Optional[Sequence[Sequence[torch.Tensor]]],
-) -> Tuple[torch.Tensor, List[Grads]]:
-    """The kernels for a CUDA tensor (``adjs``: the three RDBs' packed
-    adjoints), the plain version for a CPU tensor."""
+    x: torch.Tensor, g: torch.Tensor, rdbs: Sequence[PackedRDB], pulls: Optional[torch.Tensor],
+    kept=None, out: Optional[torch.Tensor] = None, scratch: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 for a CUDA tensor (``pulls``, ``kept``: see :func:`rrdb_bwd_cuda`),
+    the plain version for a CPU tensor (``rdbs``, ``kept`` optional).
+    Returns ``(dx, grads)``, grads flat as :func:`flat_grads` (in ``out``
+    if given)."""
     if x.is_cuda:
-        return rrdb_bwd_cuda(x, g, rdbs, adjs)
+        return rrdb_bwd_cuda(x, g, pulls, kept, out, scratch)
     if x.device.type != "cpu":
         raise ValueError(f"no RRDB backward for device {x.device}")
-    return rrdb_bwd_plain(x, g, rdbs)
+    dx, grads = rrdb_bwd_plain(x, g, rdbs, kept)
+    return dx, flat_grads(grads, out)
+
+
+def _rdb_keep(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor]):
+    """One RDB of the trunk's forward, keeping x1..x4 as (N, 4 gc, H, W):
+    K1's NHWC scratch viewed channels-last on the card, the plain
+    version's on the CPU."""
+    if x.is_cuda:
+        y, hid = rdb_cuda(x, p, res, keep_hidden=True)
+        return y, hid.permute(0, 3, 1, 2)
+    if x.device.type != "cpu":
+        raise ValueError(f"no RDB implementation for device {x.device}")
+    y, hidden = rdb_plain(x, p, res, keep_hidden=True)
+    return y, torch.cat(hidden, dim=1)
+
+
+def rrdb_forward_kept(x: torch.Tensor, rdbs: Sequence[PackedRDB]):
+    """One RRDB's forward, one RDB call at a time as ``rrdb_trunk`` runs
+    it, keeping what its backward reads: returns ``(y, (ins, hids))``, ins
+    the three RDBs' inputs, hids their x1..x4 as (N, 4 gc, H, W)."""
+    ins, hids, y = [], [], x
+    for j, p in enumerate(rdbs):
+        ins.append(y)
+        y, hid = _rdb_keep(y, p, x if j == 2 else None)
+        hids.append(hid)
+    return y, (ins, hids)
 
 
 class TrunkFunction(torch.autograd.Function):
-    """The trunk of RRDBs with the fused forward and backward kernels.
+    """The trunk of RRDBs with the RDB forward and the RRDB backward kernels.
 
     ``apply(x, dtype, *params)``: ``x`` (N, C, H, W) in the working
     ``dtype``; ``params`` the f32 ``(weight OIHW, bias)`` of every RRDB's
     rdb1..rdb3 conv1..conv5, flattened in that order. The forward packs
-    them afresh, so it always runs the current weights.
+    them afresh, so it always runs the current weights, and keeps every
+    RDB's input and x1..x4 for the backward.
 
     On the card the forward runs K1 on a channels-last copy of ``x`` (one
-    conversion; the output is channels-last), and the backward converts
-    each kept RRDB input back to NCHW for K3 (one conversion an RRDB)."""
+    conversion; the output is channels-last), and the backward takes the
+    output cotangent channels-last (converted once if it is not) and runs
+    K3 once an RRDB into one grad buffer for the whole trunk."""
 
     @staticmethod
     def forward(ctx, x, dtype, *params):
         convs = [[(params[10 * r + 2 * k], params[10 * r + 2 * k + 1]) for k in range(5)]
                  for r in range(len(params) // 10)]
-        flat = pack_rdbs(convs, dtype)
+        sources = _sources(convs, dtype)
+        flat = pack_rdbs(convs, dtype, sources)
         packed = [flat[i: i + 3] for i in range(0, len(flat), 3)]
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        inters = []
+        kept = []
         for rdbs in packed:
-            inters.append(x)
-            x = rrdb_trunk(x, [rdbs])
-        ctx.inters, ctx.packed, ctx.convs, ctx.dtype = inters, packed, convs, dtype
+            x, k = rrdb_forward_kept(x, rdbs)
+            kept.append(k)
+        ctx.kept, ctx.packed, ctx.convs, ctx.dtype = kept, packed, convs, dtype
+        ctx.sources, ctx.params = sources, params  # the backward's pulls, its grads' shapes
         return x
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous()
-        adjs = None
+        nb = len(ctx.packed)
+        size = sum(p.numel() for p in ctx.params) // nb  # one RRDB's grads
+        flat = torch.empty(nb * size, dtype=torch.float32, device=g.device)
+        pulls = scratch = None
         if g.is_cuda:
-            flat = pack_rdb_adjoints(ctx.convs, ctx.dtype)
-            adjs = [flat[i: i + 3] for i in range(0, len(flat), 3)]
-        grads = []
-        for i in reversed(range(len(ctx.inters))):
-            x = ctx.inters[i].contiguous()  # K3 takes NCHW
-            g, per_rdb = rrdb_bwd(x, g, ctx.packed[i], None if adjs is None else adjs[i])
-            flat = [t for dws, dbs in per_rdb for k in range(5) for t in (dws[k], dbs[k])]
-            grads = flat + grads
-        ctx.inters = ctx.packed = ctx.convs = None
+            g = g.contiguous(memory_format=torch.channels_last)
+            pulls = pack_rdb_pulls(ctx.convs, ctx.dtype, ctx.sources)
+            n, _, h, w = g.shape
+            scratch = torch.empty(scratch_bytes(n, h, w), dtype=torch.uint8, device=g.device)
+        else:
+            g = g.contiguous()
+        for i in reversed(range(nb)):
+            g, _ = rrdb_bwd(ctx.kept[i][0][0], g, ctx.packed[i],
+                            None if pulls is None else pulls[3 * i: 3 * i + 3], ctx.kept[i],
+                            flat[i * size: (i + 1) * size], scratch)
+        grads = torch._utils._unflatten_dense_tensors(flat, ctx.params)
+        ctx.kept = ctx.packed = ctx.convs = ctx.sources = ctx.params = None
         return (g, None, *grads)
 
 
 def rrdb_bwd_flops(n: int, h: int, w: int) -> int:
-    """Operations one RRDB's backward needs: for each RDB the adjoint convs
-    and the weight grads (each one forward's dense 3x3 convs) and the
-    forward recompute, since only the RRDB's input is kept."""
+    """Operations one RRDB's backward needs over the kept activations: for
+    each RDB the adjoint convs and the weight grads, each one forward's
+    dense 3x3 convs."""
+    return 2 * 3 * rdb_flops(n, h, w)
+
+
+def rrdb_bwd_first_flops(n: int, h: int, w: int) -> int:
+    """Operations of :func:`rrdb_bwd_first`: :func:`rrdb_bwd_flops` and the
+    forward recompute, since it keeps only the RRDB's input."""
     return 3 * 3 * rdb_flops(n, h, w)

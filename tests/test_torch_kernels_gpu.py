@@ -178,11 +178,11 @@ def _rel_l2(got, want):
 K3_L2, K6_L2 = 5e-2, 1e-2
 
 
-@pytest.mark.parametrize("n,h,w", [(2, 8, 16), (1, 13, 21), (2, 60, 120)])
-def test_rrdb_bwd_kernel_matches_plain(cuda, n, h, w):
+def _rrdb_bwd_inputs(rng, cuda, n, h, w):
+    """Three RDBs' weights (packed, pull matrices), channels-last x and g,
+    and the activations K1 keeps for the backward."""
     from master_thesis_tpu_torch.ops import rrdb_bwd
 
-    rng = np.random.RandomState(2)
     nf, gc = rrdb.KERNEL_NF, rrdb.KERNEL_GC
     convs = [
         [tuple(t.to(cuda) for t in _conv(rng, nf + k * gc, gc if k < 4 else nf, (1.0 / (9 * (nf + k * gc))) ** 0.5))
@@ -190,21 +190,55 @@ def test_rrdb_bwd_kernel_matches_plain(cuda, n, h, w):
         for _ in range(3)
     ]
     rdbs = [rrdb.pack_rdb(c, torch.bfloat16) for c in convs]
-    adjs = rrdb.pack_rdb_adjoints(convs, torch.bfloat16)
-    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
-    g = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    pulls = rrdb.pack_rdb_pulls(convs, torch.bfloat16)
+    x, g = _activation(rng, cuda, n, h, w), _activation(rng, cuda, n, h, w)
+    _, kept = rrdb_bwd.rrdb_forward_kept(x, rdbs)
+    return rdbs, pulls, x, g, kept
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 8, 16), (1, 13, 21), (2, 60, 120)])
+def test_rrdb_bwd_kernel_matches_plain(cuda, n, h, w):
+    """K3 (one call an RRDB) over K1's kept activations against the plain
+    version over the same ones: dx and every conv's dW and db."""
+    from master_thesis_tpu_torch.ops import rrdb_bwd
+
+    rdbs, pulls, x, g, kept = _rrdb_bwd_inputs(np.random.RandomState(2), cuda, n, h, w)
     before = rrdb_bwd.rrdb_bwd_cuda.launches
-    dx, grads = rrdb_bwd.rrdb_bwd_cuda(x, g, rdbs, adjs)
+    dx, flat = rrdb_bwd.rrdb_bwd_cuda(x, g, pulls, kept)
     torch.cuda.synchronize()
-    assert rrdb_bwd.rrdb_bwd_cuda.launches == before + 51
-    dx_p, grads_p = rrdb_bwd.rrdb_bwd_plain(x, g, rdbs)
+    assert rrdb_bwd.rrdb_bwd_cuda.launches == before + 1
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    dx_p, grads_p = rrdb_bwd.rrdb_bwd_plain(x, g, rdbs, kept)
     assert _rel_l2(dx, dx_p) <= K3_L2
-    for (dws, dbs), (dws_p, dbs_p) in zip(grads, grads_p):
+    for (dws, dbs), (dws_p, dbs_p) in zip(rrdb_bwd.rdb_grads(flat), grads_p):
         for a, b in zip(dws + dbs, dws_p + dbs_p):
             assert a.shape == b.shape and _rel_l2(a, b) <= K3_L2
-    dx2, grads2 = rrdb_bwd.rrdb_bwd_cuda(x, g, rdbs, adjs)
-    assert torch.equal(dx, dx2)  # no float atomics: bit-identical reruns
-    assert all(torch.equal(a, b) for (dws, _), (dws2, _) in zip(grads, grads2) for a, b in zip(dws, dws2))
+    dx2, flat2 = rrdb_bwd.rrdb_bwd_cuda(x, g, pulls, kept)
+    assert torch.equal(dx, dx2) and torch.equal(flat, flat2)  # no float atomics
+
+
+def test_rrdb_bwd_kernel_reruns_bit_identical(cuda):
+    """Two K3 runs at the train step's shape (8 frames at 64x64) give the
+    same dx, dW and db bit for bit: the K-split and bias partial sums are
+    reduced in a fixed order, with no float atomics."""
+    from master_thesis_tpu_torch.ops import rrdb_bwd
+
+    _, pulls, x, g, kept = _rrdb_bwd_inputs(np.random.RandomState(7), cuda, 8, 64, 64)
+    dx, flat = rrdb_bwd.rrdb_bwd_cuda(x, g, pulls, kept)
+    dx2, flat2 = rrdb_bwd.rrdb_bwd_cuda(x, g, pulls, kept)
+    torch.cuda.synchronize()
+    assert torch.isfinite(flat).all() and torch.isfinite(dx.float()).all()
+    assert torch.equal(dx, dx2)
+    for (dws, dbs), (dws2, dbs2) in zip(rrdb_bwd.rdb_grads(flat), rrdb_bwd.rdb_grads(flat2)):
+        assert all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
+
+
+def test_rrdb_bwd_wrapper_refuses_nchw(cuda):
+    from master_thesis_tpu_torch.ops import rrdb_bwd
+
+    _, pulls, x, g, kept = _rrdb_bwd_inputs(np.random.RandomState(8), cuda, 1, 8, 8)
+    with pytest.raises(ValueError, match="channels-last"):
+        rrdb_bwd.rrdb_bwd_cuda(x.contiguous(), g, pulls, kept)
 
 
 @pytest.mark.parametrize("n,h,w", [(2, 8, 8), (1, 6, 10), (2, 13, 7)])
