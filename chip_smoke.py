@@ -14,14 +14,18 @@ Phases, each fatal on failure:
    bf16 at the same points and sum in different orders), and a relative
    L2 limit on the part the convs compute (an RRDB's output less its
    identity part ``1.2 x``); each check is also read on a fault planted in
-   the kernel's weights (and, for K1, in its code: ``-DRDB_PLANT=1`` on
-   the ragged 2x60x120 check) and must catch it; K1's x1..x4 against the
-   plain version's and against the first K1 design (``rdb_forward_tiles``
-   / ``rdb_forward_hidden``, an independent implementation); K1 beside
-   that first design and the cuDNN route (five ``F.conv2d`` a RDB) on the
-   same inputs at 80x64x64 and 8x128x128 (fatal unless K1 is faster than
-   the first design); each of an RDB's five convs against its floor;
-   CUDA-event times;
+   the kernel's weights (and, for K1 and K4, in its code: ``-DRDB_PLANT=1``
+   on K1's ragged 2x60x120 check, ``-DTAIL_PLANT=1`` on K4's main and
+   ragged checks) and must catch it; K1's x1..x4 against the plain
+   version's and against the first K1 design (``rdb_forward_tiles`` /
+   ``rdb_forward_hidden``, an independent implementation); K1 beside that
+   first design and the cuDNN route (five ``F.conv2d`` a RDB) on the same
+   inputs at 80x64x64 and 8x128x128, and K4 beside its first design
+   (``tail_first_cuda``, held to the plain version too) at 80x64x64, each
+   fatal unless the new design is faster; each of an RDB's five convs and
+   each of the tail's four launches against its floor (each launch also
+   held to its plain stage); the memory each tail design holds; CUDA-event
+   times;
 4. main path: ``CPN.align`` then ``chn_infer_apply`` at B=16, F=5, 256x256,
    nb=20, bf16 compute on seeded random weights (bench.py's step); the
    launch counts of one step; output checks; a small input through the
@@ -29,7 +33,11 @@ Phases, each fatal on failure:
    card (relative L2 limit, read also with a planted fault), with the
    drift from the f32 plain path on the CPU printed beside it; host-clock
    step time; one step under ``torch.profiler`` (device time by kernel,
-   busy share);
+   busy share, layout transposes and copies); the network's output must be
+   channels-last (the caller's NHWC view of it copies nothing); beside it
+   the same step with the layout of the first tail design (the trunk's sum
+   copied to NCHW, the first design, its output copied to NHWC), timed and
+   profiled the same way;
 5. backward kernels: K3 (an RRDB's backward over the activations K1
    keeps, one call) and K6 (the tail's) on card tensors at the train
    step's shapes (8 frames at 64x64; the 20-RRDB trunk; a ragged shape),
@@ -75,11 +83,12 @@ Phases, each fatal on failure:
    on the 20-RRDB trunk at 8 frames of 128x256, K5 (the tail in 32-row
    bands) at 8 frames of 128x128 and 128x256, each held against its plain
    band decomposition by relative L2 with TF32 off and read on a weight
-   fault and on the band-edge fault compiled with ``-DBAND_PLANT=1``; each
-   beside its full-frame twin (K1, K4) on the same input: the largest
-   difference (K2 must equal K1 bit for bit, on one RRDB and on the
-   trunk), CUDA-event times, bounds, the memory a call holds; K2's RRDB
-   also beside the first K1 design and the cuDNN route;
+   fault and on the band-edge fault compiled with ``-DBAND_PLANT=1`` (K5
+   also on ``-DTAIL_PLANT=1``); each beside its full-frame twin (K1, K4) on
+   the same input: the largest difference (K2 must equal K1 bit for bit,
+   on one RRDB and on the trunk, and K5 K4), CUDA-event times, bounds, the
+   memory a call holds; K2's RRDB also beside the first K1 design and the
+   cuDNN route, K5 beside its first design (fatal unless faster);
 10. full video: BASELINE.md config 5 through ``infer.Inpainter``, 12
    frames at 512x512 (one seeded frame over time, a hole strip moving 12
    rows a frame), nb=20 bf16 on the seeded serving weights, ff / ip / cp
@@ -162,6 +171,13 @@ L2_REFINE = 3e-2
 # the fault compiled into K1 / K2 with -DRDB_PLANT=1.
 L2_HIDDEN = 5e-3
 RDB_FAULT = "right halo column of every row run read as zeros"
+# The tail's four launches (K4; per band for K5), and the fault compiled
+# into them with -DTAIL_PLANT=1.
+TAIL_STAGES = ("upconv1", "upconv2", "hr_conv", "conv_last")
+TAIL_FAULT = "right halo column of every tile read as zeros"
+# Device kernels the profile counts as layout transposes and copies (cuDNN's
+# NCHW <-> NHWC transposes, ATen's copies and device-to-device memcpy).
+LAYOUT_KEYS = ("nchwtonhwc", "nhwctonchw", "transpose", "copy")
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
@@ -250,7 +266,7 @@ def phase_build():
         (name, (f"-DBWD_PLANT={f}",)) for name in ("rrdb_bwd", "tail_bwd") for f in FAULTS
     ] + [("conv_stack", (f"-DSTACK_PLANT={f}",)) for f in STACK_FAULTS]
       + [(name, ("-DBAND_PLANT=1",)) for name in ("rrdb", "tail")]
-      + [("rrdb", ("-DRDB_PLANT=1",))])
+      + [("rrdb", ("-DRDB_PLANT=1",)), ("tail", ("-DTAIL_PLANT=1",))])
     print(f"build: {len(report)} libraries in {time.perf_counter() - t0:.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})")
     for name, (secs, log) in sorted(report.items()):
@@ -301,6 +317,21 @@ def planted_rdb():
         yield
     finally:
         rrdb._rdb_lib = orig
+
+
+@contextlib.contextmanager
+def planted_tail():
+    """Within: the tail wrappers (K4, K5) launch the library built with
+    ``-DTAIL_PLANT=1`` (csrc/tail_wgmma.cuh): every tile's right halo
+    column is read as zeros in all four launches."""
+    from master_thesis_tpu_torch.ops import tail
+
+    orig = tail._tail_lib
+    tail._tail_lib = lambda _=(): orig(("-DTAIL_PLANT=1",))
+    try:
+        yield
+    finally:
+        tail._tail_lib = orig
 
 
 def rrdb_tiles(x, rdbs):
@@ -367,12 +398,13 @@ def rrdb_cudnn_backward(x, rdbs):
 
 
 def phase_kernels(chn):
-    """K1 (RRDB = 3 RDB calls of 5 conv launches) and K4 (tail = 3
+    """K1 (RRDB = 3 RDB calls of 5 conv launches) and K4 (tail = 4
     launches) against their plain versions, at the main path's shapes and
     ragged ones; each check also read on a planted fault; K1's x1..x4
     against the plain version's and the first design's; K1 beside the
-    first design and the cuDNN route on the same inputs; each conv of an
-    RDB against its floor."""
+    first design and the cuDNN route on the same inputs, K4 beside its
+    first design; each conv of an RDB and each launch of the tail against
+    its floor."""
     from master_thesis_tpu_torch.ops import rrdb, rrdb_bwd, tail
 
     torch.backends.cudnn.allow_tf32 = False
@@ -452,38 +484,72 @@ def phase_kernels(chn):
         print(f"K1 conv{k} alone at {n}x64x64: {1e3 * t:.2f} us, floor {1e3 * floor:.1f} us "
               f"({floor / t:.1%} of it)")
 
-    y = rnd(n, nf, H // 4, W // 4)
+    y = channels_last(rnd(n, nf, H // 4, W // 4))
     out = tail.tail_cuda(y, tail_w)
-    if out.shape != (n, 3, H, W):
-        raise RuntimeError(f"K4 output shape {tuple(out.shape)}")
+    if out.shape != (n, 3, H, W) or not out.is_contiguous(memory_format=torch.channels_last):
+        raise RuntimeError(f"K4 output shape {tuple(out.shape)} or layout (not channels-last)")
     want = tail.tail_plain(y, tail_w)
     err = check("K4 tail (80, 64, 64, 64) -> (80, 3, 256, 256)", out, want, None, L2_TAIL)
     for key in ("up1_b", "last_b"):
         bad = dict(tail_w, **{key: torch.zeros_like(tail_w[key])})
         check(f"K4 tail, {key} dropped", tail.tail_cuda(y, bad), want, None, L2_TAIL, planted=True)
-    yr = rnd(2, nf, 60, 120)
-    check("K4 tail ragged (2, 64, 60, 120)", tail.tail_cuda(yr, tail_w), tail.tail_plain(yr, tail_w),
-          None, L2_TAIL)
+    with planted_tail():
+        check(f"K4 tail, {TAIL_FAULT}", tail.tail_cuda(y, tail_w), want, None, L2_TAIL, planted=True)
+    yr = channels_last(rnd(2, nf, 60, 120))
+    want_r = tail.tail_plain(yr, tail_w)
+    check("K4 tail ragged (2, 64, 60, 120)", tail.tail_cuda(yr, tail_w), want_r, None, L2_TAIL)
+    with planted_tail():
+        check(f"K4 tail ragged, {TAIL_FAULT}", tail.tail_cuda(yr, tail_w), want_r, None, L2_TAIL,
+              planted=True)
+    # The first design (NCHW, three launches) on the same input: held to the
+    # plain version too, and timed beside the new one.
+    y_nchw = y.contiguous()
+    check("K4 first design (tail_first_cuda)", tail.tail_first_cuda(y_nchw, tail_w), want, None,
+          L2_TAIL)
+    t_new = cuda_ms(lambda: tail.tail_cuda(y, tail_w))
+    t_old = cuda_ms(lambda: tail.tail_first_cuda(y_nchw, tail_w))
+    peak_new = peak_mb(lambda: tail.tail_cuda(y, tail_w))
+    peak_old = peak_mb(lambda: tail.tail_first_cuda(y_nchw, tail_w))
+    print(f"K4 old vs new at 80x64x64: new {t_new:.4f} ms, first design {t_old:.4f} ms "
+          f"({t_old / t_new:.2f}x); holds {peak_new:.1f} MB at its peak (first design {peak_old:.1f})")
+    if not t_new < t_old:
+        raise RuntimeError("K4 at 80x64x64 is not faster than the first design")
+    # Each launch alone against its floor, on the plain version's input to
+    # that stage (channels-last), and held to the plain stage.
+    src = y
+    for k, stage in enumerate(TAIL_STAGES):
+        want_k = tail.tail_stage_plain(k, src, tail_w)
+        src_nhwc = src.permute(0, 2, 3, 1).contiguous()
+        dst = torch.empty(want_k.permute(0, 2, 3, 1).shape, dtype=src.dtype, device=src.device)
+        tail.tail_stage_cuda(k, src_nhwc, tail_w, dst)
+        check(f"K4 {stage} alone", dst.permute(0, 3, 1, 2), want_k, None, L2_TAIL)
+        t = cuda_ms(lambda: tail.tail_stage_cuda(k, src_nhwc, tail_w, dst))
+        floor, by = bound_ms(*tail.tail_stage_cost(k, n, H // 4, W // 4))
+        print(f"K4 {stage} alone at {tuple(src.shape)}: {1e3 * t:.2f} us, floor {1e3 * floor:.1f} us "
+              f"({by}; {floor / t:.1%} of it)")
+        src = want_k
     b_ms, b_by = bound_ms(tail.tail_flops(n, H // 4, W // 4), nbytes(y, out))
     results["K4"] = dict(
-        name="tail (upconv_kernel x2, hr_last_kernel)", route="cuda",
-        source="master_thesis_tpu_torch/csrc/tail.cu",
+        name="tail (tail_kernel x4: upconv1, upconv2, hr_conv, conv_last)", route="cuda",
+        source="master_thesis_tpu_torch/csrc/tail_wgmma.cuh",
         replaces="master_thesis_tpu/ops/pallas_tail.py:263",
-        max_abs_err=err, ms=cuda_ms(lambda: tail.tail_cuda(y, tail_w)),
-        plain_ms=cuda_ms(lambda: tail.tail_plain(y, tail_w)), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        max_abs_err=err, ms=t_new, plain_ms=cuda_ms(lambda: tail.tail_plain(y, tail_w)), bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, first_design_ms=t_old, peak_mb=peak_new, first_peak_mb=peak_old,
     )
     for key, r in results.items():
         beside = (f" first_design_ms={r['tiles_ms']:.4f} cudnn_route_ms={r['cudnn_ms']:.4f}"
-                  if "tiles_ms" in r else "")
+                  if "tiles_ms" in r else
+                  f" first_design_ms={r['first_design_ms']:.4f} peak_mb={r['peak_mb']:.1f} "
+                  f"first_peak_mb={r['first_peak_mb']:.1f}")
         print(f"kernel {key} {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) library_ms=null{beside}")
     return results
 
 
-def rrdbnet_forward(net, trunk_w, rdb_fn, tail_fn):
+def rrdbnet_forward(net, trunk_w, rdb_fn, tail_fn, nchw_tail=False):
     """``RRDBNet.forward`` on the full-frame routes with the given trunk
-    weights, RDB and tail."""
+    weights, RDB and tail; with ``nchw_tail`` the trunk's sum is copied to
+    NCHW for the tail (the layout of the first tail design)."""
     from master_thesis_tpu_torch.ops import rrdb
 
     _, tail_w = net.packed()
@@ -491,7 +557,8 @@ def rrdbnet_forward(net, trunk_w, rdb_fn, tail_fn):
     def forward(x, trunk_band_rows=None, tail_band_rows=None):
         y = channels_last(net.conv_first(x))
         t = rrdb.rrdb_trunk(y, trunk_w, rdb_fn=rdb_fn)
-        return tail_fn((y + net.trunk_conv(t)).contiguous(), tail_w)
+        s = y + net.trunk_conv(t)
+        return tail_fn(s.contiguous() if nchw_tail else channels_last(s), tail_w)
 
     return forward
 
@@ -523,7 +590,7 @@ def phase_main_path(cpn, chn, results, device_line):
         (y_hat, y_comp), _ = step(*inputs)
         torch.cuda.synchronize()
         counts = {"K1": rrdb.rdb_cuda.launches, "K4": tail.tail_cuda.launches}
-    want = {"K1": NB * 3, "K4": 3}
+    want = {"K1": NB * 3, "K4": tail.TAIL_KERNELS}
     print(f"main path launches in one step: {counts} (expected {want})")
     if counts != want:
         raise RuntimeError("the main path did not launch each kernel as expected")
@@ -584,7 +651,37 @@ def phase_main_path(cpn, chn, results, device_line):
     print(f"main path: B={B} F={F} {H}x{W} nb={NB} bf16: {1e3 * dt:.3f} ms/step, "
           f"{B / dt:.3f} frames/s, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {device_line}")
-    phase_profile(step, inputs, dt)
+    _, layout_after = phase_profile(step, inputs, dt)
+
+    # The tail's input and output stay channels-last on the path: its output
+    # is the NHWC chn_infer_apply reads as a view. Beside it, the layout the
+    # first tail design needed (the trunk's sum copied to NCHW, the first
+    # design, its NCHW output copied to NHWC), timed and profiled the same
+    # way on the same inputs.
+    with torch.inference_mode():
+        probe = chn.nn(torch.randn(2, 9, 64, 64, device="cuda").to(chn.dtype))
+    if not probe.permute(0, 2, 3, 1).is_contiguous():
+        raise RuntimeError("the network's output is not channels-last: the caller's NHWC view copies")
+    before = SimpleNamespace(nn=rrdbnet_forward(chn.nn, trunk_w, rrdb.rdb, tail.tail_first_cuda,
+                                                nchw_tail=True), dtype=chn.dtype)
+
+    def step_before(x_t, m_t, x_r, m_r):
+        xa, va, vm = cpn.align(x_t, m_t, x_r, m_r)
+        return chn_infer_apply(before, x_t, 1 - m_t, xa, va, vm), (xa, va, vm)
+
+    with torch.inference_mode():
+        step_before(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step_before(*inputs)
+        torch.cuda.synchronize()
+        dt_before = (time.perf_counter() - t0) / iters
+    print(f"main path with the first tail design and its NCHW copies: {1e3 * dt_before:.3f} ms/step "
+          f"(this design {1e3 * dt:.3f})")
+    _, layout_before = phase_profile(step_before, inputs, dt_before)
+    print(f"layout transposes and copies in one step: {layout_after:.3f} ms (first tail design and "
+          f"its copies: {layout_before:.3f} ms)")
 
 
 def phase_profile(step, inputs, step_s, grad=False):
@@ -606,6 +703,12 @@ def phase_profile(step, inputs, step_s, grad=False):
           f"of the unprofiled {1e3 * step_s:.3f} ms/step")
     for ms, count, key in rows[:12]:
         print(f"profile: {ms:10.3f} ms {count:5d}x {key[:100]}")
+    layout = [r for r in rows if any(k in r[2].lower() for k in LAYOUT_KEYS)]
+    layout_ms = sum(r[0] for r in layout)
+    print(f"profile: layout transposes and copies {layout_ms:.3f} ms in "
+          f"{sum(r[1] for r in layout)} launches")
+    for ms, count, key in layout[:4]:
+        print(f"profile:   {ms:10.3f} ms {count:5d}x {key[:100]}")
     if grad:  # where the host's time goes
         host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()),
                       reverse=True)
@@ -615,6 +718,7 @@ def phase_profile(step, inputs, step_s, grad=False):
             if e.key == "TrunkFunctionBackward":
                 print(f"profile host: TrunkFunctionBackward {e.self_cpu_time_total / 1e3:.3f} ms "
                       f"self, {e.cpu_time_total / 1e3:.3f} ms with its callees, {e.count}x")
+    return busy, layout_ms
 
 
 @contextlib.contextmanager
@@ -898,7 +1002,7 @@ def phase_train(cpn, chn, results, device_line):
     torch.cuda.synchronize()
     counts = dict(zip(("K1", "K3", "K4", "K6"), (c.launches for c in counters)))
     st.apply_gradients = orig
-    want = {"K1": NB * 3, "K3": NB, "K4": 3, "K6": 17}
+    want = {"K1": NB * 3, "K3": NB, "K4": tail.TAIL_KERNELS, "K6": 17}
     print(f"train step launches in one step: {counts} (expected {want}; K1 and K3 count calls: "
           f"{rrdb.RDB_CONVS} and {rrdb_bwd.RRDB_BWD_KERNELS} kernel launches a call)")
     if counts != want:
@@ -1160,9 +1264,9 @@ def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
         # K7: 5 launches on the mixer, 2 + 3 on sep4d's stages; K8: 15 on
         # flow_256, 14 on flow_64, 9 on each of the two VGG pool-4 calls
         # (tests/test_torch_conv_stack.py holds the plans to these).
-        "default routes": (dict(), {"K1": NB * 3, "K4": 3, "K7": 5, "K8": 0}),
+        "default routes": (dict(), {"K1": NB * 3, "K4": tail.TAIL_KERNELS, "K7": 5, "K8": 0}),
         "every kernel route": (dict(pallas_sep4d=True, pallas_flow=True, pallas_vgg=True),
-                               {"K1": NB * 3, "K4": 3, "K7": 10, "K8": 47}),
+                               {"K1": NB * 3, "K4": tail.TAIL_KERNELS, "K7": 10, "K8": 47}),
     }
     for label, (flags, want) in routes.items():
         align = dfpn_align_fn(dfpn, vgg, **flags)
@@ -1241,9 +1345,10 @@ def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
 @contextlib.contextmanager
 def planted_band():
     """Within: the RDB and tail wrappers launch the libraries built with
-    ``-DBAND_PLANT=1`` (csrc/rdb_fwd.cuh, csrc/tail_fwd.cuh): a band's
-    first tile row loses the halo row above the band. Full-frame launches
-    (K1, K4) start at row 0 and are not touched."""
+    ``-DBAND_PLANT=1`` (csrc/conv3x3_wgmma.cuh, csrc/tail_wgmma.cuh): a
+    band's first tile row loses the halo row above the band (for K5, above
+    conv_last's rows). Full-frame launches (K1, K4) start at row 0 and are
+    not touched."""
     from master_thesis_tpu_torch.ops import rrdb, tail
 
     orig = rrdb._rdb_lib, tail._tail_lib
@@ -1289,7 +1394,7 @@ def phase_kernels_banded(chn, results):
     weight fault, and the band-edge fault compiled into the kernels); each
     kernel beside its full-frame twin (K1, K4) on the same input, times,
     bounds and the memory a call holds; K2 also beside the first K1 design
-    and the cuDNN route."""
+    and the cuDNN route, K5 beside its first design."""
     from master_thesis_tpu_torch.ops import rrdb, tail
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1346,7 +1451,7 @@ def phase_kernels_banded(chn, results):
 
     tbr = tail.TAIL_BAND_ROWS
     for tw in BAND_WS:
-        y = rnd(n, nf, h, tw)
+        y = channels_last(rnd(n, nf, h, tw))
         want = tail.tail_banded_plain(y, tail_w, tbr)
         got = tail.tail_banded_cuda(y, tail_w, tbr)
         label = f"K5 tail in {h // tbr} bands ({n}, 64, {h}, {tw}) -> ({n}, 3, {4 * h}, {4 * tw})"
@@ -1358,27 +1463,43 @@ def phase_kernels_banded(chn, results):
         with planted_band():
             check(f"K5 tail ({tw} columns), {BAND_FAULT}", tail.tail_banded_cuda(y, tail_w, tbr), want,
                   None, L2_TAIL, planted=True)
+        with planted_tail():
+            check(f"K5 tail ({tw} columns), {TAIL_FAULT}", tail.tail_banded_cuda(y, tail_w, tbr), want,
+                  None, L2_TAIL, planted=True)
+        full = tail.tail_cuda(y, tail_w)
         print(f"K5 beside K4 full-frame on the same input ({tw} columns): max|K5 - K4| = "
-              f"{(got.float() - tail.tail_cuda(y, tail_w).float()).abs().max().item():.6g}")
+              f"{(got.float() - full.float()).abs().max().item():.6g}")
+        if not torch.equal(got, full):
+            raise RuntimeError(f"K5 differs from K4 on the same input ({tw} columns)")
+    y_nchw = y.contiguous()
+    check("K5 first design (tail_banded_first_cuda)", tail.tail_banded_first_cuda(y_nchw, tail_w, tbr),
+          want, None, L2_TAIL)
     out = torch.empty(n, 3, 4 * h, 4 * tw, dtype=y.dtype, device=y.device)
     b_ms, b_by = bound_ms(tail.tail_flops(n, h, tw), nbytes(y, out))
     results["K5"] = dict(
-        name=f"tail in row bands (upconv_kernel x2, hr_last_kernel per {tbr}-row band)", route="cuda",
-        source="master_thesis_tpu_torch/csrc/tail.cu",
+        name=f"tail in row bands (tail_kernel x4 per {tbr}-row band)", route="cuda",
+        source="master_thesis_tpu_torch/csrc/tail_wgmma.cuh",
         replaces="master_thesis_tpu/ops/pallas_tail.py:292",
         max_abs_err=err, ms=cuda_ms(lambda: tail.tail_banded_cuda(y, tail_w, tbr)),
         full_ms=cuda_ms(lambda: tail.tail_cuda(y, tail_w)),
+        first_design_ms=cuda_ms(lambda: tail.tail_banded_first_cuda(y_nchw, tail_w, tbr)),
         plain_ms=cuda_ms(lambda: tail.tail_banded_plain(y, tail_w, tbr), iters=5), bound_ms=b_ms,
         bound_by=b_by, library_ms=None, peak_mb=peak_mb(lambda: tail.tail_banded_cuda(y, tail_w, tbr)),
-        full_peak_mb=peak_mb(lambda: tail.tail_cuda(y, tail_w)), shape=f"{n}x64x{h}x{tw}",
+        full_peak_mb=peak_mb(lambda: tail.tail_cuda(y, tail_w)),
+        first_peak_mb=peak_mb(lambda: tail.tail_banded_first_cuda(y_nchw, tail_w, tbr)),
+        shape=f"{n}x64x{h}x{tw}",
     )
+    r = results["K5"]
+    if not r["ms"] < r["first_design_ms"]:
+        raise RuntimeError(f"K5 at {r['shape']} is not faster than the first design")
     for key, full in (("K2", "K1"), ("K5", "K4")):
         r = results[key]
         print(f"kernel {key} {r['name']} at {r['shape']}: kernel_ms={r['ms']:.4f} ({full} full-frame "
               f"{r['full_ms']:.4f}) plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) library_ms=null; holds {r['peak_mb']:.1f} MB at its peak "
               f"({full} {r['full_peak_mb']:.1f} MB)"
-              + (f"; first design {r['tiles_ms']:.4f}, cuDNN route {r['cudnn_ms']:.4f}" if key == "K2" else ""))
+              + (f"; first design {r['tiles_ms']:.4f}, cuDNN route {r['cudnn_ms']:.4f}" if key == "K2" else
+                 f"; first design {r['first_design_ms']:.4f} ms holding {r['first_peak_mb']:.1f} MB"))
 
 
 def identity_align(x_t, m_t, x_r, m_r):
@@ -1490,11 +1611,11 @@ def phase_video(cpn, chn, results, device_line):
     rng = np.random.RandomState(SEED)
     x, m, y = video_inputs(VIDEO_F, VIDEO_H, VIDEO_W, rng)
     # Launches a CHN call makes: an RRDB is 3 RDB launches (in every band
-    # for K2), a tail 3 launches (in every band for K5).
+    # for K2), a tail TAIL_KERNELS launches (in every band for K5).
     trunk_bands = len(rrdb.bands(VIDEO_H // 4, rrdb.TRUNK_BAND_ROWS))
     tail_bands = len(rrdb.bands(VIDEO_H // 4, tail.TAIL_BAND_ROWS))
-    square = {"K1": 3 * NB, "K5": 3 * tail_bands}
-    wide = {"K2": 3 * NB * trunk_bands, "K5": 3 * tail_bands}
+    square = {"K1": 3 * NB, "K5": tail.TAIL_KERNELS * tail_bands}
+    wide = {"K2": 3 * NB * trunk_bands, "K5": tail.TAIL_KERNELS * tail_bands}
     aligners = (("identity", identity_align), ("plausible CPN", plausible_cpn_align(cpn, rng)))
     launches = {}
     for aname, align in aligners:
@@ -1650,7 +1771,10 @@ def main() -> int:
     phase_video(cpn, video_chn, results, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: r[k] for k in keys} for _, r in sorted(results.items())]
+    # Beside them, the first design's time where the kernel was redesigned.
+    first = ("first_design_ms", "tiles_ms", "first_ms")
+    kernels = [{**{k: r[k] for k in keys}, **{"first_design_ms": r[k] for k in first if k in r}}
+               for _, r in sorted(results.items())]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

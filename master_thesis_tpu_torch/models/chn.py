@@ -4,7 +4,10 @@ rrdbnet_infer_apply, chn_infer_apply, CHN).
 
 Public tensors are channel-last like the JAX package's: images
 ``(B, H, W, C)``, sequences ``(B, F, H, W, C)``. Inside, the frame axis is
-folded into the batch and activations are NCHW in the compute dtype.
+folded into the batch and activations are ``(N, C, H, W)`` in the compute
+dtype: NCHW on the CPU; on the card channels-last from the trunk on (the
+trunk's and the tail's kernels take it), so the tail's output is already
+the NHWC the caller returns.
 
 Module attribute names give the reference torch state-dict keys
 (``nn.conv_first.{i}``, ``nn.rrdb_trunk.{i}.rdb{j}.conv{k}``,
@@ -164,7 +167,10 @@ class RRDBNet(nn.Module):
             trunk = rrdb_ops.rrdb_trunk_banded(y, trunk_w, trunk_band_rows or 0)
         else:
             trunk = rrdb_ops.rrdb_trunk(y, trunk_w)
-        y = (y + self.trunk_conv(trunk)).contiguous()
+        # The sum of two channels-last tensors is channels-last: the tail
+        # takes it as it is on the card (no copy here), NCHW on the CPU.
+        layout = torch.channels_last if y.is_cuda else torch.contiguous_format
+        y = (y + self.trunk_conv(trunk)).contiguous(memory_format=layout)
         if tail_band_rows is not None or tail_banded:
             return tail_ops.tail_banded(y, tail_w, tail_band_rows or 0)
         return tail_ops.tail(y, tail_w)
@@ -216,6 +222,7 @@ def chn_infer_apply(
     ).reshape(b * f, h, w, 9)
     nn_input = nn_input.permute(0, 3, 1, 2).to(chn.dtype).contiguous()
     nn_output = chn.nn(nn_input, trunk_band_rows, tail_band_rows)
+    # The tail's output on the card is channels-last: an NHWC view, no copy.
     nn_output = nn_output.permute(0, 2, 3, 1).reshape(b, f, h, w, 3)
     out_dtype = torch.promote_types(x_target.dtype, torch.float32)
     y_hat = torch.clamp(nn_output.to(out_dtype) * std + mean, 0.0, 1.0)

@@ -1,7 +1,8 @@
 """Weight layout of the CUDA kernels' tensor-core B operands
 (``csrc/conv_tile.cuh``; :func:`wgmma_conv_matrix` for
-``csrc/conv3x3_wgmma.cuh``, :func:`wgmma_pull_matrix` for
-``csrc/conv_bwd_wgmma.cuh``).
+``csrc/conv3x3_wgmma.cuh`` and ``csrc/tail_wgmma.cuh``,
+:func:`wgmma_phase_matrix` for the latter's upsample-convs,
+:func:`wgmma_pull_matrix` for ``csrc/conv_bwd_wgmma.cuh``).
 
 A conv's weights form a row-major ``(K, N)`` matrix, rows ordered
 ``(tap, input channel)``. It is zero-padded to multiples of 16 and stored
@@ -86,6 +87,28 @@ def wgmma_conv_matrix(w: torch.Tensor, fill=0) -> torch.Tensor:
         raise ValueError(f"the wgmma layout needs Cin % 32 == 0 and Cout % 8 == 0, got {c}, {o}")
     blocks = w.reshape(o // 8, 8, c // 32, 2, 2, 8, 9)  # (o8, o%8, chunk, step, half, c%8, tap)
     return blocks.permute(2, 6, 3, 4, 0, 1, 5).reshape(-1)
+
+
+def wgmma_phase_matrix(fused: torch.Tensor) -> torch.Tensor:
+    """A nearest-2x upsample-conv in its 4-phase form as the B operand of
+    ``csrc/tail_wgmma.cuh``'s upsample-conv stages. ``fused`` is the
+    ``(3, 3, C, 4 * O)`` HWIO kernel of
+    ``models.nn_ext.fused_upsample_conv_kernel``, phases packed ``(a, b, o)``
+    in its outputs. Phase ``(a, b)`` has four taps ``(ti, tj)``, tap ``(ti,
+    tj)`` reading input offset ``(a - 1 + ti, b - 1 + tj)``: the kernel's
+    ``fused[a + ti, b + tj, :, phase]``. Each phase is one block the kernel
+    keeps whole, laid out as :func:`wgmma_conv_matrix` lays out a conv with
+    four taps: index order ``(phase, chunk, tap, step, half, o // 8, o % 8,
+    c % 8)``, phase ``2 a + b``, tap ``2 ti + tj``, channel ``32 chunk + 16
+    step + 8 half + c % 8``."""
+    c, o = fused.shape[2], fused.shape[3] // 4
+    if c % 32 or o % 8:
+        raise ValueError(f"the wgmma layout needs Cin % 32 == 0 and Cout % 8 == 0, got {c}, {o}")
+    f6 = fused.reshape(3, 3, c, 2, 2, o)
+    taps = torch.stack([f6[a + ti, b + tj, :, a, b, :]
+                        for a in (0, 1) for b in (0, 1) for ti in (0, 1) for tj in (0, 1)])
+    blocks = taps.reshape(4, 4, c // 32, 2, 2, 8, o // 8, 8)  # (ph, tap, chunk, step, half, c%8, o8, o%8)
+    return blocks.permute(0, 2, 1, 3, 4, 6, 7, 5).reshape(-1)
 
 
 def pull_kernels(ws: Sequence[torch.Tensor]) -> list:

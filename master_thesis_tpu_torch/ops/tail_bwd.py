@@ -3,7 +3,7 @@ autograd Function (master_thesis_tpu/ops/pallas_tail.py: tail_bwd_pallas,
 _tail_bwd_kernel, fused_upsample_conv_kernel_adjoint, make_hybrid_tail).
 
 :class:`TailFunction`'s forward runs the tail (K4, ``csrc/tail.cu``) from
-the f32 parameters it is given and keeps the tail input; its backward
+the f32 parameters it is given and keeps the NCHW tail input; its backward
 (K6, ``csrc/tail_bwd.cu``) recomputes h1 = up1(x), h2 = up2(h1) and h3 =
 lrelu(hr_conv(h2)), then runs the adjoints of conv_last, hr_conv, upconv2
 and upconv1 with the lrelu masks from the post-activation signs.
@@ -33,6 +33,7 @@ from master_thesis_tpu_torch import _build
 from master_thesis_tpu_torch.models.nn_ext import leaky_relu, pixel_shuffle_2x
 from master_thesis_tpu_torch.ops import conv_bwd
 from master_thesis_tpu_torch.ops.tail import (
+    _FIRST_NUMEL,
     KERNEL_NF,
     Conv,
     _check_packed,
@@ -151,7 +152,7 @@ def _check_inputs(x: torch.Tensor, g: torch.Tensor, p: Dict[str, torch.Tensor]) 
         raise ValueError(f"x must be (N, {KERNEL_NF}, h, w), got {tuple(x.shape)}")
     if g.shape != (n, 3, 4 * h, 4 * w) or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous bf16 ({n}, 3, {4 * h}, {4 * w}) tensor on x's device")
-    _check_packed(p, x)
+    _check_packed(p, x, _FIRST_NUMEL)  # the recompute runs the first design's upsample-conv
 
 
 def _upconv(lib, owner, x: torch.Tensor, p: Dict[str, torch.Tensor], name: str) -> torch.Tensor:
@@ -240,14 +241,16 @@ class TailFunction(torch.autograd.Function):
     """The tail with the forward and backward kernels. ``apply(x, dtype,
     *params)``: ``x`` NCHW ``(N, nf, h, w)`` in the working ``dtype``;
     ``params`` the f32 tensors of :data:`PARAM_NAMES`. The forward packs
-    them afresh, so it always runs the current weights."""
+    them afresh, so it always runs the current weights. On the card it
+    hands the forward kernel a channels-last copy of ``x`` (the backward
+    keeps the NCHW ``x`` it reads) and returns its channels-last output."""
 
     @staticmethod
     def forward(ctx, x, dtype, *params):
         convs = [tuple(params[i: i + 2]) for i in range(0, 8, 2)]
         p = pack_tail(*convs, dtype)
         ctx.x, ctx.p, ctx.convs = x, p, convs
-        return tail(x, p)
+        return tail(x.contiguous(memory_format=torch.channels_last) if x.is_cuda else x, p)
 
     @staticmethod
     def backward(ctx, g):

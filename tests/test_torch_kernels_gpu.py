@@ -102,17 +102,69 @@ def test_rdb_wrappers_refuse_nchw(cuda):
         rrdb.rdb_cuda(x.contiguous(memory_format=torch.channels_last), packed, x)
 
 
-@pytest.mark.parametrize("n,h,w", [(2, 8, 8), (1, 6, 10), (2, 13, 7)])
-def test_tail_kernels_match_plain(cuda, n, h, w):
-    rng = np.random.RandomState(1)
+# Relative L2 limit of the tail forward (K4, K5) against its plain version:
+# both round h1..h3 to bf16; sums in another order flip some roundings
+# (chip_smoke.py's L2_TAIL).
+TAIL_L2 = 5e-3
+
+
+def _tail_inputs(rng, cuda, n, h, w):
+    """Packed tail weights and a channels-last (n, 64, h, w) bf16 input."""
     nf = tail.KERNEL_NF
     convs = [_conv(rng, nf, nf, 0.05) for _ in range(3)] + [_conv(rng, nf, 3, 0.05)]
     p = {k: v.to(cuda) for k, v in tail.pack_tail(*convs, torch.bfloat16).items()}
-    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    return p, _activation(rng, cuda, n, h, w)
+
+
+# Widths 7 to 120: h2 and h3 from 28 to 480 pixels wide, under and over a
+# 64-pixel row run, ragged and whole.
+@pytest.mark.parametrize("n,h,w", [(2, 8, 8), (1, 6, 10), (2, 13, 7), (2, 60, 120)])
+def test_tail_kernels_match_plain(cuda, n, h, w):
+    """K4 (four wgmma launches, channels-last in and out) against the
+    plain tail by relative L2 (and within TOL)."""
+    rng = np.random.RandomState(1)
+    p, x = _tail_inputs(rng, cuda, n, h, w)
+    before = tail.tail_cuda.launches
     got = tail.tail_cuda(x, p)
+    torch.cuda.synchronize()
+    assert tail.tail_cuda.launches == before + tail.TAIL_KERNELS
+    assert got.shape == (n, 3, 4 * h, 4 * w) and got.is_contiguous(memory_format=torch.channels_last)
+    want = tail.tail_plain(x, p)
+    _assert_close(got, want)
+    assert _rel_l2(got, want) <= TAIL_L2
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 8, 8), (2, 13, 7)])
+def test_tail_first_design_matches_plain(cuda, n, h, w):
+    """The first K4 design (``tail_first_cuda``: NCHW, three launches), kept
+    to time the new one against, against the plain tail."""
+    rng = np.random.RandomState(1)
+    p, x = _tail_inputs(rng, cuda, n, h, w)
+    got = tail.tail_first_cuda(x.contiguous(), p)
     torch.cuda.synchronize()
     assert got.shape == (n, 3, 4 * h, 4 * w)
     _assert_close(got, tail.tail_plain(x, p))
+
+
+def test_tail_function_forward_runs_the_kernel(cuda):
+    """``TailFunction``'s forward takes the NCHW tail input of the train
+    step, runs K4 on a channels-last copy and equals ``tail_cuda`` on it bit
+    for bit."""
+    from master_thesis_tpu_torch.ops import tail_bwd
+
+    rng = np.random.RandomState(11)
+    nf = tail.KERNEL_NF
+    convs = [_conv(rng, nf, nf, 0.05) for _ in range(3)] + [_conv(rng, nf, 3, 0.05)]
+    params = [t.to(cuda) for wb in convs for t in wb]
+    x = _activation(rng, cuda, 2, 8, 12)
+    before = tail.tail_cuda.launches
+    with torch.no_grad():
+        got = tail_bwd.TailFunction.apply(x.contiguous(), torch.bfloat16, *params)
+    torch.cuda.synchronize()
+    assert tail.tail_cuda.launches == before + tail.TAIL_KERNELS
+    p = tail.pack_tail(*[tuple(params[i: i + 2]) for i in range(0, 8, 2)], torch.bfloat16)
+    assert torch.equal(got, tail.tail_cuda(x, p))
+    assert _rel_l2(got, tail.tail_plain(x, p)) <= TAIL_L2
 
 
 @pytest.mark.parametrize("n,h,w,band_rows", [(2, 20, 16, 8), (1, 13, 21, 5), (2, 60, 120, 32)])
@@ -134,21 +186,21 @@ def test_rdb_banded_kernel_matches_plain_and_full_frame(cuda, n, h, w, band_rows
 
 @pytest.mark.parametrize("n,h,w,band_rows", [(2, 20, 8, 8), (1, 13, 7, 4), (2, 60, 120, 32)])
 def test_tail_banded_kernels_match_plain_and_full_frame(cuda, n, h, w, band_rows):
-    """K5: three launches per band; equal to K4 on every output row (a
+    """K5: one call of four launches per band; equal to K4 bit for bit
+    (each output pixel sums the same products in the same order, and a
     band's halo covers the four stages' reach), and to the plain band
-    decomposition within TOL."""
+    decomposition within TOL and by relative L2."""
     rng = np.random.RandomState(8)
-    nf = tail.KERNEL_NF
-    convs = [_conv(rng, nf, nf, 0.05) for _ in range(3)] + [_conv(rng, nf, 3, 0.05)]
-    p = {k: v.to(cuda) for k, v in tail.pack_tail(*convs, torch.bfloat16).items()}
-    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    p, x = _tail_inputs(rng, cuda, n, h, w)
     before = tail.tail_banded_cuda.launches
     got = tail.tail_banded_cuda(x, p, band_rows)
     torch.cuda.synchronize()
-    assert tail.tail_banded_cuda.launches == before + 3 * len(rrdb.bands(h, band_rows))
-    assert got.shape == (n, 3, 4 * h, 4 * w)
+    assert tail.tail_banded_cuda.launches == before + tail.TAIL_KERNELS * len(rrdb.bands(h, band_rows))
+    assert got.shape == (n, 3, 4 * h, 4 * w) and got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got, tail.tail_cuda(x, p))
-    _assert_close(got, tail.tail_banded_plain(x, p, band_rows))
+    want = tail.tail_banded_plain(x, p, band_rows)
+    _assert_close(got, want)
+    assert _rel_l2(got, want) <= TAIL_L2
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -161,6 +213,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         rrdb.rdb_banded_cuda(x, rrdb.PackedRDB(torch.zeros(1, device=cuda), torch.zeros(1, device=cuda), ()))
     with pytest.raises(ValueError, match="bfloat16"):
         tail.tail_banded_cuda(x, {})
+
+
+def test_tail_wrappers_refuse_nchw_and_unpacked_weights(cuda):
+    """K4 / K5 take channels-last only (a contiguous NCHW bf16 input is
+    refused, not misread) and the wgmma operands of ``pack_tail``; the
+    first design takes NCHW only."""
+    p, x = _tail_inputs(np.random.RandomState(12), cuda, 1, 8, 8)
+    for fn in (tail.tail_cuda, tail.tail_banded_cuda):
+        with pytest.raises(ValueError, match="channels-last"):
+            fn(x.contiguous(), p)
+        with pytest.raises(ValueError, match="packed"):
+            fn(x, {k: v for k, v in p.items() if k != "hr_wg"})
+        with pytest.raises(ValueError, match="packed"):
+            fn(x, dict(p, up2_wg=p["up2_wg"].float()))
+    with pytest.raises(ValueError, match="contiguous NCHW"):
+        tail.tail_first_cuda(x, p)
 
 
 def _rel_l2(got, want):
