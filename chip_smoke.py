@@ -61,14 +61,23 @@ Phases, each fatal on failure:
    host-clock step time, samples/s, peak memory; one step under
    ``torch.profiler`` (host time in ``TrunkFunctionBackward``);
 7. conv-stack kernels: K7 (the tile stack) at the mixer's shapes (20
-   tiles), at both sep4d stages (5 120 tiles) and at a ragged tile count;
+   tiles) and at both sep4d stages (5 120 tiles), channels-last with each
+   wide 3x3 conv on the wide-conv kernel ``conv3x3_wide_wgmma`` (stage 1
+   also with the p <-> q swap in its epilogue), at ragged tile counts, and
+   its first design (channel-major, fused groups alone) on the mixer;
    K8 (the banded stack) at flow_256's c0-c1 (Cin 10) and c15-c17 (halo 4)
    segments at 256x256, at VGG's block 1 (Cin 3) and at a ragged 60x120
    frame; each held against its plain version with TF32 off by relative
-   L2, and read on three faults planted in the kernel's code (compiled
-   with ``-DSTACK_PLANT``: a corner tap left out, the ReLU off a conv, the
-   biases dropped); CUDA-event times of the kernel, its plain version and
-   the same stack as the module route (cuDNN convs in bf16);
+   L2, and read on the faults planted in the code of the kernels it runs
+   (the fused kernel with ``-DSTACK_PLANT``: a corner tap left out, the
+   ReLU off a conv, the biases dropped; the wide-conv kernel with
+   ``-DWIDE_PLANT``: tap (0, 0) left out, the bias dropped, one tap read
+   with a wrong swizzle phase); CUDA-event times of the kernel, its plain
+   version and the same stack as the module route (cuDNN convs in bf16);
+   K7 on sep4d beside its first design (fused groups alone, channel-major)
+   on the same values, fatal unless faster; each wide conv against its
+   floor; stage 1 with the swap in the epilogue and with one permute; the
+   mixer's kernels, ``mixer_apply`` and the first design on the mixer;
 8. the CHN+DFPN path: VGG pool-4 features, ``dfpn_infer_apply`` at base
    256, ``dfpn_align`` and ``chn_infer_apply`` at B=4, F=5, 256x256,
    nb=20, bf16, once with the JAX package's default routes (K7 on the
@@ -143,6 +152,10 @@ FAULTS = {1: "lrelu slope 0.25 in the masks", 2: "centre tap left out of dW",
 DFPN_B, DFPN_F, DFPN_BASE = 4, 5, 256
 STACK_FAULTS = {1: "corner tap left out", 2: "ReLU off the last ReLU conv of each launch",
                 3: "biases dropped"}
+# Faults compiled into K7's wide-conv kernel (csrc/conv3x3_wide_wgmma.cuh)
+# with -DWIDE_PLANT=n.
+WIDE_FAULTS = {1: "wide conv: tap (0, 0) left out", 2: "wide conv: bias dropped",
+               3: "wide conv: tap (1, 1) read with its swizzle phase in the base offset"}
 # Relative L2 limits of the conv-stack kernels against their plain versions
 # (both round every conv's output to bf16; sums in another order flip some
 # roundings), and of the small CHN+DFPN input's DFPN outputs, whose
@@ -265,6 +278,7 @@ def phase_build():
     report = _build.build(_build.SOURCES, [
         (name, (f"-DBWD_PLANT={f}",)) for name in ("rrdb_bwd", "tail_bwd") for f in FAULTS
     ] + [("conv_stack", (f"-DSTACK_PLANT={f}",)) for f in STACK_FAULTS]
+      + [("conv_stack_wgmma", (f"-DWIDE_PLANT={f}",)) for f in WIDE_FAULTS]
       + [(name, ("-DBAND_PLANT=1",)) for name in ("rrdb", "tail")]
       + [("rrdb", ("-DRDB_PLANT=1",)), ("tail", ("-DTAIL_PLANT=1",))])
     print(f"build: {len(report)} libraries in {time.perf_counter() - t0:.1f} s "
@@ -1076,18 +1090,35 @@ def planted_stack(fault):
 
 
 @contextlib.contextmanager
+def planted_wide(fault):
+    """Within: K7's wide convs launch the library built with
+    ``-DWIDE_PLANT=fault`` (csrc/conv3x3_wide_wgmma.cuh)."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    orig = conv_stack._wide_lib
+    conv_stack._wide_lib = lambda _=(): orig((f"-DWIDE_PLANT={fault}",))
+    try:
+        yield
+    finally:
+        conv_stack._wide_lib = orig
+
+
+@contextlib.contextmanager
 def plain_stacks():
     """Within: the conv-stack wrappers run their plain versions on card
     tensors."""
     from master_thesis_tpu_torch.ops import conv_stack
 
-    orig = conv_stack.conv_stack_tiles_cuda, conv_stack.conv_stack_banded_cuda
+    names = ("conv_stack_tiles_cuda", "conv_stack_tiles_cl_cuda", "conv_stack_banded_cuda")
+    orig = [getattr(conv_stack, n) for n in names]
     conv_stack.conv_stack_tiles_cuda = conv_stack.conv_stack_tiles_plain
+    conv_stack.conv_stack_tiles_cl_cuda = conv_stack.conv_stack_tiles_cl_plain
     conv_stack.conv_stack_banded_cuda = conv_stack.conv_stack_banded_plain
     try:
         yield
     finally:
-        conv_stack.conv_stack_tiles_cuda, conv_stack.conv_stack_banded_cuda = orig
+        for n, f in zip(names, orig):
+            setattr(conv_stack, n, f)
 
 
 def module_stack(convs, relus, x):
@@ -1099,17 +1130,35 @@ def module_stack(convs, relus, x):
     return x
 
 
-def check_stack(name, run, plain, x, p):
+def stack_faults(p, side):
+    """The planted faults K7's channels-last plan of stack ``p`` can show: the
+    fused kernel's where it runs a group (the ReLU fault only where one of
+    its groups has a ReLU conv), the wide kernel's where it runs a conv."""
+    from master_thesis_tpu_torch.ops import conv_stack as cst
+
+    groups = cst.plan_tiles(p, side, wide=True)
+    fused = [g for g in groups if not g.wide]
+    relu = any(p.relus[i] for g in fused for i in range(g.lo, g.hi))
+    faults = [(planted_stack, f, label) for f, label in STACK_FAULTS.items()
+              if fused and (f != 2 or relu)]
+    return faults + [(planted_wide, f, label) for f, label in WIDE_FAULTS.items()
+                     if any(g.wide for g in groups)]
+
+
+def check_stack(name, run, plain, x, p, faults=None):
     """Holds a conv-stack kernel against its plain version by relative L2
-    and reads the check on each planted fault. Returns (max abs error,
-    the plain output)."""
+    and reads the check on each planted fault (``faults``: (context, n,
+    label) triples; all of the fused kernel's by default). Returns (max abs
+    error, the plain output)."""
     want = plain(x, p)
     got = run(x, p)
     if got.shape != want.shape:
         raise RuntimeError(f"{name}: output shape {tuple(got.shape)}, plain {tuple(want.shape)}")
     err = check(name, got, want, None, L2_STACK, max_abs=False)
-    for fault, label in STACK_FAULTS.items():
-        with planted_stack(fault):
+    if faults is None:
+        faults = [(planted_stack, f, label) for f, label in STACK_FAULTS.items()]
+    for ctx, fault, label in faults:
+        with ctx(fault):
             check(f"{name}, {label}", run(x, p), want, None, L2_STACK, max_abs=False, planted=True)
     return err, want
 
@@ -1128,46 +1177,114 @@ def phase_kernels_stack(dfpn, vgg, results):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(bf)
     n, cs = DFPN_B * DFPN_F, DFPN_BASE // 16
-    tiles = lambda x, p: cst.conv_stack_tiles_cuda(x, p, cs)
     tiles_plain = lambda x, p: cst.conv_stack_tiles_plain(x, p, cs)
 
-    # K7: the mixer, sep4d's two stages, a ragged tile count.
+    # K7 as mixer_apply and sep4d_apply run it: channels-last, each wide 3x3
+    # conv on the wide-conv kernel (the mixer's 3x3 256 -> 256, sep4d's
+    # four); ragged tile counts; the first design (channel-major, fused
+    # groups alone) on the mixer.
+    cl = cst.conv_stack_tiles_cl_cuda
+    cl_plain = cst.conv_stack_tiles_cl_plain
     mixer = dfpn.corr_mixer
     p_mix = mixer.packed()
     x_mix = rnd(n, cs * cs, cs * cs)
-    check_stack(f"K7 mixer ({n}, {cs * cs}, {cs * cs})", tiles, tiles_plain, x_mix, p_mix)
-    check_stack("K7 mixer ragged (7 tiles)", tiles, tiles_plain, rnd(7, cs * cs, cs * cs), p_mix)
+    x_mix_cl = x_mix.view(n, -1, cs, cs).contiguous(memory_format=torch.channels_last)
+    # With these seeded weights the mixer's conv 10 is all zeros after its
+    # ReLU, so nothing before it reaches the output: the stack's checks read
+    # the fused kernel's faults (its last launch), and the wide conv (conv 1)
+    # is held alone at the mixer's shape, read on the wide kernel's faults.
+    f_mix = [f for f in stack_faults(p_mix, cs) if f[0] is planted_stack]
+    check_stack(f"K7 mixer ({n}, {cs * cs}, {cs}, {cs}) channels-last", cl, cl_plain, x_mix_cl, p_mix,
+                f_mix)
+    check_stack("K7 mixer ragged (7 tiles)", cl, cl_plain,
+                rnd(7, cs * cs, cs, cs).contiguous(memory_format=torch.channels_last), p_mix, f_mix)
+    (wi,) = [g.lo for g in cst.plan_tiles(p_mix, cs, wide=True) if g.wide]
+    p_mix_wide = cst.pack_stack([(p_mix.kernels[wi], p_mix.biases[wi])], [p_mix.relus[wi]], bf)
+    check_stack(f"K7 mixer conv {wi} alone, wide conv ({n} tiles)", cl, cl_plain,
+                rnd(n, cs * cs, cs, cs).contiguous(memory_format=torch.channels_last), p_mix_wide,
+                stack_faults(p_mix_wide, cs))
+    first = lambda x, p: cst.conv_stack_tiles_cuda(x, p, cs)
+    check_stack(f"K7 first design, mixer ({n}, {cs * cs}, {cs * cs})", first, tiles_plain, x_mix, p_mix)
     sep = dfpn.corr.conv
     p1, p2 = sep.packed()
     nt = n * cs * cs
-    x1 = rnd(nt, 1, cs * cs)
-    check_stack(f"K7 sep4d stage 1 ({nt}, 1, {cs * cs})", tiles, tiles_plain, x1, p1)
-    x2 = rnd(nt, 256, cs * cs)
-    err7, _ = check_stack(f"K7 sep4d stage 2 ({nt}, 256, {cs * cs})", tiles, tiles_plain, x2, p2)
+    x1 = rnd(nt, 1, cs, cs)  # one channel: channels-last and NCHW alike
+    x2 = rnd(nt, 256, cs, cs).contiguous(memory_format=torch.channels_last)
+    f1, f2 = stack_faults(p1, cs), stack_faults(p2, cs)
+    check_stack(f"K7 sep4d stage 1 ({nt}, 1, {cs}, {cs})", cl, cl_plain, x1, p1, f1)
+    swap_k = lambda x, p: cl(x, p, swap=True)
+    check_stack(f"K7 sep4d stage 1, p <-> q swap in the epilogue ({nt} tiles)", swap_k,
+                lambda x, p: cl_plain(x, p, swap=True), x1, p1, f1)
+    err7, _ = check_stack(f"K7 sep4d stage 2 ({nt}, 256, {cs}, {cs}) channels-last", cl, cl_plain,
+                          x2, p2, f2)
+    check_stack("K7 sep4d stage 2 ragged (7 tiles)", cl, cl_plain,
+                rnd(7, 256, cs, cs).contiguous(memory_format=torch.channels_last), p2, f2)
+    # The first design on the same values: channel-major, fused groups alone.
+    x1_cm, x2_cm = x1.reshape(nt, 1, cs * cs), x2.reshape(nt, 256, cs * cs).contiguous()
 
     def sep_k():
-        tiles(x1, p1)
-        tiles(x2, p2)
+        cl(x1, p1)
+        cl(x2, p2)
+
+    def sep_first():
+        cst.conv_stack_tiles_cuda(x1_cm, p1, cs)
+        cst.conv_stack_tiles_cuda(x2_cm, p2, cs)
 
     def sep_plain():
-        tiles_plain(x1, p1)
-        tiles_plain(x2, p2)
+        cl_plain(x1, p1)
+        cl_plain(x2, p2)
 
     def sep_module():
-        module_stack(*_convs(sep.conv_1), x1.view(nt, 1, cs, cs))
-        module_stack(*_convs(sep.conv_2), x2.view(nt, 256, cs, cs))
+        module_stack(*_convs(sep.conv_1), x1)
+        module_stack(*_convs(sep.conv_2), x2_cm.view(nt, 256, cs, cs))
 
     flops7 = cst.stack_flops(p1, nt, cs, cs) + cst.stack_flops(p2, nt, cs, cs)
     b_ms, b_by = bound_ms(flops7, nbytes(x1, x2, x2, x1, p1.w, p1.b, p2.w, p2.b))
+    k7_ms, first_ms = cuda_ms(sep_k, iters=10), cuda_ms(sep_first, iters=10)
+    k7_ms2, first_ms2 = cuda_ms(sep_k, iters=10), cuda_ms(sep_first, iters=10)
     results["K7"] = dict(
-        name="conv stack, whole 16x16 tiles (stack_kernel; sep4d's two stages)", route="cuda",
-        source="master_thesis_tpu_torch/csrc/conv_stack.cu",
+        name="conv stack, whole 16x16 tiles (sep4d's two stages: the wide 3x3 convs on "
+             "conv3x3_wide_wgmma, the thin ones on stack_kernel)", route="cuda",
+        source="master_thesis_tpu_torch/csrc/conv_stack_wgmma.cu",
         replaces="master_thesis_tpu/ops/pallas_sep4d.py:192", max_abs_err=err7,
-        ms=cuda_ms(sep_k, iters=10), plain_ms=cuda_ms(sep_plain, iters=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, module_ms=cuda_ms(sep_module, iters=10),
+        ms=k7_ms, plain_ms=cuda_ms(sep_plain, iters=3, warmup=1), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, module_ms=cuda_ms(sep_module, iters=10), first_ms=first_ms,
     )
+    print(f"kernel K7 on sep4d's two stages: new design {k7_ms:.4f} / {k7_ms2:.4f} ms, first design "
+          f"(fused groups, channel-major) {first_ms:.4f} / {first_ms2:.4f} ms on the same values")
+    if k7_ms >= first_ms or k7_ms2 >= first_ms2:
+        raise RuntimeError("K7's new design is not faster than its first design on sep4d")
+    # Each wide conv alone against its floor, at its widths.
+    for si, (stage, pk) in enumerate(((1, p1), (1, p1), (2, p2), (2, p2))):
+        i = (1, 2, 0, 1)[si]
+        _, ci, co = pk.specs[i]
+        one = cst.pack_stack([(pk.kernels[i], pk.biases[i])], [pk.relus[i]], bf)
+        xi = rnd(nt, ci, cs, cs).contiguous(memory_format=torch.channels_last)
+        t = cuda_ms(lambda: cst.conv3x3_wide_cuda(xi, one, 0), iters=10)
+        f_ms, f_by = bound_ms(cst.stack_flops(one, nt, cs, cs),
+                              nbytes(xi, one.wide[0]) + xi.numel() // ci * co * 2)
+        print(f"kernel K7 wide conv, sep4d stage {stage} conv {i} {ci}->{co} ({nt} tiles): "
+              f"{t:.4f} ms, floor {f_ms:.4f} ms ({f_by}), {100 * f_ms / t:.1f}% of it")
+    # Stage 1 as sep4d_apply runs it: the p <-> q swap in the epilogue, or one
+    # permute after it.
+    swap_ms = {True: [], False: []}
+    for in_kernel in (True, False, True, False):
+        run = (lambda: cl(x1, p1, swap=True)) if in_kernel else (lambda: cst.swap_tiles(cl(x1, p1)))
+        swap_ms[in_kernel].append(cuda_ms(run, iters=10))
+    print(f"sep4d stage 1 ({nt} tiles): p <-> q swap in the epilogue "
+          f"{' / '.join(f'{t:.4f}' for t in swap_ms[True])} ms, one permute after it "
+          f"{' / '.join(f'{t:.4f}' for t in swap_ms[False])} ms")
+    # The mixer: the kernels alone on channels-last tiles, mixer_apply
+    # (which also copies the volume into channels-last), and the first
+    # design on channel-major tiles (the whole of the former mixer_apply).
     mix_b, _ = bound_ms(cst.stack_flops(p_mix, n, cs, cs), nbytes(x_mix, p_mix.w))
-    print(f"kernel K7 on the mixer ({n} tiles): kernel_ms={cuda_ms(lambda: tiles(x_mix, p_mix)):.4f} "
+    corr_mix = x_mix.view(DFPN_B, DFPN_F, cs, cs, cs, cs)
+    mix_ms = cuda_ms(lambda: cl(x_mix_cl, p_mix))
+    mix_apply = cuda_ms(lambda: cst.mixer_apply(p_mix, corr_mix, cs, bf))
+    mix_first = cuda_ms(lambda: first(x_mix, p_mix))
+    results["K7"]["mixer_ms"] = mix_ms
+    print(f"kernel K7 on the mixer ({n} tiles): kernel_ms={mix_ms:.4f} (mixer_apply "
+          f"{mix_apply:.4f}; first design {mix_first:.4f}) "
           f"plain_ms={cuda_ms(lambda: tiles_plain(x_mix, p_mix)):.4f} "
           f"module_ms={cuda_ms(lambda: module_stack(*_convs(mixer.mixer), x_mix.view(n, -1, cs, cs))):.4f} "
           f"bound_ms={mix_b:.4f}")
@@ -1259,14 +1376,18 @@ def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
     inputs = make_inputs(DFPN_B, DFPN_F, H, W, SEED + 12)
     x_t, m_t = inputs[0], inputs[1]
     counters = {"K1": rrdb.rdb_cuda, "K4": tail.tail_cuda, "K7": conv_stack.conv_stack_tiles_cuda,
-                "K8": conv_stack.conv_stack_banded_cuda}
+                "K7 wide": conv_stack.conv3x3_wide_cuda, "K8": conv_stack.conv_stack_banded_cuda}
     routes = {
-        # K7: 5 launches on the mixer, 2 + 3 on sep4d's stages; K8: 15 on
-        # flow_256, 14 on flow_64, 9 on each of the two VGG pool-4 calls
-        # (tests/test_torch_conv_stack.py holds the plans to these).
-        "default routes": (dict(), {"K1": NB * 3, "K4": tail.TAIL_KERNELS, "K7": 5, "K8": 0}),
+        # K7: 5 launches on the mixer and 3 + 3 on sep4d's stages, of which
+        # the mixer's 3x3 256 -> 256 and sep4d's four wide convs on the
+        # wide-conv kernel; K8: 15 on flow_256, 14 on flow_64, 9 on each of
+        # the two VGG pool-4 calls (tests/test_torch_conv_stack.py holds the
+        # plans to these).
+        "default routes": (dict(), {"K1": NB * 3, "K4": tail.TAIL_KERNELS, "K7": 5, "K7 wide": 1,
+                                    "K8": 0}),
         "every kernel route": (dict(pallas_sep4d=True, pallas_flow=True, pallas_vgg=True),
-                               {"K1": NB * 3, "K4": tail.TAIL_KERNELS, "K7": 10, "K8": 47}),
+                               {"K1": NB * 3, "K4": tail.TAIL_KERNELS, "K7": 11, "K7 wide": 5,
+                                "K8": 47}),
     }
     for label, (flags, want) in routes.items():
         align = dfpn_align_fn(dfpn, vgg, **flags)

@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("rrdb", "tail", "rrdb_bwd", "tail_bwd", "conv_stack")
+SOURCES = ("rrdb", "tail", "rrdb_bwd", "tail_bwd", "conv_stack", "conv_stack_wgmma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -57,9 +57,11 @@
 // operations; the design keeps every conv on tensor cores and each
 // group's intermediates in shared memory; 16 warps a block, each fetching
 // its B fragments two K-steps ahead, hide the L2 latency that bound the
-// first 8-warp version (master_thesis_tpu_torch/sweep_conv_stack.py). A
-// simple kernel first: wgmma, TMA and a persistent schedule are later
-// work (ROADMAP D).
+// first 8-warp version (master_thesis_tpu_torch/sweep_conv_stack.py). K7's
+// wide 3x3 convs (Cin and Cout multiples of 64 on 16x16 tiles: sep4d's
+// four, the mixer's one) have left this kernel for csrc/conv_stack_wgmma.cu
+// (wgmma fed by TMA, persistent CTAs; ops/conv_stack.py:tile_plan routes
+// them); this one keeps K7's thin convs and 5x5s, and K8.
 //
 // Faults for chip_smoke.py to catch, compiled in with -DSTACK_PLANT=n:
 // 1 leaves out the corner tap (dy, dx) = (-r, -r) of every conv, 2 leaves

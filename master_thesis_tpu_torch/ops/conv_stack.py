@@ -4,27 +4,36 @@ conv_stack_banded, sep4d_apply_pallas, mixer_apply_pallas).
 
 A stack is a list of odd k x k convs (k = 3 or 5), each same-padded with
 zeros, with its f32 bias and optionally a ReLU. Rounding, shared by the
-kernel and :func:`conv_stack_plain` (``_accum_taps_tile`` /
+kernels and :func:`conv_stack_plain` (``_accum_taps_tile`` /
 ``_conv_stack_kernel``): operands in the working dtype, sums in f32, the
 f32 bias added, then ReLU, each conv's output rounded to the working dtype
 before the next conv.
 
 - :func:`conv_stack_tiles` (K7) maps ``(NT, Cin, hw)`` to ``(NT, Cout,
   hw)``: NT independent ``tile_side``-square images, channel-major, zero
-  padding at each tile's own border. It carries the DFPN correlation
-  mixer (:func:`mixer_apply`) and the separable 4-D conv
+  padding at each tile's own border; :func:`conv_stack_tiles_cl` is the
+  same on channels-last ``(NT, Cin, side, side)`` tensors. They carry the
+  DFPN correlation mixer (:func:`mixer_apply`) and the separable 4-D conv
   (:func:`sep4d_apply`).
 - :func:`conv_stack_banded` (K8) maps NHWC ``(N, H, W, Cin)`` to ``(N, H,
   W, Cout)`` over full frames, zero padding only at the frame's border. It
   carries the flow estimators' segments and VGG's pool-4 tower.
 
-Both kernels are ``csrc/conv_stack.cu``: a block runs a group of
-consecutive convs over one output tile, a whole image for K7 and a piece of
-a frame with a halo for K8. :func:`plan` cuts a stack into groups whose
-buffers fit a block's shared memory and picks each group's tile; the JAX
-package's VMEM budget (``_stack_band_rows``) does not carry over. A CUDA
-tensor goes through the kernel, a CPU tensor through the plain version;
-nothing falls back.
+Two kernels. ``csrc/conv_stack.cu`` runs a group of consecutive convs in
+one block over one output tile, a whole image for K7 and a piece of a
+frame with a halo for K8; :func:`plan` cuts a stack into groups whose
+buffers fit a block's shared memory and picks each group's tile (the JAX
+package's VMEM budget, ``_stack_band_rows``, does not carry over).
+``csrc/conv_stack_wgmma.cu`` (``conv3x3_wide_wgmma.cuh``) runs one wide 3x3
+conv of K7 (16x16 tiles, Cin and Cout multiples of 64) as a channels-last
+implicit GEMM on ``wgmma``. The layout picks the route: on channels-last
+tiles (:func:`conv_stack_tiles_cl`, the mixer's and sep4d's)
+:func:`tile_plan` sends each such conv there, one launch each, and the
+rest of the stack to the fused groups, channels-last between the
+launches; channel-major tiles (:func:`conv_stack_tiles`, the JAX-shaped
+entry) run the fused groups alone, the first design. A CUDA tensor goes
+through the kernels, a CPU tensor through the plain version; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +52,9 @@ from master_thesis_tpu_torch.ops import fragments
 SMEM_LIMIT = 232448  # bytes of shared memory a block can have on an H100
 MAX_STAGES = 16  # convs per launch (csrc/conv_stack.cu)
 SM_COUNT = 132
+# The wide-conv kernel's tile side (csrc/conv3x3_wide_wgmma.cuh: two n144
+# halves of an 18-pixel-stride box cover a 16x16 tile's outputs).
+WIDE_SIDE = 16
 # K8 tile candidates (rows, cols), largest first.
 BAND_TILES = ((32, 32), (16, 32), (16, 16), (8, 16), (4, 16), (2, 16), (1, 16))
 # The planner's exchange rate: a byte of device memory costs about as much
@@ -66,11 +78,26 @@ class PackedStack(NamedTuple):
     relus: Tuple[bool, ...]
     w_offs: Tuple[int, ...]  # each matrix's offset in w, in 16-byte words
     b_offs: Tuple[int, ...]  # each bias's offset in b
+    # Each wide conv's A operand for csrc/conv_stack_wgmma.cu
+    # (fragments.wgmma_wide_matrix), None for the others.
+    wide: Tuple[Optional[torch.Tensor], ...]
 
     @property
     def specs(self) -> List[Tuple[int, int, int]]:
         """``(k, cin, cout)`` of each conv."""
-        return [(k.shape[-1], k.shape[1], k.shape[0]) for k in self.kernels]
+        return [_spec(k) for k in self.kernels]
+
+
+def _spec(w: torch.Tensor) -> Tuple[int, int, int]:
+    return w.shape[-1], w.shape[1], w.shape[0]
+
+
+def is_wide(spec: Tuple[int, int, int], side: int) -> bool:
+    """Whether conv ``(k, cin, cout)`` of a tile stack over ``side``-square
+    tiles runs on the wide-conv kernel: 3x3, both widths multiples of 64,
+    16x16 tiles."""
+    k, ci, co = spec
+    return side == WIDE_SIDE and k == 3 and ci % 64 == 0 and co % 64 == 0
 
 
 def conv_matrix(w: torch.Tensor) -> torch.Tensor:
@@ -101,8 +128,10 @@ def pack_stack(
     padded = [F.pad(b, (0, _pad16(b.numel()) - b.numel())) for b in biases]
     w_offs = tuple(itertools.accumulate([m.numel() // 8 for m in mats[:-1]], initial=0))
     b_offs = tuple(itertools.accumulate([b.numel() for b in padded[:-1]], initial=0))
+    wide = tuple(fragments.wgmma_wide_matrix(k) if is_wide(_spec(k), WIDE_SIDE) else None
+                 for k in kernels)
     return PackedStack(torch.cat(mats).contiguous(), torch.cat(padded).contiguous(), kernels,
-                       biases, tuple(bool(r) for r in relus), w_offs, b_offs)
+                       biases, tuple(bool(r) for r in relus), w_offs, b_offs, wide)
 
 
 class StackCache:
@@ -139,7 +168,10 @@ def conv_stack_plain(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
 
 
 class Group(NamedTuple):
-    """One launch: convs ``[lo, hi)`` of the stack over ``th x tw`` tiles."""
+    """One launch: convs ``[lo, hi)`` of the stack over ``th x tw`` tiles.
+    With ``wide`` the launch is one conv on the wide-conv kernel, whose
+    buffers are its own rings (csrc/conv3x3_wide_wgmma.cuh): the buffer
+    fields then read 0."""
 
     lo: int
     hi: int
@@ -153,6 +185,7 @@ class Group(NamedTuple):
     cpa: int
     cpb: int
     smem: int
+    wide: bool = False
 
 
 def group_geometry(specs: Sequence[Tuple[int, int, int]], lo: int, hi: int, h: int, w: int,
@@ -220,9 +253,31 @@ def plan(specs: Tuple[Tuple[int, int, int], ...], h: int, w: int,
     return best[-1][1]
 
 
-def plan_tiles(p: PackedStack, tile_side: int) -> List[Group]:
-    """K7's launches: each tile is one block's whole image."""
-    return plan(tuple(p.specs), tile_side, tile_side, ((tile_side, tile_side),))
+@functools.lru_cache(maxsize=None)
+def tile_plan(specs: Tuple[Tuple[int, int, int], ...], side: int, wide: bool) -> List[Group]:
+    """K7's launches over ``side``-square tiles: with ``wide`` (the
+    channels-last route), each conv that :func:`is_wide` one launch of the
+    wide-conv kernel, and each run of the other convs the fused groups of
+    :func:`plan` (a tile is one block's whole image); without (the
+    channel-major route), the fused groups alone. Made once per shape:
+    callers must not modify the list."""
+    groups, lo = [], 0
+    for i in range(len(specs) + 1):
+        if i < len(specs) and not (wide and is_wide(specs[i], side)):
+            continue
+        if lo < i:
+            groups += [g._replace(lo=g.lo + lo, hi=g.hi + lo)
+                       for g in plan(specs[lo:i], side, side, ((side, side),))]
+        if i < len(specs):
+            groups.append(Group(i, i + 1, side, side, 1, 1, 0, 0, 0, 0, 0, 0, wide=True))
+        lo = i + 1
+    return groups
+
+
+def plan_tiles(p: PackedStack, tile_side: int, wide: bool = False) -> List[Group]:
+    """K7's launches for stack ``p`` (:func:`tile_plan`; ``wide`` for
+    :func:`conv_stack_tiles_cl_cuda`, not for :func:`conv_stack_tiles_cuda`)."""
+    return tile_plan(tuple(p.specs), tile_side, wide)
 
 
 def plan_banded(p: PackedStack, h: int, w: int) -> List[Group]:
@@ -257,6 +312,7 @@ class _Launch(ctypes.Structure):
     )
 
 
+@functools.lru_cache(maxsize=None)
 def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib = _build.load("conv_stack", defines)
     lib.conv_stack_forward.argtypes = [ctypes.c_void_p] * 4 + [
@@ -305,37 +361,125 @@ def _launch(x: torch.Tensor, out: torch.Tensor, p: PackedStack, g: Group, n: int
     _build.check(lib, rc, "conv_stack_forward")
 
 
+@functools.lru_cache(maxsize=None)
+def _wide_lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = _build.load("conv_stack_wgmma", defines)
+    lib.conv3x3_wide_forward.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    lib.conv3x3_wide_forward.restype = ctypes.c_int
+    return lib
+
+
+def _check_cl(x: torch.Tensor, p: PackedStack, cin: int) -> None:
+    if (not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 4
+            or not x.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError("x must be a channels-last (NT, C, side, side) bfloat16 CUDA tensor")
+    if x.shape[2] != x.shape[3] or x.shape[1] != cin:
+        raise ValueError(f"x is {tuple(x.shape)}: square tiles of {cin} channels expected")
+    if p.w.dtype != torch.bfloat16 or p.w.device != x.device or p.b.device != x.device:
+        raise ValueError("the stack must be packed in bfloat16 on x's device")
+
+
+def wide_out_strides(nt: int, cout: int, swap: bool) -> Tuple[int, int, int, int]:
+    """The wide-conv kernel's output addressing ``(tg, sg, st, sp)``: tile t's
+    pixel q, channel o at ``(t // tg) sg + (t % tg) st + q sp + o``; NHWC, or
+    with ``swap`` tile ``256 g + t``'s pixel q at tile ``256 g + q``'s pixel t."""
+    hw = WIDE_SIDE * WIDE_SIDE
+    return (hw, hw * hw * cout, cout, hw * cout) if swap else (nt, 0, hw * cout, cout)
+
+
+def conv3x3_wide_cuda(x: torch.Tensor, p: PackedStack, i: int, swap: bool = False) -> torch.Tensor:
+    """Conv ``i`` of stack ``p`` (one that :func:`is_wide`) on channels-last
+    ``(NT, Cin, 16, 16)`` bf16: one launch of ``csrc/conv_stack_wgmma.cu``.
+    Returns channels-last ``(NT, Cout, 16, 16)``. With ``swap`` the tiles come
+    back regrouped, NT = G x 256: output tile ``256 g + q`` holds at pixel
+    ``t`` input tile ``256 g + t``'s pixel ``q`` (sep4d's p <-> q swap), by
+    the epilogue's store addresses."""
+    _, ci, co = p.specs[i]
+    _check_cl(x, p, ci)
+    nt = x.shape[0]
+    mat = p.wide[i]
+    if x.shape[2] != WIDE_SIDE or mat is None:
+        raise ValueError(f"conv {i} {p.specs[i]} on {tuple(x.shape)} is not a wide conv")
+    if mat.dtype != torch.bfloat16 or mat.device != x.device:
+        raise ValueError("the stack must be packed in bfloat16 on x's device")
+    if swap and nt % WIDE_SIDE**2:
+        raise ValueError(f"swap regroups the tiles by {WIDE_SIDE**2}; got {nt}")
+    out = torch.empty((nt, WIDE_SIDE, WIDE_SIDE, co), dtype=x.dtype, device=x.device)
+    tg, sg, st, sp = wide_out_strides(nt, co, swap)
+    lib = _wide_lib()
+    rc = lib.conv3x3_wide_forward(x.data_ptr(), mat.data_ptr(), p.b.data_ptr() + 4 * p.b_offs[i],
+                                  out.data_ptr(), nt, ci, co, mat.numel() // (9 * ci),
+                                  int(p.relus[i]), tg, sg, st, sp,
+                                  torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "conv3x3_wide_forward")
+    conv3x3_wide_cuda.launches += 1
+    return out.permute(0, 3, 1, 2)
+
+
+conv3x3_wide_cuda.launches = 0
+
+
 def _run(x: torch.Tensor, p: PackedStack, groups: List[Group], n: int, h: int, w: int,
-         channel_major: bool, counter) -> torch.Tensor:
+         channel_major: bool, counter, swap: bool = False) -> torch.Tensor:
     """The groups in turn; the first reads ``x`` and the last writes the
     result in ``x``'s layout, the groups between pass pixel-major
-    intermediates."""
-    lib = _lib()
-    hw = h * w
+    intermediates (``(n, hw, C)``). A wide group (K7, pixel-major ``x``
+    only) is one :func:`conv3x3_wide_cuda`; with ``swap`` the last group,
+    wide, regroups the tiles."""
+    hw, specs, lib = h * w, p.specs, None
     cur, cur_cm = x, channel_major
     for gi, g in enumerate(groups):
-        cin, cout = p.specs[g.lo][1], p.specs[g.hi - 1][2]
-        out_cm = channel_major and gi == len(groups) - 1
-        out = torch.empty((n, cout, hw) if out_cm else (n, hw, cout), dtype=x.dtype, device=x.device)
-        in_strides = (cin * hw, hw, 1) if cur_cm else (cin * hw, 1, cin)
-        out_strides = (cout * hw, hw, 1) if out_cm else (cout * hw, 1, cout)
-        _launch(cur, out, p, g, n, h, w, in_strides, out_strides, lib)
+        cin, cout = specs[g.lo][1], specs[g.hi - 1][2]
+        last = gi == len(groups) - 1
+        out_cm = channel_major and last
+        if g.wide:
+            y = conv3x3_wide_cuda(cur.view(n, h, w, cin).permute(0, 3, 1, 2), p, g.lo, swap and last)
+            out = y.permute(0, 2, 3, 1).reshape(n, hw, cout)
+        else:
+            out = torch.empty((n, cout, hw) if out_cm else (n, hw, cout), dtype=x.dtype,
+                              device=x.device)
+            in_strides = (cin * hw, hw, 1) if cur_cm else (cin * hw, 1, cin)
+            out_strides = (cout * hw, hw, 1) if out_cm else (cout * hw, 1, cout)
+            lib = lib or _lib()
+            _launch(cur, out, p, g, n, h, w, in_strides, out_strides, lib)
         counter.launches += 1
         cur, cur_cm = out, out_cm
     return cur
 
 
 def conv_stack_tiles_cuda(x: torch.Tensor, p: PackedStack, tile_side: int) -> torch.Tensor:
-    """K7 on ``(NT, Cin, tile_side**2)`` bf16: one launch per group of
-    :func:`plan_tiles`, each block one tile."""
+    """K7 on channel-major ``(NT, Cin, tile_side**2)`` bf16: one launch per
+    fused group of :func:`plan_tiles`, each block one tile (the first
+    design's route: the JAX-shaped entry, and the yardstick chip_smoke.py
+    times the channels-last route against)."""
     _check_input(x, p, 3, 1)
     nt, _, hw = x.shape
     if hw != tile_side * tile_side:
         raise ValueError(f"x holds {hw} pixels per tile, not {tile_side}**2")
-    return _run(x, p, plan_tiles(p, tile_side), nt, tile_side, tile_side, True, conv_stack_tiles_cuda)
+    return _run(x, p, plan_tiles(p, tile_side), nt, tile_side, tile_side, True,
+                conv_stack_tiles_cuda)
 
 
-conv_stack_tiles_cuda.launches = 0
+conv_stack_tiles_cuda.launches = 0  # every K7 launch, wide ones included
+
+
+def conv_stack_tiles_cl_cuda(x: torch.Tensor, p: PackedStack, swap: bool = False) -> torch.Tensor:
+    """K7 on channels-last ``(NT, Cin, side, side)`` bf16 (NCHW strides and
+    other dtypes are refused): one launch per group of :func:`plan_tiles`
+    with the wide convs on the wide-conv kernel, channels-last between
+    them. Returns channels-last ``(NT, Cout, side, side)``; with ``swap`` the
+    tiles regrouped as :func:`conv3x3_wide_cuda` says, by the last launch's
+    store addresses where it is wide (chip_smoke.py measures that faster
+    than one permute of sep4d's 671 MB), else by one permute."""
+    _check_cl(x, p, p.specs[0][1])
+    nt, _, side, _ = x.shape
+    groups = plan_tiles(p, side, wide=True)
+    in_kernel = swap and groups[-1].wide
+    y = _run(x.permute(0, 2, 3, 1).reshape(nt, side * side, -1), p, groups, nt, side, side,
+             False, conv_stack_tiles_cuda, in_kernel)
+    y = y.view(nt, side, side, -1).permute(0, 3, 1, 2)
+    return swap_tiles(y) if swap and not in_kernel else y
 
 
 def conv_stack_banded_cuda(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
@@ -350,10 +494,26 @@ def conv_stack_banded_cuda(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
 conv_stack_banded_cuda.launches = 0
 
 
+def swap_tiles(y: torch.Tensor) -> torch.Tensor:
+    """``(G x hw, C, s, s)`` tiles (``hw = s**2``) -> channels-last tiles with
+    tile ``hw g + q``'s pixel ``t`` = ``y``'s tile ``hw g + t``'s pixel ``q``."""
+    nt, c, s, _ = y.shape
+    hw = s * s
+    t = y.permute(0, 2, 3, 1).reshape(nt // hw, hw, hw, c).transpose(1, 2)
+    return t.reshape(nt, s, s, c).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
 def conv_stack_tiles_plain(x: torch.Tensor, p: PackedStack, tile_side: int) -> torch.Tensor:
     """K7's plain version on any device."""
     nt, cin, hw = x.shape
     return conv_stack_plain(x.reshape(nt, cin, tile_side, tile_side), p).reshape(nt, -1, hw)
+
+
+def conv_stack_tiles_cl_plain(x: torch.Tensor, p: PackedStack, swap: bool = False) -> torch.Tensor:
+    """K7's plain version on ``(NT, Cin, side, side)`` tiles of either
+    layout: channels-last output, regrouped with ``swap``."""
+    y = conv_stack_plain(x, p).contiguous(memory_format=torch.channels_last)
+    return swap_tiles(y) if swap else y
 
 
 def conv_stack_banded_plain(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
@@ -375,6 +535,16 @@ def conv_stack_tiles(x: torch.Tensor, p: PackedStack, tile_side: int) -> torch.T
     return conv_stack_tiles_plain(x, p, tile_side)
 
 
+def conv_stack_tiles_cl(x: torch.Tensor, p: PackedStack, swap: bool = False) -> torch.Tensor:
+    """Channels-last ``(NT, Cin, side, side)`` -> channels-last ``(NT, Cout,
+    side, side)``, regrouped with ``swap``: the kernels for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if x.is_cuda:
+        return conv_stack_tiles_cl_cuda(x, p, swap=swap)
+    _check_cpu(x)
+    return conv_stack_tiles_cl_plain(x, p, swap)
+
+
 def conv_stack_banded(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
     """NHWC ``(N, H, W, Cin)`` -> ``(N, H, W, Cout)``: the kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
@@ -388,29 +558,29 @@ def conv_stack_banded(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
 # The DFPN stages on K7
 # ---------------------------------------------------------------------------
 
-
 def mixer_apply(p: PackedStack, corr: torch.Tensor, corr_size: int, dtype: torch.dtype) -> torch.Tensor:
     """The correlation mixer on K7 (``mixer_apply_pallas``): one tile per
-    (b, f), p-space as channels. ``corr (B, F, cs, cs, cs, cs)`` ->
-    ``(B, F, cs, cs, 2)``; ``corr.reshape(b * f, cs**2, cs**2)`` is already
-    channel-major."""
+    (b, f), p-space as channels, channels-last (its 3x3 256 -> 256 on the
+    wide-conv kernel at 16x16 tiles). ``corr (B, F, cs, cs, cs, cs)`` ->
+    ``(B, F, cs, cs, 2)``; ``corr.reshape(b * f, cs**2, cs, cs)`` is
+    channel-major, so the volume is copied once into channels-last."""
     b, f = corr.shape[:2]
     cs = corr_size
-    x = corr.reshape(b * f, cs * cs, cs * cs).to(dtype).contiguous()
-    y = conv_stack_tiles(x, p, cs)  # (b*f, 2, hw)
-    return y.reshape(b, f, -1, cs, cs).permute(0, 1, 3, 4, 2)
+    x = corr.reshape(b * f, cs * cs, cs, cs).to(dtype).contiguous(memory_format=torch.channels_last)
+    y = conv_stack_tiles_cl(x, p)  # (b*f, 2, cs, cs), channels-last
+    return y.permute(0, 2, 3, 1).reshape(b, f, cs, cs, -1)
 
 
 def sep4d_apply(p1: PackedStack, p2: PackedStack, corr: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The separable 4-D conv on K7 (``sep4d_apply_pallas``): stage 1 over
-    q-space with one tile per (b, f, p), the p <-> q swap as one permute,
-    stage 2 over p-space with one tile per (b, f, q). ``corr (B, F, h, w,
-    h, w)`` -> the same shape in ``dtype``."""
+    """The separable 4-D conv on K7 (``sep4d_apply_pallas``), channels-last:
+    stage 1 over q-space with one tile per (b, f, p), its output ``(b f p, q,
+    C)``; the p <-> q swap to ``(b f q, p, C)`` (in the epilogue of stage 1's
+    last conv where that runs on the wide-conv kernel, else one permute);
+    stage 2 over p-space with one tile per (b, f, q). ``corr (B, F, h, w, h,
+    w)`` -> the same shape in ``dtype``."""
     b, f, h, w = corr.shape[:4]
     hw = h * w
-    x = corr.reshape(b * f * hw, 1, hw).to(dtype).contiguous()
-    y = conv_stack_tiles(x, p1, h)  # (b*f*p, C, q)
-    c1 = y.shape[1]
-    y = y.reshape(b * f, hw, c1, hw).permute(0, 3, 2, 1).reshape(b * f * hw, c1, hw)
-    y = conv_stack_tiles(y.contiguous(), p2, h)  # (b*f*q, 1, p)
+    x = corr.reshape(b * f * hw, 1, h, w).to(dtype).contiguous()  # 1 channel: channels-last too
+    y = conv_stack_tiles_cl(x, p1, swap=True)  # (b*f*q, C, p)
+    y = conv_stack_tiles_cl(y, p2)  # (b*f*q, 1, p)
     return y.reshape(b * f, hw, hw).transpose(1, 2).reshape(b, f, h, w, h, w)

@@ -1,7 +1,13 @@
-"""Times variants of the conv-stack kernel (``csrc/conv_stack.cu``: K7 and
-K8) on one card, at the CHN+DFPN step's shapes (B=4, F=5, 256x256): K7 on
-sep4d's two stages (5 120 tiles each) and on the mixer (20 tiles), K8 on
-flow_256's 7 segments (20 frames) and on VGG's block 1 (24 frames).
+"""Times variants of the conv-stack kernels on one card, at the CHN+DFPN
+step's shapes (B=4, F=5, 256x256).
+
+The fused kernel (``csrc/conv_stack.cu``: K7 and K8): K7 on sep4d's two
+stages (5 120 tiles each, fused groups alone, as its first design ran
+them) and on the mixer (20 tiles), K8 on flow_256's 7 segments (20 frames)
+and on VGG's block 1 (24 frames). The wide-conv kernel
+(``csrc/conv_stack_wgmma.cu``, K7's wide 3x3 convs): each of sep4d's three
+wide conv shapes at 5 120 tiles, and sep4d's two stages as the path runs
+them (``WIDE_VARIANTS``: outputs a CTA, box and weight ring stages).
 
 Each variant is the kernel built with its own ``-D`` tuning flags (warps a
 block, output channels a warp, how far ahead B is fetched) and a launch
@@ -38,6 +44,15 @@ VARIANTS = {
     "16 warps, 32 ch, B 3 steps ahead, greedy planner": (("-DSTACK_DEPTH=3",), "greedy"),
     "16 warps, 32 ch, B 4 steps ahead, greedy planner": (("-DSTACK_DEPTH=4",), "greedy"),
     "24 warps, 32 ch, B 2 steps ahead, greedy planner": (("-DSTACK_NWARP=24",), "greedy"),
+}
+# The wide-conv kernel's variants (csrc/conv3x3_wide_wgmma.cuh): outputs a
+# CTA (-DWIDE_COUT), box stages (-DWIDE_SA), weight stages (-DWIDE_SW).
+WIDE_VARIANTS = {
+    "128 outputs a CTA, 2 box stages, 4 weight stages": (),
+    "64 outputs a CTA": ("-DWIDE_COUT=64",),
+    "6 weight stages": ("-DWIDE_SW=6",),
+    "2 weight stages": ("-DWIDE_SW=2",),
+    "3 box stages, 3 weight stages": ("-DWIDE_SA=3", "-DWIDE_SW=3"),
 }
 L2_LIMIT = 1e-2  # as chip_smoke.py's L2_STACK
 
@@ -88,7 +103,8 @@ def main() -> None:
         raise SystemExit("sweep_conv_stack: no CUDA device is available")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    report = _build.build([], sorted({("conv_stack", flags) for flags, _ in VARIANTS.values()}))
+    report = _build.build([], sorted({("conv_stack", flags) for flags, _ in VARIANTS.values()}
+                                     | {("conv_stack_wgmma", f) for f in WIDE_VARIANTS.values()}))
     for label, (_, log) in report.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -128,6 +144,31 @@ def main() -> None:
         print(f"{label} {' '.join(flags) or '(defaults)'} | {k7:.4f} | {k7m:.4f} | {k8:.4f} | "
               f"{k8v:.4f} | {rel:.4g}")
     cst._lib, cst.plan = orig, planners["cost"]
+
+    # The wide-conv kernel: each wide conv shape alone, then sep4d's stages
+    # channels-last as sep4d_apply runs them (thin convs on the defaults).
+    shapes = [(128, 256), (256, 256), (256, 128)]
+    ones = [_stack(gen, ci, [(3, co)]) for ci, co in shapes]
+    xw = {ci: rnd(n * 256, ci, cs, cs).contiguous(memory_format=torch.channels_last) for ci in (128, 256)}
+    x1c, x2c = x1.view(n * 256, 1, cs, cs), x2.view(n * 256, cs, cs, 256).permute(0, 3, 1, 2)
+    want_w = [cst.conv_stack_plain(xw[ci], one) for (ci, _), one in zip(shapes, ones)]
+    orig_w = cst._wide_lib
+    print("variant | " + " | ".join(f"{ci}->{co} ms (% of floor)" for ci, co in shapes)
+          + " | K7 sep4d ms | worst rel L2")
+    for label, flags in list(WIDE_VARIANTS.items()) + [next(iter(WIDE_VARIANTS.items()))]:
+        cst._wide_lib = lambda _=(), flags=flags: orig_w(flags)
+        rel = max(((cst.conv3x3_wide_cuda(xw[ci], one, 0).float() - w.float()).norm()
+                   / w.float().norm()).item() for (ci, _), one, w in zip(shapes, ones, want_w))
+        if rel > L2_LIMIT:
+            raise RuntimeError(f"{label}: the kernel disagrees with its plain version ({rel:.4g})")
+        cols = []
+        for (ci, co), one in zip(shapes, ones):
+            t = _ms(lambda: cst.conv3x3_wide_cuda(xw[ci], one, 0))
+            floor = 1e3 * cst.stack_flops(one, n * 256, cs, cs) / 989e12
+            cols.append(f"{t:.4f} ({100 * floor / t:.1f}%)")
+        k7 = _ms(lambda: (cst.conv_stack_tiles_cl_cuda(x1c, sep1), cst.conv_stack_tiles_cl_cuda(x2c, sep2)))
+        print(f"{label} {' '.join(flags) or '(defaults)'} | {' | '.join(cols)} | {k7:.4f} | {rel:.4g}")
+    cst._wide_lib = orig_w
 
 
 if __name__ == "__main__":

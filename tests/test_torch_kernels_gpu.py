@@ -398,3 +398,68 @@ def test_conv_stack_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         conv_stack.conv_stack_banded_cuda(torch.zeros(1, 8, 8, 8, device=cuda), p)
     with pytest.raises(ValueError, match="channels"):
         conv_stack.conv_stack_tiles_cuda(torch.zeros(1, 4, 64, device=cuda, dtype=torch.bfloat16), p, 8)
+
+
+@pytest.mark.parametrize("nt,cin,cout,relu", [
+    (5120, 128, 256, True),  # sep4d's widths at the CHN+DFPN step's tile count
+    (640, 256, 256, False),
+    (7, 256, 128, True),  # a ragged tile count
+    (3, 64, 192, True),  # outputs padded to 256 in the packing
+])
+def test_conv3x3_wide_kernel_matches_plain(cuda, nt, cin, cout, relu):
+    """K7's wide-conv kernel (csrc/conv_stack_wgmma.cu), one launch, against
+    the plain conv on channels-last 16x16 tiles."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    rng = np.random.RandomState(7)
+    p = _stack(rng, [(3, cout, relu)], cin, cuda)
+    x = torch.from_numpy(rng.randn(nt, cin, 16, 16).astype(np.float32)).to(cuda, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    before = conv_stack.conv3x3_wide_cuda.launches
+    got = conv_stack.conv3x3_wide_cuda(x, p, 0)
+    torch.cuda.synchronize()
+    assert conv_stack.conv3x3_wide_cuda.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = conv_stack.conv_stack_plain(x, p)
+    assert got.shape == want.shape and _rel_l2(got, want) <= STACK_L2
+
+
+@pytest.mark.parametrize("swap", [False, True])
+def test_conv_stack_tiles_cl_kernel_matches_plain(cuda, swap):
+    """sep4d's stage-1 and stage-2 stacks through the channels-last entry
+    (fused 1 -> 128, wide, wide; wide, wide, fused 128 -> 1) on 512 tiles,
+    stage 1 with and without the p <-> q swap."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    rng = np.random.RandomState(8)
+    p1 = _stack(rng, [(3, 128, True), (3, 256, True), (3, 256, False)], 1, cuda)
+    p2 = _stack(rng, [(3, 256, True), (3, 128, True), (3, 1, False)], 256, cuda)
+    x = torch.from_numpy(rng.randn(512, 1, 16, 16).astype(np.float32)).to(cuda, torch.bfloat16)
+    wide0, launches0 = conv_stack.conv3x3_wide_cuda.launches, conv_stack.conv_stack_tiles_cuda.launches
+    y = conv_stack.conv_stack_tiles_cl_cuda(x, p1, swap=swap)
+    z = conv_stack.conv_stack_tiles_cl_cuda(y, p2)
+    torch.cuda.synchronize()
+    assert conv_stack.conv3x3_wide_cuda.launches == wide0 + 4
+    assert conv_stack.conv_stack_tiles_cuda.launches == launches0 + 6
+    want_y = conv_stack.conv_stack_tiles_cl_plain(x, p1, swap)
+    assert y.shape == want_y.shape and _rel_l2(y, want_y) <= STACK_L2
+    want_z = conv_stack.conv_stack_tiles_cl_plain(want_y, p2)
+    assert z.shape == want_z.shape and _rel_l2(z, want_z) <= STACK_L2
+
+
+def test_wide_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    """Channel-major (NCHW strides) or non-bf16 tiles, and a conv that is not
+    wide, raise: nothing falls back."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    p = _stack(np.random.RandomState(9), [(3, 64, True), (3, 8, False)], 64, cuda)
+    nchw = torch.zeros(2, 64, 16, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="channels-last"):
+        conv_stack.conv_stack_tiles_cl_cuda(nchw, p)
+    with pytest.raises(ValueError, match="channels-last"):
+        conv_stack.conv3x3_wide_cuda(nchw, p, 0)
+    cl = nchw.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv_stack.conv3x3_wide_cuda(cl.float(), p, 0)
+    with pytest.raises(ValueError, match="not a wide conv"):
+        conv_stack.conv3x3_wide_cuda(cl, p, 1)
