@@ -65,19 +65,26 @@ Phases, each fatal on failure:
    wide 3x3 conv on the wide-conv kernel ``conv3x3_wide_wgmma`` (stage 1
    also with the p <-> q swap in its epilogue), at ragged tile counts, and
    its first design (channel-major, fused groups alone) on the mixer;
-   K8 (the banded stack) at flow_256's c0-c1 (Cin 10) and c15-c17 (halo 4)
-   segments at 256x256, at VGG's block 1 (Cin 3) and at a ragged 60x120
-   frame; each held against its plain version with TF32 off by relative
-   L2, and read on the faults planted in the code of the kernels it runs
-   (the fused kernel with ``-DSTACK_PLANT``: a corner tap left out, the
-   ReLU off a conv, the biases dropped; the wide-conv kernel with
-   ``-DWIDE_PLANT``: tap (0, 0) left out, the bias dropped, one tap read
-   with a wrong swizzle phase); CUDA-event times of the kernel, its plain
-   version and the same stack as the module route (cuDNN convs in bf16);
-   K7 on sep4d beside its first design (fused groups alone, channel-major)
-   on the same values, fatal unless faster; each wide conv against its
-   floor; stage 1 with the swap in the epilogue and with one permute; the
-   mixer's kernels, ``mixer_apply`` and the first design on the mixer;
+   K8 (the banded stack: each 3x3 / 5x5 conv with Cin and Cout multiples
+   of 64 on the frame kernel ``conv_frame_wgmma``, the thin ones on the
+   fused kernel) at flow_256's c0-c1 (Cin 10) and c15-c17 segments at
+   256x256, at VGG's block 1 (Cin 3) and at a ragged 60x120 frame, and its
+   first design (fused groups alone) on c15-c17; each held against its
+   plain version with TF32 off by relative L2, and read on the faults
+   planted in the code of the kernels it runs (the fused kernel with
+   ``-DSTACK_PLANT``: a corner tap left out, the ReLU off a conv, the
+   biases dropped; the wide-conv kernel with ``-DWIDE_PLANT``: tap (0, 0)
+   left out, the bias dropped, one tap read with a wrong swizzle phase;
+   the frame kernel with ``-DFRAME_PLANT``: the corner tap left out, the
+   bias dropped, each tile's top halo row read as zeros); CUDA-event
+   times of the kernel, its plain version and the same stack as the
+   module route (cuDNN convs in bf16); K7 on sep4d and K8 on each of its
+   three callers (flow_256, flow_64, VGG pool-4) beside their first
+   designs on the same values, each fatal unless faster; each wide and
+   each frame conv against its floor (a frame conv also beside one cuDNN
+   ``F.conv2d``); stage 1 with the swap in the epilogue and with one
+   permute; the mixer's kernels, ``mixer_apply`` and the first design on
+   the mixer;
 8. the CHN+DFPN path: VGG pool-4 features, ``dfpn_infer_apply`` at base
    256, ``dfpn_align`` and ``chn_infer_apply`` at B=4, F=5, 256x256,
    nb=20, bf16, once with the JAX package's default routes (K7 on the
@@ -121,6 +128,7 @@ outside the repository. Usage: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -156,6 +164,10 @@ STACK_FAULTS = {1: "corner tap left out", 2: "ReLU off the last ReLU conv of eac
 # with -DWIDE_PLANT=n.
 WIDE_FAULTS = {1: "wide conv: tap (0, 0) left out", 2: "wide conv: bias dropped",
                3: "wide conv: tap (1, 1) read with its swizzle phase in the base offset"}
+# Faults compiled into K8's frame kernel (csrc/conv_frame_wgmma.cuh) with
+# -DFRAME_PLANT=n.
+FRAME_FAULTS = {1: "frame conv: corner tap (-r, -r) left out", 2: "frame conv: bias dropped",
+                3: "frame conv: each tile's top halo row (the tile above's) read as zeros"}
 # Relative L2 limits of the conv-stack kernels against their plain versions
 # (both round every conv's output to bf16; sums in another order flip some
 # roundings), and of the small CHN+DFPN input's DFPN outputs, whose
@@ -279,6 +291,7 @@ def phase_build():
         (name, (f"-DBWD_PLANT={f}",)) for name in ("rrdb_bwd", "tail_bwd") for f in FAULTS
     ] + [("conv_stack", (f"-DSTACK_PLANT={f}",)) for f in STACK_FAULTS]
       + [("conv_stack_wgmma", (f"-DWIDE_PLANT={f}",)) for f in WIDE_FAULTS]
+      + [("conv_stack_wgmma", (f"-DFRAME_PLANT={f}",)) for f in FRAME_FAULTS]
       + [(name, ("-DBAND_PLANT=1",)) for name in ("rrdb", "tail")]
       + [("rrdb", ("-DRDB_PLANT=1",)), ("tail", ("-DTAIL_PLANT=1",))])
     print(f"build: {len(report)} libraries in {time.perf_counter() - t0:.1f} s "
@@ -1090,17 +1103,23 @@ def planted_stack(fault):
 
 
 @contextlib.contextmanager
-def planted_wide(fault):
-    """Within: K7's wide convs launch the library built with
-    ``-DWIDE_PLANT=fault`` (csrc/conv3x3_wide_wgmma.cuh)."""
+def planted_wgmma(flag, fault):
+    """Within: the one-conv ``wgmma`` kernels (csrc/conv_stack_wgmma.cu: K7's
+    wide convs, K8's frame convs) launch the library built with
+    ``-D<flag>=fault``: ``WIDE_PLANT`` plants in conv3x3_wide_wgmma.cuh,
+    ``FRAME_PLANT`` in conv_frame_wgmma.cuh."""
     from master_thesis_tpu_torch.ops import conv_stack
 
     orig = conv_stack._wide_lib
-    conv_stack._wide_lib = lambda _=(): orig((f"-DWIDE_PLANT={fault}",))
+    conv_stack._wide_lib = lambda _=(): orig((f"-D{flag}={fault}",))
     try:
         yield
     finally:
         conv_stack._wide_lib = orig
+
+
+planted_wide = functools.partial(planted_wgmma, "WIDE_PLANT")
+planted_frame = functools.partial(planted_wgmma, "FRAME_PLANT")
 
 
 @contextlib.contextmanager
@@ -1137,12 +1156,12 @@ def stack_faults(p, side):
     from master_thesis_tpu_torch.ops import conv_stack as cst
 
     groups = cst.plan_tiles(p, side, wide=True)
-    fused = [g for g in groups if not g.wide]
+    fused = [g for g in groups if g.kernel == "fused"]
     relu = any(p.relus[i] for g in fused for i in range(g.lo, g.hi))
     faults = [(planted_stack, f, label) for f, label in STACK_FAULTS.items()
               if fused and (f != 2 or relu)]
     return faults + [(planted_wide, f, label) for f, label in WIDE_FAULTS.items()
-                     if any(g.wide for g in groups)]
+                     if any(g.kernel == "wide" for g in groups)]
 
 
 def check_stack(name, run, plain, x, p, faults=None):
@@ -1163,12 +1182,12 @@ def check_stack(name, run, plain, x, p, faults=None):
     return err, want
 
 
-def phase_kernels_stack(dfpn, vgg, results):
-    """K7 and K8 against their plain versions at the CHN+DFPN step's shapes
-    (B=4, F=5: 20 correlation tiles for the mixer, 5 120 per sep4d stage;
-    20 frames through flow_256, 24 through VGG) and ragged ones; CUDA-event
-    times of the kernel, the plain version and the module route."""
-    from master_thesis_tpu_torch.models.dfpn import _FLOW_SEGMENTS, _convs
+def phase_kernels_stack(dfpn, results):
+    """K7 against its plain version at the CHN+DFPN step's shapes (B=4, F=5:
+    20 correlation tiles for the mixer, 5 120 per sep4d stage) and ragged
+    ones; CUDA-event times of the kernel, the plain version and the module
+    route."""
+    from master_thesis_tpu_torch.models.dfpn import _convs
     from master_thesis_tpu_torch.ops import conv_stack as cst
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1198,7 +1217,7 @@ def phase_kernels_stack(dfpn, vgg, results):
                 f_mix)
     check_stack("K7 mixer ragged (7 tiles)", cl, cl_plain,
                 rnd(7, cs * cs, cs, cs).contiguous(memory_format=torch.channels_last), p_mix, f_mix)
-    (wi,) = [g.lo for g in cst.plan_tiles(p_mix, cs, wide=True) if g.wide]
+    (wi,) = [g.lo for g in cst.plan_tiles(p_mix, cs, wide=True) if g.kernel == "wide"]
     p_mix_wide = cst.pack_stack([(p_mix.kernels[wi], p_mix.biases[wi])], [p_mix.relus[wi]], bf)
     check_stack(f"K7 mixer conv {wi} alone, wide conv ({n} tiles)", cl, cl_plain,
                 rnd(n, cs * cs, cs, cs).contiguous(memory_format=torch.channels_last), p_mix_wide,
@@ -1289,62 +1308,160 @@ def phase_kernels_stack(dfpn, vgg, results):
           f"module_ms={cuda_ms(lambda: module_stack(*_convs(mixer.mixer), x_mix.view(n, -1, cs, cs))):.4f} "
           f"bound_ms={mix_b:.4f}")
 
-    # K8: flow_256's first and last segments, VGG's block 1, a ragged frame.
+    r = results["K7"]
+    print(f"kernel K7 {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"module_ms={r['module_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+          f"library_ms=null")
+
+
+def band_faults(p, h, w):
+    """The planted faults K8's plan of stack ``p`` over ``h x w`` frames can
+    show: the fused kernel's where it runs a group (the ReLU fault only where
+    one of its groups has a ReLU conv), the frame kernel's where it runs a
+    conv (the halo-row fault only where a frame conv's tiles leave a tile
+    boundary inside the frame)."""
+    from master_thesis_tpu_torch.ops import conv_stack as cst
+
+    groups = cst.plan_banded(p, h, w)
+    fused = [g for g in groups if g.kernel == "fused"]
+    frames = [g for g in groups if g.kernel == "frame"]
+    relu = any(p.relus[i] for g in fused for i in range(g.lo, g.hi))
+    faults = [(planted_stack, f, label) for f, label in STACK_FAULTS.items()
+              if fused and (f != 2 or relu)]
+    return faults + [(planted_frame, f, label) for f, label in FRAME_FAULTS.items()
+                     if frames and (f != 3 or any(g.th < h for g in frames))]
+
+
+def k8_callers(dfpn, vgg, rnd):
+    """K8's three callers in the CHN+DFPN step as ``{caller: [(name, packed
+    stack, conv modules, relus, NHWC input), ...]}`` on seeded inputs:
+    flow_256's and flow_64's 7 segments (20 frames at base 256: 256 .. 32 and
+    64 .. 8), and VGG's pool-4 tower (its 4 blocks at 256 .. 32) over the 4
+    target and 20 reference frames of its two calls."""
+    from master_thesis_tpu_torch.models.dfpn import _FLOW_SEGMENTS
+    from master_thesis_tpu_torch.models.vgg import _POOL4_BLOCKS
+
+    bf, n = torch.bfloat16, DFPN_B * DFPN_F
+    callers = {}
+    for label, est, base in (("flow_256", dfpn.flow_256, DFPN_BASE), ("flow_64", dfpn.flow_64, DFPN_BASE // 4)):
+        items = []
+        for (names, _), hw in zip(_FLOW_SEGMENTS, [base >> i for i in (0, 1, 2, 3, 2, 1, 0)]):
+            convs = [est.layer(nm) for nm in names]
+            relus = [nm != "c17" for nm in names]
+            p = est.stacks.get(names[0], convs, relus, bf)
+            items.append(("-".join(names), p, convs, relus, rnd(n, hw, hw, p.specs[0][1])))
+        callers[label] = items
+    items = []
+    for frames in (DFPN_B, n):
+        for i, block in enumerate(_POOL4_BLOCKS):
+            convs = [vgg.features[j] for j in block]
+            p = vgg.stacks.get(f"block{i + 1}", convs, [True] * len(convs), bf)
+            hw = DFPN_BASE >> i
+            items.append((f"block{i + 1} x{frames}", p, convs, [True] * len(convs),
+                           rnd(frames, hw, hw, p.specs[0][1])))
+    callers["VGG pool-4"] = items
+    return callers
+
+
+def phase_kernels_band(dfpn, vgg, results):
+    """K8 against its plain version: flow_256's first and last segments, VGG's
+    block 1, a ragged frame, each read on the faults of the kernels its plan
+    runs; on its three callers (flow_256, flow_64, VGG pool-4) beside its
+    first design (fused groups alone) on the same values, fatal unless
+    faster, with the plain version, the module route and the bound; each
+    frame conv alone at its main-path shape against its plain version, then
+    timed against its floor and one cuDNN ``F.conv2d``."""
+    import torch.nn.functional as F
+
+    from master_thesis_tpu_torch.ops import conv_stack as cst
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(bf)
     band = cst.conv_stack_banded_cuda
     band_plain = cst.conv_stack_banded_plain
-    est = dfpn.flow_256
-    seg_stacks = []
-    for names, _ in _FLOW_SEGMENTS:
-        convs = [est.layer(nm) for nm in names]
-        relus = [nm != "c17" for nm in names]
-        seg_stacks.append((est.stacks.get(names[0], convs, relus, bf), convs, relus))
-    sizes = (256, 128, 64, 32, 64, 128, 256)
-    xs = [rnd(n, hw, hw, p.specs[0][1]) for (p, _, _), hw in zip(seg_stacks, sizes)]
-    check_stack(f"K8 flow_256 c0-c1 {tuple(xs[0].shape)}", band, band_plain, xs[0], seg_stacks[0][0])
-    err8, _ = check_stack(f"K8 flow_256 c15-c17 {tuple(xs[-1].shape)}", band, band_plain, xs[-1],
-                          seg_stacks[-1][0])
-    check_stack("K8 flow c15-c17 ragged (2, 60, 120, 128)", band, band_plain, rnd(2, 60, 120, 128),
-                seg_stacks[-1][0])
-    blk = [vgg.features[j] for j in (0, 2)]
-    p_vgg = vgg.stacks.get("block1", blk, [True, True], bf)
-    x_vgg = rnd(n + DFPN_B, DFPN_BASE, DFPN_BASE, 3)
-    check_stack(f"K8 VGG block 1 {tuple(x_vgg.shape)}", band, band_plain, x_vgg, p_vgg)
+    first = cst.conv_stack_banded_first_cuda
+    callers = k8_callers(dfpn, vgg, rnd)
+    flow, vgg_items = callers["flow_256"], callers["VGG pool-4"]
 
-    def flow_k():
-        for (p, _, _), x in zip(seg_stacks, xs):
-            band(x, p)
+    def check_band(name, x, p):
+        return check_stack(f"K8 {name} {tuple(x.shape)}", band, band_plain, x, p,
+                           band_faults(p, x.shape[1], x.shape[2]))
 
-    def flow_plain():
-        for (p, _, _), x in zip(seg_stacks, xs):
-            band_plain(x, p)
+    check_band("flow_256 c0-c1", flow[0][4], flow[0][1])
+    err8, _ = check_band("flow_256 c15-c17", flow[-1][4], flow[-1][1])
+    check_band("flow c15-c17 ragged", rnd(2, 60, 120, 128), flow[-1][1])
+    _, p_vgg, _, _, x_vgg = vgg_items[0]
+    check_band("VGG block 1", x_vgg, p_vgg)
+    check_stack(f"K8 first design, flow_256 c15-c17 {tuple(flow[-1][4].shape)}", first, band_plain,
+                flow[-1][4], flow[-1][1])
 
-    def flow_module():
-        for (_, convs, relus), x in zip(seg_stacks, xs):
-            module_stack(convs, relus, x.permute(0, 3, 1, 2))
+    # Each caller: the new route and the first design in turns, the plain
+    # version and the module route.
+    for label, items in callers.items():
+        run = lambda fn, items=items: [fn(x, p) for _, p, _, _, x in items]
+        module = lambda items=items: [module_stack(c, r, x.permute(0, 3, 1, 2)) for _, _, c, r, x in items]
+        flops = sum(cst.stack_flops(p, x.shape[0], x.shape[1], x.shape[2]) for _, p, _, _, x in items)
+        moved = sum(nbytes(x, p.w, p.b) + x.numel() // x.shape[3] * p.specs[-1][2] * x.element_size()
+                    for _, p, _, _, x in items)
+        b_ms, b_by = bound_ms(flops, moved)
+        k_ms, f_ms = [], []
+        for _ in range(2):
+            k_ms.append(cuda_ms(lambda: run(band), iters=10))
+            f_ms.append(cuda_ms(lambda: run(first), iters=10))
+        p_ms, m_ms = cuda_ms(lambda: run(band_plain), iters=3, warmup=1), cuda_ms(module, iters=10)
+        launches = sum(len(cst.plan_banded(p, x.shape[1], x.shape[2])) for _, p, _, _, x in items)
+        frames = sum(len([g for g in cst.plan_banded(p, x.shape[1], x.shape[2]) if g.kernel == "frame"])
+                     for _, p, _, _, x in items)
+        print(f"kernel K8 on {label}: new route {k_ms[0]:.4f} / {k_ms[1]:.4f} ms ({launches} launches, "
+              f"{frames} on the frame kernel), first design (fused groups) {f_ms[0]:.4f} / "
+              f"{f_ms[1]:.4f} ms on the same values; plain_ms={p_ms:.4f} module_ms={m_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})")
+        if k_ms[0] >= f_ms[0] or k_ms[1] >= f_ms[1]:
+            raise RuntimeError(f"K8's new route is not faster than its first design on {label}")
+        if label == "flow_256":
+            results["K8"] = dict(
+                name="conv stack over whole NHWC frames (flow_256's 7 segments: the 3x3 / 5x5 "
+                     "128-channel convs on conv_frame_wgmma, c0 and c17 on stack_kernel)",
+                route="cuda", source="master_thesis_tpu_torch/csrc/conv_stack_wgmma.cu",
+                sources=["master_thesis_tpu_torch/csrc/conv_stack_wgmma.cu",
+                         "master_thesis_tpu_torch/csrc/conv_stack.cu"],
+                replaces="master_thesis_tpu/ops/pallas_sep4d.py:316", max_abs_err=err8,
+                ms=k_ms[0], plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                module_ms=m_ms, first_ms=f_ms[0],
+            )
+        else:
+            results["K8"][f"{label}_ms"] = k_ms[0]
 
-    flops8 = sum(cst.stack_flops(p, n, hw, hw) for (p, _, _), hw in zip(seg_stacks, sizes))
-    outs = [torch.empty(n, hw, hw, p.specs[-1][2], dtype=bf, device="cuda")
-            for (p, _, _), hw in zip(seg_stacks, sizes)]
-    b_ms, b_by = bound_ms(flops8, nbytes(*xs, *outs, *(t for p, _, _ in seg_stacks for t in (p.w, p.b))))
-    results["K8"] = dict(
-        name="conv stack, halo tiles of full frames (stack_kernel; flow_256's 7 segments)",
-        route="cuda", source="master_thesis_tpu_torch/csrc/conv_stack.cu",
-        replaces="master_thesis_tpu/ops/pallas_sep4d.py:316", max_abs_err=err8,
-        ms=cuda_ms(flow_k, iters=10), plain_ms=cuda_ms(flow_plain, iters=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, module_ms=cuda_ms(flow_module, iters=10),
-    )
-    vgg_out = x_vgg.numel() // 3 * 64 * x_vgg.element_size()
-    vgg_b, _ = bound_ms(cst.stack_flops(p_vgg, n + DFPN_B, DFPN_BASE, DFPN_BASE),
-                        nbytes(x_vgg, p_vgg.w) + vgg_out)
-    print(f"kernel K8 on VGG block 1 {tuple(x_vgg.shape)}: kernel_ms={cuda_ms(lambda: band(x_vgg, p_vgg)):.4f} "
-          f"plain_ms={cuda_ms(lambda: band_plain(x_vgg, p_vgg), iters=3, warmup=1):.4f} "
-          f"module_ms={cuda_ms(lambda: module_stack(blk, [True, True], x_vgg.permute(0, 3, 1, 2))):.4f} "
-          f"bound_ms={vgg_b:.4f}")
-    for key in ("K7", "K8"):
-        r = results[key]
-        print(f"kernel {key} {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"module_ms={r['module_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"library_ms=null")
+    # Each frame conv alone at its main-path shape: held against its plain
+    # version, then timed against its floor beside one cuDNN conv (bf16,
+    # channels-last) of the same conv, a yardstick the port never calls.
+    for label, items in callers.items():
+        for name, p, _, _, x in items:
+            n, h, w, _ = x.shape
+            for g in cst.plan_banded(p, h, w):
+                if g.kernel != "frame":
+                    continue
+                k, ci, co = p.specs[g.lo]
+                one = cst.pack_stack([(p.kernels[g.lo], p.biases[g.lo])], [p.relus[g.lo]], bf)
+                xi = rnd(n, h, w, ci)
+                check(f"K8 frame conv, {label} {name} conv {g.lo} {k}x{k} {ci}->{co} at {n}x{h}x{w}",
+                      cst.conv_frame_cuda(xi, one, 0), cst.conv_stack_banded_plain(xi, one), None,
+                      L2_STACK, max_abs=False)
+                t = cuda_ms(lambda: cst.conv_frame_cuda(xi, one, 0))
+                f_ms, f_by = bound_ms(cst.stack_flops(one, n, h, w),
+                                      nbytes(xi, one.wide[0]) + xi.numel() // ci * co * 2)
+                xc, wk, bb = xi.permute(0, 3, 1, 2), channels_last(one.kernels[0]), one.biases[0].to(bf)
+                lib = cuda_ms(lambda: F.conv2d(xc, wk, bb, padding=k // 2))
+                print(f"kernel K8 frame conv, {label} {name} conv {g.lo} {k}x{k} {ci}->{co} at "
+                      f"{n}x{h}x{w}: {t:.4f} ms, floor {f_ms:.4f} ms ({f_by}), {100 * f_ms / t:.1f}% "
+                      f"of it; cuDNN F.conv2d {lib:.4f} ms")
+    r = results["K8"]
+    print(f"kernel K8 {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"module_ms={r['module_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+          f"first_design_ms={r['first_ms']:.4f} library_ms=null")
 
 
 def dfpn_outputs(dfpn, vgg, x_t, m_t, x_r, m_r):
@@ -1376,18 +1493,20 @@ def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
     inputs = make_inputs(DFPN_B, DFPN_F, H, W, SEED + 12)
     x_t, m_t = inputs[0], inputs[1]
     counters = {"K1": rrdb.rdb_cuda, "K4": tail.tail_cuda, "K7": conv_stack.conv_stack_tiles_cuda,
-                "K7 wide": conv_stack.conv3x3_wide_cuda, "K8": conv_stack.conv_stack_banded_cuda}
+                "K7 wide": conv_stack.conv3x3_wide_cuda, "K8": conv_stack.conv_stack_banded_cuda,
+                "K8 frame": conv_stack.conv_frame_cuda}
     routes = {
         # K7: 5 launches on the mixer and 3 + 3 on sep4d's stages, of which
         # the mixer's 3x3 256 -> 256 and sep4d's four wide convs on the
-        # wide-conv kernel; K8: 15 on flow_256, 14 on flow_64, 9 on each of
-        # the two VGG pool-4 calls (tests/test_torch_conv_stack.py holds the
-        # plans to these).
+        # wide-conv kernel; K8: 15 on flow_256, 15 on flow_64, 10 on each of
+        # the two VGG pool-4 calls, of which 13 + 13 + 9 + 9 on the frame
+        # kernel (all but c0, c17 and VGG's 3 -> 64;
+        # tests/test_torch_conv_stack.py holds the plans to these).
         "default routes": (dict(), {"K1": NB * 3, "K4": tail.TAIL_KERNELS, "K7": 5, "K7 wide": 1,
-                                    "K8": 0}),
+                                    "K8": 0, "K8 frame": 0}),
         "every kernel route": (dict(pallas_sep4d=True, pallas_flow=True, pallas_vgg=True),
                                {"K1": NB * 3, "K4": tail.TAIL_KERNELS, "K7": 11, "K7 wide": 5,
-                                "K8": 47}),
+                                "K8": 50, "K8 frame": 44}),
     }
     for label, (flags, want) in routes.items():
         align = dfpn_align_fn(dfpn, vgg, **flags)
@@ -1458,8 +1577,9 @@ def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
             want = run()
         check_groups("CHN+DFPN DFPN outputs, 1x2x64x64 base 64, kernels vs plain versions", run(),
                      want, L2_DFPN)
-        for fault, label in STACK_FAULTS.items():
-            with planted_stack(fault):
+        for ctx, fault, label in ([(planted_stack, f, lb) for f, lb in STACK_FAULTS.items()]
+                                  + [(planted_frame, f, lb) for f, lb in FRAME_FAULTS.items()]):
+            with ctx(fault):
                 check_groups("CHN+DFPN DFPN outputs", run(), want, L2_DFPN, planted=label)
 
 
@@ -1882,7 +2002,8 @@ def main() -> int:
                       generator=torch.Generator().manual_seed(SEED + 5))
     vgg = VGGFeatures(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED + 6))
     with torch.inference_mode():
-        phase_kernels_stack(dfpn, vgg, results)
+        phase_kernels_stack(dfpn, results)
+        phase_kernels_band(dfpn, vgg, results)
     phase_dfpn_path(chn, dfpn, vgg, results, smi)
     with torch.inference_mode():
         phase_kernels_banded(chn, results)
@@ -1894,7 +2015,8 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # Beside them, the first design's time where the kernel was redesigned.
     first = ("first_design_ms", "tiles_ms", "first_ms")
-    kernels = [{**{k: r[k] for k in keys}, **{"first_design_ms": r[k] for k in first if k in r}}
+    kernels = [{**{k: r[k] for k in keys}, **{"first_design_ms": r[k] for k in first if k in r},
+                **({"sources": r["sources"]} if "sources" in r else {})}
                for _, r in sorted(results.items())]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

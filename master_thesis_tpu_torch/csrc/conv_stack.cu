@@ -61,7 +61,15 @@
 // wide 3x3 convs (Cin and Cout multiples of 64 on 16x16 tiles: sep4d's
 // four, the mixer's one) have left this kernel for csrc/conv_stack_wgmma.cu
 // (wgmma fed by TMA, persistent CTAs; ops/conv_stack.py:tile_plan routes
-// them); this one keeps K7's thin convs and 5x5s, and K8.
+// them); this one keeps K7's thin convs and 5x5s. K8's 3x3 and 5x5 convs
+// with Cin and Cout multiples of 64 (all of the flow estimators' but c0
+// and c17, all of VGG's pool-4 tower but its 3 -> 64) have left it too, for
+// csrc/conv_stack_wgmma.cu's frame kernel (conv_frame_wgmma.cuh: one TMA
+// box with its halo a tile over whole NHWC frames, no halo recomputed;
+// ops/conv_stack.py:band_plan routes them); this one keeps K8's thin
+// convs, and all of K8 in its first design
+// (ops/conv_stack.py:conv_stack_banded_first_cuda, which chip_smoke.py
+// times beside the new route).
 //
 // Faults for chip_smoke.py to catch, compiled in with -DSTACK_PLANT=n:
 // 1 leaves out the corner tap (dy, dx) = (-r, -r) of every conv, 2 leaves

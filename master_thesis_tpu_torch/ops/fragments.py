@@ -3,7 +3,8 @@
 ``csrc/conv3x3_wgmma.cuh`` and ``csrc/tail_wgmma.cuh``,
 :func:`wgmma_phase_matrix` for the latter's upsample-convs,
 :func:`wgmma_pull_matrix` for ``csrc/conv_bwd_wgmma.cuh``,
-:func:`wgmma_wide_matrix` for ``csrc/conv3x3_wide_wgmma.cuh``).
+:func:`wgmma_wide_matrix` for ``csrc/conv3x3_wide_wgmma.cuh`` and
+``csrc/conv_frame_wgmma.cuh``).
 
 A conv's weights form a row-major ``(K, N)`` matrix, rows ordered
 ``(tap, input channel)``. It is zero-padded to multiples of 16 and stored
@@ -91,20 +92,22 @@ def wgmma_conv_matrix(w: torch.Tensor, fill=0) -> torch.Tensor:
 
 
 def wgmma_wide_matrix(w: torch.Tensor) -> torch.Tensor:
-    """A 3x3 conv's OIHW kernel as the A operand of
-    ``csrc/conv3x3_wide_wgmma.cuh`` (the swapped GEMM: M = outputs, K = (tap,
-    input channel)). Outputs are zero-padded to a multiple of 128; index
-    order ``(c // 64, tap, o, 64 channels)``: per (chunk, tap) block one
-    128-byte row an output, K-major, its 16-byte chunks in the 128-byte
-    swizzle of a 1024-byte-aligned stage (chunk ``j`` of row ``o`` at position
-    ``j ^ o % 8``), so a block of consecutive outputs is one bulk copy that
-    the descriptors read as written. Tap ``3 ky + kx``."""
-    o, c = w.shape[0], w.shape[1]
-    if c % 64 or o % 64 or tuple(w.shape[2:]) != (3, 3):
-        raise ValueError(f"the wide layout needs a 3x3 kernel with Cin, Cout % 64 == 0, got {tuple(w.shape)}")
+    """A 3x3 or 5x5 conv's OIHW kernel as the A operand of
+    ``csrc/conv3x3_wide_wgmma.cuh`` and ``csrc/conv_frame_wgmma.cuh`` (the
+    swapped GEMM: M = outputs, K = (tap, input channel)). Outputs are
+    zero-padded to a multiple of 128; index order ``(c // 64, tap, o, 64
+    channels)``: per (chunk, tap) block one 128-byte row an output, K-major,
+    its 16-byte chunks in the 128-byte swizzle of a 1024-byte-aligned stage
+    (chunk ``j`` of row ``o`` at position ``j ^ o % 8``), so a block of
+    consecutive outputs is one bulk copy that the descriptors read as
+    written. Tap ``k ky + kx``."""
+    o, c, k = w.shape[0], w.shape[1], w.shape[-1]
+    if c % 64 or o % 64 or k not in (3, 5) or w.shape[2] != k:
+        raise ValueError("the wide layout needs a 3x3 or 5x5 kernel with Cin, Cout % 64 == 0, "
+                         f"got {tuple(w.shape)}")
     op = -(-o // 128) * 128
     w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, 0, 0, op - o))
-    blocks = w.reshape(op, c // 64, 8, 8, 9).permute(1, 4, 0, 2, 3)  # (chunk, tap, o, j, c % 8)
+    blocks = w.reshape(op, c // 64, 8, 8, k * k).permute(1, 4, 0, 2, 3)  # (chunk, tap, o, j, c % 8)
     rows = torch.arange(op, device=w.device).view(op, 1)
     pos = torch.arange(8, device=w.device).view(1, 8)
     return blocks[:, :, rows, pos ^ (rows % 8)].reshape(-1)

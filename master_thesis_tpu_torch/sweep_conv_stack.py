@@ -4,10 +4,11 @@ step's shapes (B=4, F=5, 256x256).
 The fused kernel (``csrc/conv_stack.cu``: K7 and K8): K7 on sep4d's two
 stages (5 120 tiles each, fused groups alone, as its first design ran
 them) and on the mixer (20 tiles), K8 on flow_256's 7 segments (20 frames)
-and on VGG's block 1 (24 frames). The wide-conv kernel
-(``csrc/conv_stack_wgmma.cu``, K7's wide 3x3 convs): each of sep4d's three
-wide conv shapes at 5 120 tiles, and sep4d's two stages as the path runs
-them (``WIDE_VARIANTS``: outputs a CTA, box and weight ring stages).
+and on VGG's block 1 (24 frames), fused groups alone (K8's first design).
+The wide-conv kernel (``csrc/conv_stack_wgmma.cu``, K7's wide 3x3 convs):
+each of sep4d's three wide conv shapes at 5 120 tiles, and sep4d's two
+stages as the path runs them (``WIDE_VARIANTS``: outputs a CTA, box and
+weight ring stages).
 
 Each variant is the kernel built with its own ``-D`` tuning flags (warps a
 block, output channels a warp, how far ahead B is fetched) and a launch
@@ -19,12 +20,15 @@ variant's outputs are held against the plain version (relative L2) before
 it is timed. CUDA-event times; the card's name and power limit are printed
 beside them. Usage, on a machine with the card::
 
-    python3 -m master_thesis_tpu_torch.sweep_conv_stack
+    python3 -m master_thesis_tpu_torch.sweep_conv_stack [fused] [wide]
+
+(both parts without arguments).
 """
 
 from __future__ import annotations
 
 import subprocess
+import sys
 
 import torch
 
@@ -98,9 +102,14 @@ def _ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def _rel(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("sweep_conv_stack: no CUDA device is available")
+    parts = set(sys.argv[1:]) or {"fused", "wide"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     report = _build.build([], sorted({("conv_stack", flags) for flags, _ in VARIANTS.values()}
@@ -124,27 +133,37 @@ def main() -> None:
     xs = [rnd(n, hw, hw, p.specs[0][1]) for p, hw in zip(flow, (256, 128, 64, 32, 64, 128, 256))]
     x_vgg = rnd(n + 4, 256, 256, 3)
     tiles = lambda x, p: cst.conv_stack_tiles_cuda(x, p, cs)
+    band = cst.conv_stack_banded_first_cuda  # the fused groups alone
+    print(f"device: {torch.cuda.get_device_name(0)}; {smi}")
+    if "fused" in parts:
+        _sweep_fused(tiles, band, cs, (x1, sep1), (x2, sep2), (x_mix, mixer), xs, flow, (x_vgg, vgg1))
+    if "wide" in parts:
+        _sweep_wide(gen, rnd, n, cs, x1, x2, sep1, sep2)
+
+
+def _sweep_fused(tiles, band, cs, s1, s2, mix, xs, flow, v1) -> None:
+    (x1, sep1), (x2, sep2), (x_mix, mixer), (x_vgg, vgg1) = s1, s2, mix, v1
     want = {"sep4d stage 2": cst.conv_stack_tiles_plain(x2, sep2, cs),
             "flow c15-c17": cst.conv_stack_banded_plain(xs[-1], flow[-1])}
-
     orig, planners = cst._lib, {"cost": cst.plan, "greedy": greedy_plan}
-    print(f"device: {torch.cuda.get_device_name(0)}; {smi}")
     print("variant | K7 sep4d ms | K7 mixer ms | K8 flow_256 ms | K8 VGG block 1 ms | worst rel L2")
     for label, (flags, planner) in list(VARIANTS.items()) + [next(iter(VARIANTS.items()))]:
         cst._lib = lambda _=(), flags=flags: orig(flags)
         cst.plan = planners[planner]
-        got = {"sep4d stage 2": tiles(x2, sep2), "flow c15-c17": cst.conv_stack_banded_cuda(xs[-1], flow[-1])}
-        rel = max(((got[k].float() - want[k].float()).norm() / want[k].float().norm()).item() for k in want)
+        got = {"sep4d stage 2": tiles(x2, sep2), "flow c15-c17": band(xs[-1], flow[-1])}
+        rel = max(_rel(got[k], want[k]) for k in want)
         if rel > L2_LIMIT:
             raise RuntimeError(f"{label}: the kernel disagrees with its plain version ({rel:.4g})")
         k7 = _ms(lambda: (tiles(x1, sep1), tiles(x2, sep2)))
         k7m = _ms(lambda: tiles(x_mix, mixer), iters=20)
-        k8 = _ms(lambda: [cst.conv_stack_banded_cuda(x, p) for x, p in zip(xs, flow)])
-        k8v = _ms(lambda: cst.conv_stack_banded_cuda(x_vgg, vgg1))
+        k8 = _ms(lambda: [band(x, p) for x, p in zip(xs, flow)])
+        k8v = _ms(lambda: band(x_vgg, vgg1))
         print(f"{label} {' '.join(flags) or '(defaults)'} | {k7:.4f} | {k7m:.4f} | {k8:.4f} | "
               f"{k8v:.4f} | {rel:.4g}")
     cst._lib, cst.plan = orig, planners["cost"]
 
+
+def _sweep_wide(gen, rnd, n, cs, x1, x2, sep1, sep2) -> None:
     # The wide-conv kernel: each wide conv shape alone, then sep4d's stages
     # channels-last as sep4d_apply runs them (thin convs on the defaults).
     shapes = [(128, 256), (256, 256), (256, 128)]
@@ -157,8 +176,7 @@ def main() -> None:
           + " | K7 sep4d ms | worst rel L2")
     for label, flags in list(WIDE_VARIANTS.items()) + [next(iter(WIDE_VARIANTS.items()))]:
         cst._wide_lib = lambda _=(), flags=flags: orig_w(flags)
-        rel = max(((cst.conv3x3_wide_cuda(xw[ci], one, 0).float() - w.float()).norm()
-                   / w.float().norm()).item() for (ci, _), one, w in zip(shapes, ones, want_w))
+        rel = max(_rel(cst.conv3x3_wide_cuda(xw[ci], one, 0), w) for (ci, _), one, w in zip(shapes, ones, want_w))
         if rel > L2_LIMIT:
             raise RuntimeError(f"{label}: the kernel disagrees with its plain version ({rel:.4g})")
         cols = []

@@ -449,7 +449,8 @@ def test_conv_stack_tiles_cl_kernel_matches_plain(cuda, swap):
 
 def test_wide_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     """Channel-major (NCHW strides) or non-bf16 tiles, and a conv that is not
-    wide, raise: nothing falls back."""
+    wide (a thin one, or a 5x5 with its packed operand, as the mixer's first
+    conv), raise: nothing falls back."""
     from master_thesis_tpu_torch.ops import conv_stack
 
     p = _stack(np.random.RandomState(9), [(3, 64, True), (3, 8, False)], 64, cuda)
@@ -463,3 +464,76 @@ def test_wide_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         conv_stack.conv3x3_wide_cuda(cl.float(), p, 0)
     with pytest.raises(ValueError, match="not a wide conv"):
         conv_stack.conv3x3_wide_cuda(cl, p, 1)
+    p5 = _stack(np.random.RandomState(9), [(5, 64, True)], 64, cuda)
+    assert p5.wide[0] is not None
+    with pytest.raises(ValueError, match="not a wide conv"):
+        conv_stack.conv3x3_wide_cuda(cl, p5, 0)
+
+
+# The frame kernel's widths and sizes (K8's routed convs): W 256 / 64 / 32 /
+# 16 / 8, 3x3 and 5x5, Cout 64 (64 outputs a CTA), 128 and 512, and a
+# ragged frame.
+@pytest.mark.parametrize("n,h,w,cin,cout,k,relu", [
+    (2, 256, 256, 128, 128, 5, True),  # flow_256's c15
+    (3, 64, 64, 128, 128, 3, True),
+    (4, 32, 32, 256, 512, 3, True),  # VGG block 4
+    (3, 16, 16, 128, 128, 5, True),  # flow_64 at 16x16: two row tiles of 8
+    (5, 8, 8, 128, 128, 3, False),  # three whole frames a tile, a ragged last group
+    (3, 8, 8, 128, 128, 5, True),  # two whole frames a tile
+    (2, 60, 120, 64, 64, 3, True),  # a ragged frame, 64 outputs a CTA
+    (1, 20, 72, 64, 128, 5, False),  # a second column tile of 8
+])
+def test_conv_frame_kernel_matches_plain(cuda, n, h, w, cin, cout, k, relu):
+    """K8's frame kernel (csrc/conv_stack_wgmma.cu), one launch, against the
+    plain conv on NHWC frames."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    rng = np.random.RandomState(10)
+    p = _stack(rng, [(k, cout, relu)], cin, cuda)
+    x = torch.from_numpy(rng.randn(n, h, w, cin).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = conv_stack.conv_frame_cuda.launches
+    got = conv_stack.conv_frame_cuda(x, p, 0)
+    torch.cuda.synchronize()
+    assert conv_stack.conv_frame_cuda.launches == before + 1
+    want = conv_stack.conv_stack_banded_plain(x, p)
+    assert got.shape == want.shape and _rel_l2(got, want) <= STACK_L2
+
+
+def test_conv_stack_banded_launches_the_frame_kernel(cuda):
+    """flow_256's last segment through ``conv_stack_banded_cuda``: c15 and
+    c16 on the frame kernel, c17 (Cout 2) on the fused kernel, NHWC between
+    the three launches; the first design (fused groups alone) agrees."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    rng = np.random.RandomState(11)
+    p = _stack(rng, [(5, 128, True), (3, 128, True), (3, 2, False)], 128, cuda)
+    x = torch.from_numpy(rng.randn(2, 64, 96, 128).astype(np.float32)).to(cuda, torch.bfloat16)
+    frame0, launches0 = conv_stack.conv_frame_cuda.launches, conv_stack.conv_stack_banded_cuda.launches
+    got = conv_stack.conv_stack_banded_cuda(x, p)
+    torch.cuda.synchronize()
+    assert conv_stack.conv_frame_cuda.launches == frame0 + 2
+    assert conv_stack.conv_stack_banded_cuda.launches == launches0 + 3
+    want = conv_stack.conv_stack_banded_plain(x, p)
+    assert got.shape == want.shape and _rel_l2(got, want) <= STACK_L2
+    first = conv_stack.conv_stack_banded_first_cuda(x, p)
+    assert first.shape == want.shape and _rel_l2(first, want) <= STACK_L2
+
+
+def test_frame_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """NCHW strides (an NCHW tensor's NHWC view), non-bf16 frames, a conv
+    without its packed operand and a stack packed in f32 raise: nothing
+    falls back."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    p = _stack(np.random.RandomState(12), [(3, 64, True), (3, 8, False)], 64, cuda)
+    nhwc = torch.zeros(2, 16, 16, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        conv_stack.conv_frame_cuda(nhwc.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), p, 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv_stack.conv_frame_cuda(nhwc.float(), p, 0)
+    with pytest.raises(ValueError, match="not a frame conv"):
+        conv_stack.conv_frame_cuda(nhwc, p, 1)
+    w = torch.zeros(64, 64, 3, 3, device=cuda)
+    p32 = conv_stack.pack_stack([(w, torch.zeros(64, device=cuda))], [True], torch.float32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv_stack.conv_frame_cuda(nhwc, p32, 0)
