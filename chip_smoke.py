@@ -39,19 +39,23 @@ Phases, each fatal on failure:
    copied to NCHW, the first design, its output copied to NHWC), timed and
    profiled the same way;
 5. backward kernels: K3 (an RRDB's backward over the activations K1
-   keeps, one call) and K6 (the tail's) on card tensors at the train
-   step's shapes (8 frames at 64x64; the 20-RRDB trunk; a ragged shape),
-   held against their plain versions with TF32 off by the relative L2 of
-   dx and of each weight / bias grad group, each check also read on three
-   faults planted in the kernels' code (compiled with ``-DBWD_PLANT``:
-   lrelu slope 0.25 in the masks, the centre tap left out of the weight
-   grads, the bias grads dropped); K3 run twice must agree bit for bit;
-   the first K3 design (``rrdb_bwd_first``) held to the plain version too;
-   device times (the kernels' sum under ``torch.profiler``: a backward is
-   a chain of short launches, and CUDA events around it also count the
-   host's gaps, which are printed beside), K3's beside the first design's
-   and the cuDNN route's (autograd through the five ``F.conv2d`` of each
-   RDB; fatal unless K3 beats the first design);
+   keeps, one call) and K6 (the tail's, one call) on card tensors at the
+   train step's shapes (8 frames at 64x64; the 20-RRDB trunk; a ragged
+   shape; for K6 also an odd one), held against their plain versions with
+   TF32 off by the relative L2 of dx and of each weight / bias grad group,
+   each check also read on faults planted in the kernels' code (compiled
+   with ``-DBWD_PLANT``: lrelu slope 0.25 in the masks, the centre tap
+   left out of the weight grads, the bias grads dropped; for K6 also
+   upconv2's adjoint reading the wrong phase plane); each run twice must
+   agree bit for bit; the first designs (``rrdb_bwd_first``,
+   ``tail_bwd_first_cuda``) held to the plain versions too; device times
+   (the kernels' sum under ``torch.profiler``, whose count of the port's
+   own kernels, picked by name, must equal the launches or the reading is
+   taken again; K6's launches each printed: a backward is a
+   chain of short launches, and CUDA events around it also count the
+   host's gaps, which are printed beside), each beside its first design's
+   (fatal unless faster), K3 also beside the cuDNN route's (autograd
+   through the five ``F.conv2d`` of each RDB);
 6. training: the CHN train step (frozen CPN, CHN forward with autograd,
    the five-part loss with VGG-16, backward, Adam, repack) at B=8,
    frames_n=2, 256x256, nb=20, bf16 compute on seeded inputs; the launch
@@ -156,6 +160,8 @@ L2_K3, L2_K3_TRUNK, L2_K6, L2_TRAIN = 5e-2, 2e-2, 1e-2, 5e-2
 TRAIN_B, TRAIN_F = 8, 2
 FAULTS = {1: "lrelu slope 0.25 in the masks", 2: "centre tap left out of dW",
           3: "bias grads dropped"}
+# K6's also, compiled into csrc/tail_bwd_wgmma.cuh with -DBWD_PLANT=4.
+K6_FAULTS = {**FAULTS, 4: "upconv2's adjoint reads phase plane (0, 1) where (1, 0) belongs"}
 # The CHN+DFPN step: B targets, F references, DFPN's base size.
 DFPN_B, DFPN_F, DFPN_BASE = 4, 5, 256
 STACK_FAULTS = {1: "corner tap left out", 2: "ReLU off the last ReLU conv of each launch",
@@ -222,21 +228,56 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=3):
+# The port's kernels as the profiler names them, by the library that
+# launches them: device_ms counts these against a wrapper's launch count,
+# and not PyTorch's own kernels, copies or memsets in the same window.
+KERNELS_K4 = r"\btw::"
+KERNELS_K3 = r"\bkb::"
+KERNELS_K3_FIRST = r"\bcb::|\brdb_kernel<"
+KERNELS_K6 = r"\b(tb|tw)::"
+KERNELS_K6_FIRST = r"\bcb::|\bupconv_kernel\("
+
+
+def device_ms(fn, iters=3, launches=None, kernels=None, per_kernel=None):
     """Device time of ``fn`` (the sum of its kernels' times under
-    ``torch.profiler``) per call: free of the host gaps between launches
-    that CUDA events over a chain of short launches also count."""
+    ``torch.profiler``) per call, and the number of the port's kernels
+    counted: free of the host gaps between launches that CUDA events over a
+    chain of short launches also count. The profiler can drop kernels from
+    a window; with ``launches`` (the kernels one call launches) and
+    ``kernels`` (a pattern of their names) a reading that did not count
+    exactly ``launches * iters`` of them is a failed one: it is taken
+    again, at most twice, and then the run fails. ``per_kernel``, a dict,
+    gets each counted kernel's time a call, by name."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA"))
-    return total / 1e3 / iters
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        total = sum(e.self_device_time_total for e in events)
+        own = [e for e in events if kernels is None or re.search(kernels, e.key)]
+        count = sum(e.count for e in own)
+        if launches is None or count == launches * iters:
+            if per_kernel is not None:
+                per_kernel.update((e.key, e.self_device_time_total / 1e3 / iters) for e in own)
+            return total / 1e3 / iters, count
+        print(f"device_ms: the profile counted {count} of the port's kernels, {launches * iters} "
+              f"launched (reading {attempt + 1}); reading again")
+    raise RuntimeError(f"device_ms: the profile miscounted the kernels in 3 readings ({count} of "
+                       f"{launches * iters})")
+
+
+def launches_of(fn, counter):
+    """The kernel launches one call of ``fn`` adds to ``counter.launches``."""
+    before = counter.launches
+    fn()
+    return counter.launches - before
 
 
 def bound_ms(flops, nbytes):
@@ -289,7 +330,7 @@ def phase_build():
     t0 = time.perf_counter()
     report = _build.build(_build.SOURCES, [
         (name, (f"-DBWD_PLANT={f}",)) for name in ("rrdb_bwd", "tail_bwd") for f in FAULTS
-    ] + [("conv_stack", (f"-DSTACK_PLANT={f}",)) for f in STACK_FAULTS]
+    ] + [("tail_bwd", ("-DBWD_PLANT=4",))] + [("conv_stack", (f"-DSTACK_PLANT={f}",)) for f in STACK_FAULTS]
       + [("conv_stack_wgmma", (f"-DWIDE_PLANT={f}",)) for f in WIDE_FAULTS]
       + [("conv_stack_wgmma", (f"-DFRAME_PLANT={f}",)) for f in FRAME_FAULTS]
       + [(name, ("-DBAND_PLANT=1",)) for name in ("rrdb", "tail")]
@@ -537,8 +578,11 @@ def phase_kernels(chn):
     t_old = cuda_ms(lambda: tail.tail_first_cuda(y_nchw, tail_w))
     peak_new = peak_mb(lambda: tail.tail_cuda(y, tail_w))
     peak_old = peak_mb(lambda: tail.tail_first_cuda(y_nchw, tail_w))
-    print(f"K4 old vs new at 80x64x64: new {t_new:.4f} ms, first design {t_old:.4f} ms "
-          f"({t_old / t_new:.2f}x); holds {peak_new:.1f} MB at its peak (first design {peak_old:.1f})")
+    d_new, d_kernels = device_ms(lambda: tail.tail_cuda(y, tail_w), launches=tail.TAIL_KERNELS,
+                                 kernels=KERNELS_K4)
+    print(f"K4 old vs new at 80x64x64: new {t_new:.4f} ms (device {d_new:.4f}, {d_kernels} kernels "
+          f"in 3 calls), first design {t_old:.4f} ms ({t_old / t_new:.2f}x); holds {peak_new:.1f} MB "
+          f"at its peak (first design {peak_old:.1f})")
     if not t_new < t_old:
         raise RuntimeError("K4 at 80x64x64 is not faster than the first design")
     # Each launch alone against its floor, on the plain version's input to
@@ -717,7 +761,8 @@ def phase_profile(step, inputs, step_s, grad=False):
     from torch.profiler import ProfilerActivity, profile
 
     mode = contextlib.nullcontext() if grad else torch.inference_mode()
-    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=grad) as prof:
         step(*inputs)
         torch.cuda.synchronize()
     rows = sorted(
@@ -736,6 +781,9 @@ def phase_profile(step, inputs, step_s, grad=False):
           f"{sum(r[1] for r in layout)} launches")
     for ms, count, key in layout[:4]:
         print(f"profile:   {ms:10.3f} ms {count:5d}x {key[:100]}")
+    if grad:  # which op launched each layout copy
+        for (caller, op), (ms, count) in sorted(layout_callers(prof).items(), key=lambda kv: -kv[1][0]):
+            print(f"profile copies: {ms:8.3f} ms {count:4d}x {caller[:60]} > {op[:120]}")
     if grad:  # where the host's time goes
         host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()),
                       reverse=True)
@@ -748,10 +796,33 @@ def phase_profile(step, inputs, step_s, grad=False):
     return busy, layout_ms
 
 
+def layout_callers(prof):
+    """The layout copies of a profile (``LAYOUT_KEYS``) by the op that
+    launched them: the nearest enclosing op that is not ATen's (an autograd
+    Function, a backward node, the optimizer; "(top level)" if none) and
+    the outermost ATen op below it with its input shapes (a profile taken
+    with ``record_shapes``). Returns {(caller, op): (ms, launches)}."""
+    groups = {}
+    for e in prof.events():
+        copies = [k for k in getattr(e, "kernels", ())
+                  if any(t in k.name.lower() for t in LAYOUT_KEYS)]
+        if not copies:
+            continue
+        node = e
+        while node.cpu_parent is not None and node.cpu_parent.name.startswith("aten::"):
+            node = node.cpu_parent
+        caller = node.cpu_parent.name if node.cpu_parent is not None else "(top level)"
+        key = (caller, f"{node.name} {[list(s) for s in node.input_shapes if s]}")
+        ms, count = groups.get(key, (0.0, 0))
+        groups[key] = (ms + sum(k.duration for k in copies) / 1e3, count + len(copies))
+    return groups
+
+
 @contextlib.contextmanager
 def planted_bwd(fault):
     """Within: the backward wrappers (K3, K6) launch their kernels from the
-    library built with ``-DBWD_PLANT=fault`` (csrc/conv_bwd.cuh)."""
+    library built with ``-DBWD_PLANT=fault`` (csrc/conv_bwd_wgmma.cuh,
+    csrc/tail_bwd_wgmma.cuh)."""
     from master_thesis_tpu_torch.ops import rrdb_bwd, tail_bwd
 
     orig = rrdb_bwd._lib, tail_bwd._lib
@@ -777,7 +848,7 @@ def plain_backward():
         return dx, rrdb_bwd.flat_grads(grads, out)
 
     rrdb_bwd.rrdb_bwd = rrdb_plain
-    tail_bwd.tail_bwd = lambda x, g, p, convs: tail_bwd.tail_bwd_plain(x, g, p)
+    tail_bwd.tail_bwd = lambda x, g, p: tail_bwd.tail_bwd_plain(x, g, p)
     try:
         yield
     finally:
@@ -823,10 +894,12 @@ def rrdb_groups(dx, grads, prefix=""):
 
 def phase_kernels_bwd(chn, results):
     """K3 (one RRDB's backward, one call of 20 launches, over the
-    activations K1 keeps) and K6 (the tail's backward, 17 launches)
-    against their plain versions at the train step's shapes, the 20-RRDB
-    trunk and a ragged shape; each check read on the planted faults. K3
-    beside the first K3 design and the cuDNN route on the same input."""
+    activations K1 keeps) and K6 (the tail's backward, one call of 11
+    launches) against their plain versions at the train step's shapes, the
+    20-RRDB trunk (K3), a ragged shape and an odd one (K6); each check read
+    on the planted faults; each run twice, bit for bit. K3 beside the first
+    K3 design and the cuDNN route, K6 beside the first K6 design, on the
+    same input; each fatal unless faster than its first design."""
     from master_thesis_tpu_torch.ops import rrdb, rrdb_bwd, tail, tail_bwd
 
     torch.backends.cudnn.allow_tf32 = False
@@ -921,22 +994,27 @@ def phase_kernels_bwd(chn, results):
              f"{rrdb_bwd.RRDB_BWD_KERNELS} launches)",
         route="cuda", source="master_thesis_tpu_torch/csrc/rrdb_bwd.cu",
         replaces="master_thesis_tpu/ops/pallas_rrdb.py:625",
-        max_abs_err=err, ms=device_ms(run), stream_ms=cuda_ms(run, iters=20),
-        plain_ms=device_ms(lambda: p3(x, g, kept)), bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, first_ms=device_ms(first), first_stream_ms=cuda_ms(first, iters=10),
+        max_abs_err=err, stream_ms=cuda_ms(run, iters=20),
+        plain_ms=device_ms(lambda: p3(x, g, kept))[0], bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, first_stream_ms=cuda_ms(first, iters=10),
         cudnn_ms=cuda_ms(lambda: cudnn_bwd(g), iters=10), first_bound_ms=old_b_ms,
     )
     r = results["K3"]
-    print(f"K3 one RRDB at ({n}, {nf}, {h}, {w}): kernel {r['ms']:.4f} ms (device; CUDA events "
-          f"{r['stream_ms']:.4f}), host enqueue {host_ms:.4f} ms a call; first design "
-          f"{r['first_ms']:.4f} (events {r['first_stream_ms']:.4f}); cuDNN route (autograd "
+    r["ms"], r["device_kernels"] = device_ms(run, launches=rrdb_bwd.RRDB_BWD_KERNELS,
+                                             kernels=KERNELS_K3)
+    r["first_ms"], first_kernels = device_ms(
+        first, launches=launches_of(first, rrdb_bwd.rrdb_bwd_first), kernels=KERNELS_K3_FIRST)
+    print(f"K3 one RRDB at ({n}, {nf}, {h}, {w}): kernel {r['ms']:.4f} ms (device, "
+          f"{r['device_kernels']} kernels in 3 calls; CUDA events {r['stream_ms']:.4f}), host "
+          f"enqueue {host_ms:.4f} ms a call; first design {r['first_ms']:.4f} (device, "
+          f"{first_kernels} kernels; events {r['first_stream_ms']:.4f}); cuDNN route (autograd "
           f"through the five F.conv2d of each RDB) {r['cudnn_ms']:.4f}; bound {b_ms:.4f} ms "
           f"({b_by}; the first design's work: {old_b_ms:.4f})")
     if r["ms"] >= r["first_ms"]:
         raise RuntimeError("K3: the redesigned backward is not faster than the first design")
 
     tconvs = [(m.weight, m.bias) for m in (net.upconv1, net.upconv2, net.hr_conv, net.conv_last)]
-    tadj = tail_bwd.pack_tail_adjoint(tconvs, bf)
+    tadj, fadj = tail_bwd.pack_tail_bwd(tail_w), tail_bwd.pack_tail_adjoint(tconvs, bf)
 
     def k6(x, g):
         dx, grads = tail_bwd.tail_bwd_cuda(x, g, tail_w, tadj)
@@ -946,33 +1024,63 @@ def phase_kernels_bwd(chn, results):
         dx, grads = tail_bwd.tail_bwd_plain(x, g, tail_w)
         return {"dx": dx, **grads}
 
-    xt, gt = rnd(n, nf, h, w), rnd(n, 3, 4 * h, 4 * w)
+    def f6(x, g):
+        dx, grads = tail_bwd.tail_bwd_first_cuda(x, g, tail_w, fadj)
+        return {"dx": dx, **grads}
+
+    # The new K6 at the train shape, a ragged and an odd one; its faults;
+    # a rerun; the first design on the same values.
+    xt, gt = channels_last(rnd(n, nf, h, w)), channels_last(rnd(n, 3, 4 * h, 4 * w))
     want = p6(xt, gt)
     got = k6(xt, gt)
     check_groups(f"K6 tail backward ({n}, {nf}, {h}, {w}) <- ({n}, 3, {4 * h}, {4 * w})", got, want,
                  L2_K6)
     err = (got["dx"].float() - want["dx"].float()).abs().max().item()
-    for fault, label in FAULTS.items():
+    again = k6(xt, gt)
+    same = all(torch.equal(got[k], again[k]) for k in got)
+    print(f"K6 rerun bit-identical (dx, {len(got) - 1} dW / db groups): {same}")
+    if not same:
+        raise RuntimeError("K6: two runs on the same input differ")
+    for fault, label in K6_FAULTS.items():
         with planted_bwd(fault):
             check_groups("K6 tail backward", k6(xt, gt), want, L2_K6, planted=label)
-    xr, gr = rnd(2, nf, 60, 120), rnd(2, 3, 240, 480)
-    check_groups("K6 tail backward ragged (2, 64, 60, 120)", k6(xr, gr), p6(xr, gr), L2_K6)
+    for shape in ((2, nf, 60, 120), (1, nf, 13, 7)):
+        xr, gr = channels_last(rnd(*shape)), channels_last(rnd(shape[0], 3, 4 * shape[2], 4 * shape[3]))
+        check_groups(f"K6 tail backward {'ragged' if shape[0] == 2 else 'odd'} {shape}", k6(xr, gr),
+                     p6(xr, gr), L2_K6)
+    xf, gf = xt.contiguous(), gt.contiguous()
+    check_groups("K6 first design (17 launches, NCHW) vs the plain version", f6(xf, gf), want, L2_K6)
     tail_params = sum(m.weight.numel() + m.bias.numel() for m in (net.upconv1, net.upconv2, net.hr_conv, net.conv_last))
     b_ms, b_by = bound_ms(tail_bwd.tail_bwd_flops(n, h, w), nbytes(xt, gt, xt) + 4 * tail_params)
+    stages = {}
+    ms, kernels = device_ms(lambda: k6(xt, gt), launches=tail_bwd.TAIL_BWD_KERNELS,
+                            kernels=KERNELS_K6, per_kernel=stages)
+    first_ms, first_kernels = device_ms(
+        lambda: f6(xf, gf), launches=launches_of(lambda: f6(xf, gf), tail_bwd.tail_bwd_first_cuda),
+        kernels=KERNELS_K6_FIRST)
     results["K6"] = dict(
-        name="tail backward (upconv x2, conv3x3, prep / wgrad / conv3x3 x4, reduce)",
-        route="cuda", source="master_thesis_tpu_torch/csrc/tail_bwd.cu",
+        name=f"tail backward (one call: recompute x3, conv_last, (adjoint, wgrad) x3, reduce = "
+             f"{tail_bwd.TAIL_BWD_KERNELS} launches)",
+        route="cuda", source="master_thesis_tpu_torch/csrc/tail_bwd_wgmma.cuh",
         replaces="master_thesis_tpu/ops/pallas_tail.py:732",
-        max_abs_err=err, ms=device_ms(lambda: k6(xt, gt)),
-        stream_ms=cuda_ms(lambda: k6(xt, gt), iters=10),
-        plain_ms=device_ms(lambda: p6(xt, gt)), bound_ms=b_ms, bound_by=b_by,
-        library_ms=None,
+        max_abs_err=err, ms=ms, device_kernels=kernels, stream_ms=cuda_ms(lambda: k6(xt, gt), iters=10),
+        plain_ms=device_ms(lambda: p6(xt, gt))[0], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        first_design_ms=first_ms, first_stream_ms=cuda_ms(lambda: f6(xf, gf), iters=10),
     )
+    r = results["K6"]
+    print(f"K6 at ({n}, {nf}, {h}, {w}): kernel {ms:.4f} ms (device, {kernels} kernels in 3 calls; "
+          f"CUDA events {r['stream_ms']:.4f}); first design {first_ms:.4f} (device, {first_kernels} "
+          f"kernels; events {r['first_stream_ms']:.4f}); bound {b_ms:.4f} ms ({b_by})")
+    for key, t in sorted(stages.items(), key=lambda kv: -kv[1]):
+        print(f"K6 launch {t:.4f} ms a call (device): {key[:110]}")
+    if not ms < first_ms:
+        raise RuntimeError("K6: the redesigned backward is not faster than the first design")
     for key in ("K3", "K6"):
         r = results[key]
-        print(f"kernel {key} {r['name']}: kernel_ms={r['ms']:.4f} (CUDA events over the "
-              f"launch chain {r['stream_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) library_ms=null")
+        print(f"kernel {key} {r['name']}: kernel_ms={r['ms']:.4f} ({r['device_kernels']} device "
+              f"kernels; CUDA events over the launch chain {r['stream_ms']:.4f}) "
+              f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms=null")
 
 
 def make_train_batch(b, f, h, w, seed):
@@ -1029,7 +1137,7 @@ def phase_train(cpn, chn, results, device_line):
     torch.cuda.synchronize()
     counts = dict(zip(("K1", "K3", "K4", "K6"), (c.launches for c in counters)))
     st.apply_gradients = orig
-    want = {"K1": NB * 3, "K3": NB, "K4": tail.TAIL_KERNELS, "K6": 17}
+    want = {"K1": NB * 3, "K3": NB, "K4": tail.TAIL_KERNELS, "K6": tail_bwd.TAIL_BWD_KERNELS}
     print(f"train step launches in one step: {counts} (expected {want}; K1 and K3 count calls: "
           f"{rrdb.RDB_CONVS} and {rrdb_bwd.RRDB_BWD_KERNELS} kernel launches a call)")
     if counts != want:

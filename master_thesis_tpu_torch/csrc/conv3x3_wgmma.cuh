@@ -502,6 +502,27 @@ inline int sm_count() {
   return n;
 }
 
+// Once per kernel: the shared-memory opt-in, then how many CTAs fit an SM
+// (0 if the kernel cannot launch).
+template <typename K>
+inline int blocks_per_sm(K kernel, int threads, int smem) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+      cudaSuccess)
+    return 0;
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  return blocks;
+}
+
+// Sums v over the 8 lanes of a warp that share lane % 4 (the accumulator
+// rows of one column pair), in a fixed order.
+__device__ __forceinline__ float col_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
 template <int N, bool FINAL>
 inline int launch_conv(const Span& sp, ConvArgs a, cudaStream_t stream) {
   constexpr int smem = Cfg::smem_bytes(N);

@@ -1,6 +1,6 @@
-// The pieces of the port's backward kernels (K3 csrc/rrdb_bwd.cu, K6
-// csrc/tail_bwd.cu). A backward of a chain of 3x3 convs is, per conv and
-// in reverse order:
+// The pieces of the first designs of the port's backward kernels (K3
+// csrc/rrdb_bwd.cu, K6 csrc/tail_bwd.cu). A backward of a chain of 3x3
+// convs is, per conv and in reverse order:
 //
 //   prep:   dP = mask(d) rounded to bf16, where d is the f32 cotangent of
 //           the conv's output and mask the lrelu slope from the sign of

@@ -150,15 +150,6 @@ __device__ __forceinline__ void mma_tt(float (&d)[16], uint64_t a, uint64_t b) {
       : "l"(a), "l"(b), "r"(1));
 }
 
-// Sums v over the 8 lanes of a warp that share lane % 4 (the accumulator
-// rows of one column pair), in a fixed order.
-__device__ __forceinline__ float col_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 16);
-  return v;
-}
-
 // ---------------------------------------------------------------------------
 // The pulls.
 
@@ -357,7 +348,7 @@ pull_kernel(__grid_constant__ const CUtensorMap dmap, const PullArgs a) {
   for (int j = 0; j < NB8; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const float v = col_sum(bsum[j][e]);
+      const float v = cw::col_sum(bsum[j][e]);
       if (g == 0) red[warp * N + 8 * j + 2 * q4 + e] = v;
     }
   cw::named_sync(1 + C::WG, NCONS);
@@ -576,23 +567,11 @@ inline int make_map(CUtensorMap* m, const void* base, int ch, int cols, int rows
   return r == CUDA_SUCCESS ? 0 : cw::TENSOR_MAP_ERROR + (int)r;
 }
 
-// Once per kernel: the shared-memory opt-in, then how many CTAs fit an SM
-// (0 if the kernel cannot launch).
-template <typename K>
-inline int blocks_per_sm(K kernel, int threads, int smem) {
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-      cudaSuccess)
-    return 0;
-  int blocks = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
-  return blocks;
-}
-
 template <int N>
 inline int launch_pull(const CUtensorMap& dmap, const PullArgs& a, cudaStream_t stream) {
   constexpr int smem = PullCfg::smem_bytes(N);
   static_assert(smem <= 232448, "a CTA's shared memory exceeds 227 KB");
-  static const int per_sm = blocks_per_sm(pull_kernel<N>, PullCfg::NTHREAD, smem);
+  static const int per_sm = cw::blocks_per_sm(pull_kernel<N>, PullCfg::NTHREAD, smem);
   if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
   const long long tiles = (long long)((a.W + RUN - 1) / RUN) *
                           ((a.H + PullCfg::ROWS - 1) / PullCfg::ROWS) * a.frames;
@@ -607,7 +586,7 @@ inline int launch_wgrad(const CUtensorMap& dmap, const CUtensorMap& xmap, const 
                         const WgradArgs& a, cudaStream_t stream) {
   constexpr int smem = WgradCfg::SMEM;
   static_assert(smem <= 232448, "a CTA's shared memory exceeds 227 KB");
-  static const int per_sm = blocks_per_sm(wgrad_kernel, WgradCfg::NTHREAD, smem);
+  static const int per_sm = cw::blocks_per_sm(wgrad_kernel, WgradCfg::NTHREAD, smem);
   if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
   wgrad_kernel<<<UNITS * WgradCfg::KS, WgradCfg::NTHREAD, smem, stream>>>(dmap, xmap, hmap, a);
   return (int)cudaGetLastError();

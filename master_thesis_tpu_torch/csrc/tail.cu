@@ -4,8 +4,8 @@
 //
 // upconv_forward / hr_last_forward keep the first design (tail_fwd.cuh:
 // three mma.sync launches, NCHW) as an independent implementation to time
-// the new one against on the card; K6's recompute (tail_bwd.cu) runs its
-// upconv_kernel.
+// the new one against on the card; the first K6 design (tail_bwd.cu)
+// recomputes with its upconv_kernel.
 #include "tail_fwd.cuh"
 #include "tail_wgmma.cuh"
 

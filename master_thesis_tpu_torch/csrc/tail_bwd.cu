@@ -1,15 +1,14 @@
-// K6: the backward of the RRDBNet tail.
+// K6: the backward of the RRDBNet tail, one call (tail_backward) of 11
+// launches: the channels-last wgmma design of tail_bwd_wgmma.cuh, whose
+// note holds its stages, its bound and what it does about the first
+// design's limits.
 //
-// Replaces: master_thesis_tpu/ops/pallas_tail.py:tail_bwd_pallas (body
-// _tail_bwd_kernel), which per frame recomputes the tail in phase space in
-// VMEM, runs the adjoint phase-convs of conv_last, hr_conv, upconv2 and
-// upconv1 with the lrelu masks from the post-activation signs, and writes
-// dx and per-frame weight grads that XLA sums and folds back through the
-// 4-phase kernel's adjoint (fused_upsample_conv_kernel_adjoint).
-//
-// Here, over the whole batch (ops/tail_bwd.py drives it; 17 launches):
-//   recompute  h1, h2 with upconv_kernel (tail_fwd.cuh, K4's) and h3 =
-//              lrelu(hr_conv(h2)) with conv3x3 (conv_bwd.cuh);
+// The first design stays beside it (tail_upconv and the bwd_* entries over
+// conv_bwd.cuh, driven from ops/tail_bwd.py:tail_bwd_first_cuda) as an
+// independent implementation to time the new one against on the card; no
+// path of the port calls it. Over the whole batch, NCHW, 17 launches:
+//   recompute  h1, h2 with upconv_kernel (tail_fwd.cuh, K4's first design)
+//              and h3 = lrelu(hr_conv(h2)) with conv3x3 (conv_bwd.cuh);
 //   conv_last  bias-grad sums of g; wgrad against h3; adjoint -> dh3;
 //   hr_conv    prep (mask by h3) -> dP; wgrad against h2; adjoint -> dh2;
 //   upconv2    prep (mask by h2); wgrad against nearest-2x(h1), read and
@@ -18,28 +17,49 @@
 //              upsample) and masks by h1; wgrad against nearest-2x(x);
 //              adjoint; a last prep sums the 2x2 blocks into dx (bf16);
 //   reduce     the partial sums of all 8 weight and bias grads, in order.
-// The upsample-convs' grads are taken at the high resolution, where a
-// nearest-2x upsample then a 3x3 conv is a plain conv: their weight grads
-// are the original 3x3 kernels' directly (no fold), at 9 taps per output
-// pixel instead of the phase form's 4. Rounding as _tail_bwd_kernel: dP in
-// bf16 before every product, f32 cotangents and sums, f32 dW / db.
-//
-// Bound on an H100 SXM (train step: 8 frames, 64x64 -> 256x256): the
-// adjoint convs and the weight grads each cost one forward's operations,
-// with the upsample-convs counted in their 4-phase form (62 GFLOP for the
-// tail at 8 frames), plus the recompute of h1..h3 (60 GFLOP): 184 GFLOP,
-// 0.186 ms at 989 TFLOP/s bf16; bytes (x, g in, dx out) about 11 MB. So it
-// is bound by operations. This first version does the upsample-convs'
-// backward at 9 taps (2.25x their phase-form count) and passes h3 and the
-// f32 cotangents through device memory; the phase form and fused stages
-// are later work.
+// Its upsample-convs' grads are taken at the high resolution (9 taps a
+// high-res pixel instead of the phase form's 4), conv_last's cotangent is
+// padded to 32 channels for the adjoint, and f32 cotangents pass through
+// device memory.
 #include "tail_fwd.cuh"
 #include "conv_bwd.cuh"
+#include "tail_bwd_wgmma.cuh"
 
 using cb::bf16;
 
-// As upconv_forward (csrc/tail.cu): nearest-2x upsample + 3x3 conv + bias +
-// lrelu in the 4-phase form.
+// The bytes of scratch tail_backward needs for n frames of h x w.
+extern "C" long long tail_backward_scratch(int n, int h, int w) {
+  return tb::carve(nullptr, n, h, w).bytes;
+}
+
+// Kernel launches of one tail_backward call, and the f32 grads it writes.
+extern "C" int tail_backward_launches() { return tb::LAUNCHES; }
+extern "C" int tail_backward_grads() { return tb::GRADS; }
+
+// The tail's backward (11 launches on `stream`), NHWC bf16: x (n, h, w,
+// 64) the tail input, g (n, 4h, 4w, 3) the output cotangent, dx (n, h, w,
+// 64). w_* / b_*: the forward's packed B operands and f32 biases of
+// upconv1, upconv2, hr_conv (ops/tail.py:pack_tail: up{1,2}_wg, hr_wg);
+// a_*: the adjoints' B operands (ops/tail_bwd.py:pack_tail_bwd). grads:
+// tail_backward_grads() f32, the grads of ops/tail_bwd.py:PARAM_NAMES in
+// order (kernels OIHW); scratch: tail_backward_scratch(n, h, w) bytes.
+// Returns the first CUDA error code.
+extern "C" int tail_backward(const void* x, const void* g, const void* w_up1, const void* b_up1,
+                             const void* w_up2, const void* b_up2, const void* w_hr,
+                             const void* b_hr, const void* a_hr, const void* a_up2,
+                             const void* a_up1, const void* a_last, void* dx, void* grads,
+                             void* scratch, int n, int h, int w, void* stream) {
+  const void* fw[3] = {w_up1, w_up2, w_hr};
+  const void* fb[3] = {b_up1, b_up2, b_hr};
+  return tb::backward(static_cast<const bf16*>(x), static_cast<const bf16*>(g), fw, fb,
+                      static_cast<const bf16*>(a_hr), static_cast<const bf16*>(a_up2),
+                      static_cast<const bf16*>(a_up1), static_cast<const bf16*>(a_last),
+                      static_cast<bf16*>(dx), static_cast<float*>(grads), scratch, n, h, w,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The first design. As upconv_forward (csrc/tail.cu): nearest-2x upsample
+// + 3x3 conv + bias + lrelu in the 4-phase form.
 extern "C" int tail_upconv(const void* x, const void* w, const void* bias, void* out, int n,
                            int h, int w_img, void* stream) {
   return tail::upconv(x, w, bias, out, n, h, w_img, stream);

@@ -388,16 +388,17 @@ tail_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
 }
 
 // An NHWC bf16 tensor of 64 channels (frames, rows, cols, 64) read in boxes
-// of all 64 channels x TW columns x box_rows rows of one frame, 128-byte
-// swizzled.
+// of all 64 channels x box_cols columns x box_rows rows of one frame,
+// 128-byte swizzled.
 inline int make_map_sw(CUtensorMap* m, const void* base, int cols, int rows, int frames,
-                       int box_rows) {
+                       int box_cols, int box_rows) {
   PFN_cuTensorMapEncodeTiled_v12000 fn = cw::encode_fn();
   if (fn == nullptr) return cw::TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)frames};
   const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)cols * C * 2,
                                  (cuuint64_t)rows * cols * C * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C, TW, (cuuint32_t)box_rows, 1}, estride[4] = {1, 1, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)C, (cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
   const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                         strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -426,7 +427,7 @@ int launch(const bf16* x, const Args& a, cudaStream_t stream) {
   }();
   if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
   CUtensorMap xm;
-  const int e = make_map_sw(&xm, x, a.W, a.H, a.frames, Q::TR);
+  const int e = make_map_sw(&xm, x, a.W, a.H, a.frames, TW, Q::TR);
   if (e != 0) return e;
   const long long tiles = (long long)((a.W + RUN - 1) / RUN) *
                           ((a.yhi - a.ylo + Q::ROWS - 1) / Q::ROWS) * a.frames;

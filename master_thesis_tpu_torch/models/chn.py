@@ -179,11 +179,15 @@ class RRDBNet(nn.Module):
         """The differentiable forward: the head and ``trunk_conv`` through
         autograd (cuDNN on the card), the trunk and the tail as autograd
         Functions whose forward and backward are the kernels (K1 / K3,
-        K4 / K6). Both pack from the current parameters on every call."""
-        y = self.conv_first(x).contiguous()
+        K4 / K6). Both pack from the current parameters on every call. On
+        the card the activations stay channels-last, as in the serving
+        forward: the kernels take them, and their cotangents come back, with
+        no layout copy; the CPU path keeps NCHW."""
+        layout = torch.channels_last if x.is_cuda else torch.contiguous_format
+        y = self.conv_first(x).contiguous(memory_format=layout)
         trunk_params = [p for blk in self.rrdb_trunk for p in blk.parameters()]
         trunk = TrunkFunction.apply(y, self.dtype, *trunk_params)
-        y = (y + self.trunk_conv(trunk)).contiguous()
+        y = (y + self.trunk_conv(trunk)).contiguous(memory_format=layout)
         tail_params = [
             p for m in (self.upconv1, self.upconv2, self.hr_conv, self.conv_last)
             for p in (m.weight, m.bias)

@@ -1,12 +1,12 @@
 """Python side of the backward kernels' shared launches
 (``csrc/conv_bwd.cuh``): argument binding, checks and the launch count.
 
-K6 (``csrc/tail_bwd.cu``) and the first K3 design (``csrc/rrdb_bwd.cu``,
-kept beside the current one) each export ``bwd_prep``, ``bwd_conv``,
+The first K6 and K3 designs (``csrc/tail_bwd.cu``, ``csrc/rrdb_bwd.cu``,
+each kept beside the current one) each export ``bwd_prep``, ``bwd_conv``,
 ``bwd_wgrad`` and ``bwd_reduce`` over their own instantiations. Each
 helper here launches one kernel of the library it is given and adds one to
 ``owner.launches``, the count of the wrapper that drives the chain
-(:func:`..tail_bwd.tail_bwd_cuda`, :func:`..rrdb_bwd.rrdb_bwd_first`).
+(:func:`..tail_bwd.tail_bwd_first_cuda`, :func:`..rrdb_bwd.rrdb_bwd_first`).
 
 Adjoint weights: the adjoint of a 3x3 conv with OIHW kernel ``W`` is the
 3x3 conv with ``W`` transposed and flipped; :func:`pack_adjoint` stores it

@@ -2,6 +2,7 @@
 (``csrc/conv_tile.cuh``; :func:`wgmma_conv_matrix` for
 ``csrc/conv3x3_wgmma.cuh`` and ``csrc/tail_wgmma.cuh``,
 :func:`wgmma_phase_matrix` for the latter's upsample-convs,
+:func:`wgmma_phase_adjoint_matrix` for ``csrc/tail_bwd_wgmma.cuh``,
 :func:`wgmma_pull_matrix` for ``csrc/conv_bwd_wgmma.cuh``,
 :func:`wgmma_wide_matrix` for ``csrc/conv3x3_wide_wgmma.cuh`` and
 ``csrc/conv_frame_wgmma.cuh``).
@@ -132,6 +133,24 @@ def wgmma_phase_matrix(fused: torch.Tensor) -> torch.Tensor:
     taps = torch.stack([f6[a + ti, b + tj, :, a, b, :]
                         for a in (0, 1) for b in (0, 1) for ti in (0, 1) for tj in (0, 1)])
     blocks = taps.reshape(4, 4, c // 32, 2, 2, 8, o // 8, 8)  # (ph, tap, chunk, step, half, c%8, o8, o%8)
+    return blocks.permute(0, 2, 1, 3, 4, 6, 7, 5).reshape(-1)
+
+
+def wgmma_phase_adjoint_matrix(fused: torch.Tensor) -> torch.Tensor:
+    """The adjoint of a nearest-2x upsample-conv in its 4-phase form as the B
+    operand of ``csrc/tail_bwd_wgmma.cuh``'s upsample-conv adjoints: per
+    phase ``(a, b)`` and tap ``(ti, tj)`` the block of
+    :func:`wgmma_phase_matrix` transposed, ``K = O`` (the cotangent's
+    channels) by ``N = C`` (the input's): index order ``(phase, chunk, tap,
+    step, half, c // 8, c % 8, o % 8)``, phase ``2 a + b``, tap ``2 ti +
+    tj``, output channel ``32 chunk + 16 step + 8 half + o % 8``."""
+    c, o = fused.shape[2], fused.shape[3] // 4
+    if c % 8 or o % 32:
+        raise ValueError(f"the adjoint layout needs C % 8 == 0 and O % 32 == 0, got {c}, {o}")
+    f6 = fused.reshape(3, 3, c, 2, 2, o)
+    taps = torch.stack([f6[a + ti, b + tj, :, a, b, :].T
+                        for a in (0, 1) for b in (0, 1) for ti in (0, 1) for tj in (0, 1)])
+    blocks = taps.reshape(4, 4, o // 32, 2, 2, 8, c // 8, 8)  # (ph, tap, chunk, step, half, o%8, c8, c%8)
     return blocks.permute(0, 2, 1, 3, 4, 6, 7, 5).reshape(-1)
 
 

@@ -22,8 +22,9 @@ The first design (``csrc/tail_fwd.cuh``: three mma.sync launches, NCHW,
 hr_conv fused with conv_last over halo tiles) stays as
 :func:`tail_first_cuda` / :func:`tail_banded_first_cuda`, which no path of
 the port calls: the card's checks time the new design against it. Its
-upsample-conv also recomputes h1 and h2 for the tail's backward (K6,
-:mod:`.tail_bwd`).
+upsample-conv also recomputes h1 and h2 for the first design of the tail's
+backward (:func:`.tail_bwd.tail_bwd_first_cuda`); K6 recomputes with this
+module's stages.
 """
 
 from __future__ import annotations
@@ -66,8 +67,8 @@ def pack_tail(
       (``fragments.wgmma_phase_matrix``: 16 phase-taps, the kernel);
     - ``up{1,2}_phase``: the same taps as 4 phases of ``(4 taps * C, O)``
       matrices in mma.sync fragment order, tap ``(ti, tj)`` reading input
-      offset ``(a - 1 + ti, b - 1 + tj)`` (the first design, and K6's
-      recompute);
+      offset ``(a - 1 + ti, b - 1 + tj)`` (the first designs of the tail
+      and of its backward);
     - ``hr_oihw`` / ``hr_wg`` / ``hr_w``: hr_conv as OIHW, as the wgmma B
       operand (``fragments.wgmma_conv_matrix``) and as a ``(9 * C, O)``
       matrix in fragment order (the first design);

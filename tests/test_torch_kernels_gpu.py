@@ -309,25 +309,146 @@ def test_rrdb_bwd_wrapper_refuses_nchw(cuda):
         rrdb_bwd.rrdb_bwd_cuda(x.contiguous(), g, pulls, kept)
 
 
-@pytest.mark.parametrize("n,h,w", [(2, 8, 8), (1, 6, 10), (2, 13, 7)])
-def test_tail_bwd_kernel_matches_plain(cuda, n, h, w):
-    from master_thesis_tpu_torch.ops import tail_bwd
-
-    rng = np.random.RandomState(3)
+def _tail_bwd_inputs(rng, cuda, n, h, w):
+    """Tail weights packed in bf16, and channels-last bf16 ``x`` (n, 64, h,
+    w) and ``g`` (n, 3, 4h, 4w) on the card."""
     nf = tail.KERNEL_NF
     convs = [tuple(t.to(cuda) for t in _conv(rng, nf, nf, 0.05)) for _ in range(3)]
     convs.append(tuple(t.to(cuda) for t in _conv(rng, nf, 3, 0.05)))
     p = tail.pack_tail(*convs, torch.bfloat16)
-    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda, torch.bfloat16)
+    x = _activation(rng, cuda, n, h, w)
     g = torch.from_numpy(rng.randn(n, 3, 4 * h, 4 * w).astype(np.float32)).to(cuda, torch.bfloat16)
+    return convs, p, x, g.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 8, 8), (1, 6, 10), (2, 13, 7)])
+def test_tail_bwd_kernel_matches_plain(cuda, n, h, w):
+    """K6 (one ``tail_backward`` call) on channels-last tensors: dx comes back
+    channels-last, and it and every grad are within ``K6_L2`` of the plain
+    version. 13 x 7 is odd: ragged tiles at every stage."""
+    from master_thesis_tpu_torch.ops import tail_bwd
+
+    _, p, x, g = _tail_bwd_inputs(np.random.RandomState(3), cuda, n, h, w)
     before = tail_bwd.tail_bwd_cuda.launches
-    dx, grads = tail_bwd.tail_bwd_cuda(x, g, p, tail_bwd.pack_tail_adjoint(convs, torch.bfloat16))
+    dx, grads = tail_bwd.tail_bwd_cuda(x, g, p, tail_bwd.pack_tail_bwd(p))
     torch.cuda.synchronize()
-    assert tail_bwd.tail_bwd_cuda.launches == before + 17
+    assert tail_bwd.tail_bwd_cuda.launches == before + tail_bwd.TAIL_BWD_KERNELS
+    assert dx.is_contiguous(memory_format=torch.channels_last)
     dx_p, grads_p = tail_bwd.tail_bwd_plain(x, g, p)
     assert dx.shape == x.shape and _rel_l2(dx, dx_p) <= K6_L2
     for k in tail_bwd.PARAM_NAMES:
         assert grads[k].shape == grads_p[k].shape and _rel_l2(grads[k], grads_p[k]) <= K6_L2, k
+
+
+def test_tail_bwd_kernel_reruns_bit_identical(cuda):
+    """Two K6 runs at the train step's shape (8 frames at 64x64) give the
+    same dx, dW and db bit for bit: every partial sum has its own slot and
+    the reduce adds them in a fixed order, with no float atomics."""
+    from master_thesis_tpu_torch.ops import tail_bwd
+
+    _, p, x, g = _tail_bwd_inputs(np.random.RandomState(9), cuda, 8, 64, 64)
+    adj = tail_bwd.pack_tail_bwd(p)
+    dx, grads = tail_bwd.tail_bwd_cuda(x, g, p, adj)
+    dx2, grads2 = tail_bwd.tail_bwd_cuda(x, g, p, adj)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dx.float()).all()
+    assert torch.equal(dx, dx2) and all(torch.equal(grads[k], grads2[k]) for k in grads)
+
+
+def test_tail_bwd_wrapper_refuses_nchw(cuda):
+    from master_thesis_tpu_torch.ops import tail_bwd
+
+    _, p, x, g = _tail_bwd_inputs(np.random.RandomState(8), cuda, 1, 8, 8)
+    adj = tail_bwd.pack_tail_bwd(p)
+    with pytest.raises(ValueError, match="channels-last"):
+        tail_bwd.tail_bwd_cuda(x.contiguous(), g, p, adj)
+    with pytest.raises(ValueError, match="channels-last"):
+        tail_bwd.tail_bwd_cuda(x, g.contiguous(), p, adj)
+
+
+def test_tail_bwd_first_design_matches_plain(cuda):
+    """The first K6 design (17 mma.sync launches, NCHW), kept to time the
+    new one against, against the plain version."""
+    from master_thesis_tpu_torch.ops import tail_bwd
+
+    convs, p, x, g = _tail_bwd_inputs(np.random.RandomState(4), cuda, 2, 8, 8)
+    x, g = x.contiguous(), g.contiguous()
+    before = tail_bwd.tail_bwd_first_cuda.launches
+    dx, grads = tail_bwd.tail_bwd_first_cuda(x, g, p, tail_bwd.pack_tail_adjoint(convs, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert tail_bwd.tail_bwd_first_cuda.launches == before + 17
+    dx_p, grads_p = tail_bwd.tail_bwd_plain(x, g, p)
+    assert _rel_l2(dx, dx_p) <= K6_L2
+    for k in tail_bwd.PARAM_NAMES:
+        assert _rel_l2(grads[k], grads_p[k]) <= K6_L2, k
+
+
+@pytest.mark.parametrize("loss", ["sum", "nchw_weights"])
+def test_tail_function_backward_takes_any_cotangent(cuda, loss):
+    """``TailFunction``'s backward on the card takes a cotangent of any
+    layout: an expanded one (``.sum()``) or an NCHW one (a product with NCHW
+    weights). It runs K6 and matches the plain backward on the same
+    values."""
+    from master_thesis_tpu_torch.ops import tail_bwd
+
+    rng = np.random.RandomState(12)
+    convs, p, x, _ = _tail_bwd_inputs(rng, cuda, 2, 8, 12)
+    params = [t.clone().requires_grad_() for wb in convs for t in wb]
+    x = x.detach().requires_grad_()
+    out = tail_bwd.TailFunction.apply(x, torch.bfloat16, *params)
+    before = tail_bwd.tail_bwd_cuda.launches
+    if loss == "sum":
+        g = torch.ones_like(out)
+        out.sum().backward()
+    else:
+        g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+        assert g.is_contiguous() and not g.is_contiguous(memory_format=torch.channels_last)
+        (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert tail_bwd.tail_bwd_cuda.launches == before + tail_bwd.TAIL_BWD_KERNELS
+    dx_p, grads_p = tail_bwd.tail_bwd_plain(x.detach(), g.contiguous(memory_format=torch.channels_last), p)
+    assert x.grad.is_contiguous(memory_format=torch.channels_last)
+    assert _rel_l2(x.grad, dx_p) <= K6_L2
+    for k, q in zip(tail_bwd.PARAM_NAMES, params):
+        assert _rel_l2(q.grad, grads_p[k]) <= K6_L2, k
+
+
+def test_train_forward_keeps_the_tail_channels_last(cuda, monkeypatch):
+    """The CHN training forward and backward on the card (nb=2, bf16, the
+    output read as the train step reads it, through its NHWC view) hand
+    the tail its input, and K6 its cotangent, channels-last, and take dx
+    back channels-last: no NCHW <-> NHWC copy of x, g or dx around K4 and
+    K6."""
+    from master_thesis_tpu_torch.models.chn import CHN, chn_infer_apply
+    from master_thesis_tpu_torch.ops import tail_bwd
+
+    seen = {}
+    fwd, bwd = tail_bwd.TailFunction.forward, tail_bwd.TailFunction.backward
+
+    def forward(ctx, x, dtype, *params):
+        seen["x"] = x.is_contiguous(memory_format=torch.channels_last)
+        return fwd(ctx, x, dtype, *params)
+
+    def backward(ctx, g):
+        seen["g"] = g.is_contiguous(memory_format=torch.channels_last)
+        grads = bwd(ctx, g)
+        seen["dx"] = grads[0].is_contiguous(memory_format=torch.channels_last)
+        return grads
+
+    monkeypatch.setattr(tail_bwd.TailFunction, "forward", staticmethod(forward))
+    monkeypatch.setattr(tail_bwd.TailFunction, "backward", staticmethod(backward))
+    chn = CHN(nb=2, dtype=torch.bfloat16, device=cuda)
+    gen = torch.Generator().manual_seed(5)
+    b, f, hw = 2, 2, 32
+    rnd = lambda *shape: torch.rand(*shape, generator=gen).to(cuda)
+    before = tail_bwd.tail_bwd_cuda.launches
+    y_hat, _ = chn_infer_apply(chn, rnd(b, hw, hw, 3), rnd(b, hw, hw, 1), rnd(b, f, hw, hw, 3),
+                               rnd(b, f, hw, hw, 1), rnd(b, f, hw, hw, 1))
+    y_hat.mean().backward()
+    torch.cuda.synchronize()
+    assert tail_bwd.tail_bwd_cuda.launches == before + tail_bwd.TAIL_BWD_KERNELS
+    assert seen == {"x": True, "g": True, "dx": True}
+    assert all(torch.isfinite(q.grad).all() for q in chn.parameters())
 
 
 # Relative L2 limit of the conv-stack kernels (K7, K8) against their plain
