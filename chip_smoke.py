@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch/CUDA port's serving step, training step and CHN+DFPN
-inpaint step on one NVIDIA GPU.
+"""Runs the PyTorch/CUDA port's serving step, CHN training step, CHN+DFPN
+inpaint step, full videos and DFPN training on one NVIDIA GPU.
 
 Phases, each fatal on failure:
 
@@ -122,7 +122,26 @@ Phases, each fatal on failure:
    frames, every refine of each algorithm's video through the kernels
    against the same inputs through their plain versions over the hole
    pixels, read also with two planted faults, the end-to-end difference of
-   the two videos printed beside it.
+   the two videos printed beside it;
+11. DFPN training: the DFPN train step (the frozen VGG pool-4 features of
+   the masked and the clean frames on K8, the DFPN forward through its
+   modules with autograd, the six-part loss in f32, backward, Adam with
+   StepLR) at ``config.py``'s defaults, B=8, frames_n=2, 256x256, base 256,
+   bf16 compute, f32 parameters, on a seeded synthetic batch (clean frames
+   y, 10% hole masks m, x = y (1 - m), smooth flows, ``flows_use`` on half
+   the batch): the launch counts of one step; finite items, every DFPN
+   parameter with a finite nonzero grad and moved, no VGG parameter moved;
+   host-clock step time, samples/s, peak memory; one step under
+   ``torch.profiler`` (busy share, layout copies by caller); on 1x2x64x64,
+   base 64, the loss items and the three pool-4 maps the step reads with
+   K8's features against the module's, the maps read also with each
+   planted fault of K8's two kernels; then
+   ``train.loop.Trainer`` over 2 epochs of 3 steps with
+   ``accumulate_grad_batches=2`` and a validation an epoch (seconds an
+   epoch), and a fresh state restored from epoch 1's checkpoint, which
+   lands mid-accumulation, running epoch 2: its parameters and Adam
+   moments against the uninterrupted run's by relative L2, each group
+   under its own limit, read also with the open window's grads dropped.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card or
@@ -134,6 +153,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -209,6 +229,26 @@ TAIL_FAULT = "right halo column of every tile read as zeros"
 # Device kernels the profile counts as layout transposes and copies (cuDNN's
 # NCHW <-> NHWC transposes, ATen's copies and device-to-device memcpy).
 LAYOUT_KEYS = ("nchwtonhwc", "nhwctonchw", "transpose", "copy")
+# The DFPN train step: config.py's batch_size and frames_n. The loss items
+# with K8's frozen features against the module's (bf16 both) may differ by
+# REL_K8_ITEMS relative at most over the six items (they read 4.0e-4), the
+# three pool-4 maps the step reads by L2_K8_MAPS relative L2 (they read
+# 7.6e-3); K8's planted faults move the items by 2.9e-4 to 1.7e-2 and the
+# maps by 0.069 to 0.63, so the maps are this phase's kernel check and the
+# items a smoke test (PERF.md, Findings; K8 at
+# the train step's 256x256 frames is held against its plain version in the
+# VGG checks of phase 8). A resumed run's parameters may differ from the
+# uninterrupted run's by L2_RESUME_PARAMS relative, its Adam moments by
+# L2_RESUME_MOMENTS: the card's backward is not deterministic
+# (F.interpolate's backward and cuDNN's weight grads sum with atomics), and
+# Adam's first updates turn a grad's noise into a full step where the grad
+# is near zero, so two runs of one epoch from one checkpoint read 1.04e-4 at
+# most on the parameters and 2.45e-3 on the moments apart; a lost
+# accumulation window reads 1.54e-3 on the parameters and 0.31 and up on
+# the moments (PERF.md, Findings).
+DFPN_TRAIN_B, DFPN_TRAIN_F = 8, 2
+REL_K8_ITEMS, L2_K8_MAPS = 2e-3, 2e-2
+L2_RESUME_PARAMS, L2_RESUME_MOMENTS = 5e-4, 2e-2
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
@@ -781,9 +821,14 @@ def phase_profile(step, inputs, step_s, grad=False):
           f"{sum(r[1] for r in layout)} launches")
     for ms, count, key in layout[:4]:
         print(f"profile:   {ms:10.3f} ms {count:5d}x {key[:100]}")
-    if grad:  # which op launched each layout copy
-        for (caller, op), (ms, count) in sorted(layout_callers(prof).items(), key=lambda kv: -kv[1][0]):
+    if grad:  # which op launched each layout copy, the 24 costliest
+        groups = sorted(layout_callers(prof).items(), key=lambda kv: -kv[1][0])
+        for (caller, op), (ms, count) in groups[:24]:
             print(f"profile copies: {ms:8.3f} ms {count:4d}x {caller[:60]} > {op[:120]}")
+        rest = groups[24:]
+        if rest:
+            print(f"profile copies: {sum(v[0] for _, v in rest):8.3f} ms "
+                  f"{sum(v[1] for _, v in rest):4d}x in {len(rest)} more groups")
     if grad:  # where the host's time goes
         host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()),
                       reverse=True)
@@ -1194,6 +1239,258 @@ def phase_train(cpn, chn, results, device_line):
           f"{TRAIN_B / dt:.3f} samples/s, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {device_line}")
     phase_profile(lambda *b: step(st, *b), batch, dt, grad=True)
+
+
+def make_dfpn_batch(b, f, h, w, seed):
+    """The DFPN train step's batch: clean frames y uniform in [0, 1), masks
+    m at 10% holes, x = y (1 - m), absolute flows (the identity grid under
+    a seeded affine movement a frame, as the movement simulator makes:
+    scale 0.9-1.1, rotation up to 0.1 rad, shift up to 0.2, so they leave
+    [-1, 1] near the borders), and ``flows_use`` on the first half of the
+    batch, rounded up (``p_simulator_bgs`` 0.5)."""
+    from master_thesis_tpu_torch.ops.flows import identity_grid
+
+    rng = np.random.RandomState(seed)
+    y = rng.rand(b, f, h, w, 3).astype(np.float32)
+    m = (rng.rand(b, f, h, w, 1) > 0.9).astype(np.float32)
+    scale, rot = rng.uniform(0.9, 1.1, (b, f)), rng.uniform(-0.1, 0.1, (b, f))
+    lin = scale[..., None, None] * np.stack([np.stack([np.cos(rot), -np.sin(rot)], -1),
+                                            np.stack([np.sin(rot), np.cos(rot)], -1)], -2)
+    flow = (np.einsum("bfij,hwj->bfhwi", lin, identity_grid(h, w).numpy())
+            + rng.uniform(-0.2, 0.2, (b, f, 1, 1, 2)))
+    to = lambda a: torch.from_numpy(np.asarray(a)).cuda()
+    return (to((1 - m) * y), to(m), to(y), to(flow.astype(np.float32)), to(np.arange(b) < (b + 1) // 2))
+
+
+class MemoryLogger:
+    """The Trainer's logger where tensorboardX is not installed: keeps the
+    scalars it is given."""
+
+    def __init__(self):
+        self.scalars = []
+
+    def log_scalars(self, scalars, step, prefix=""):
+        self.scalars.append((prefix, step, dict(scalars)))
+
+    def flush(self):
+        pass
+
+
+def rel_l2_groups(a, b):
+    """Relative L2 of train states ``a`` against ``b``: over all parameters,
+    all first and all second Adam moments."""
+    out = {}
+    for name, get in (("params", lambda st, p: p.detach()),
+                      ("exp_avg", lambda st, p: st.optimizer.state[p]["exp_avg"]),
+                      ("exp_avg_sq", lambda st, p: st.optimizer.state[p]["exp_avg_sq"])):
+        ga = torch.cat([get(a, p).float().reshape(-1) for p in a.params()])
+        gb = torch.cat([get(b, p).float().reshape(-1) for p in b.params()])
+        out[name] = ((ga - gb).norm() / gb.norm()).item()
+    return out
+
+
+def phase_dfpn_train(results, device_line):
+    """The DFPN train step at B=8, frames_n=2, 256x256, base 256, bf16, and
+    the train loop over it with gradient accumulation, checkpoints and
+    resume."""
+    import importlib.util
+    import tempfile
+
+    from master_thesis_tpu_torch.models.vgg import VGGFeatures
+    from master_thesis_tpu_torch.ops import conv_stack
+    from master_thesis_tpu_torch.train import dfpn_task, state
+    from master_thesis_tpu_torch.train.build import build_dfpn
+    from master_thesis_tpu_torch.train.checkpoint import restore_train_state
+    from master_thesis_tpu_torch.train.loop import LoopConfig, Trainer
+
+    t_phase = time.perf_counter()
+    gen = lambda k: torch.Generator().manual_seed(SEED + k)
+    vgg = VGGFeatures(dtype=torch.bfloat16, generator=gen(20))
+    vgg.requires_grad_(False)
+    # Random weights can leave the mixer's 4-channel ReLU convs dead (seed
+    # 21 does at this batch: its first ten convs get zero grads); with this
+    # seed every grad is live, so the check below that each is nonzero has
+    # something to read.
+    dfpn = build_dfpn(base_size=DFPN_BASE, dtype=torch.bfloat16, generator=gen(24))
+    st = state.create_train_state(dfpn, state.OptimConfig(), steps_per_epoch=2000)
+    step = dfpn_task.make_train_step(dfpn, vgg, pallas_vgg=True)
+    batch = make_dfpn_batch(DFPN_TRAIN_B, DFPN_TRAIN_F, H, W, SEED + 22)
+    for _ in range(3):
+        step(st, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: v.clone() for k, v in dfpn.state_dict().items()}
+    vgg_before = {k: v.clone() for k, v in vgg.state_dict().items()}
+    grads = {}
+    orig = st.apply_gradients
+
+    def capture():
+        grads.update({k: p.grad.clone() for k, p in dfpn.named_parameters()})
+        return orig()
+
+    st.apply_gradients = capture
+    counters = {"K7": conv_stack.conv_stack_tiles_cuda, "K8": conv_stack.conv_stack_banded_cuda,
+                "K8 frame": conv_stack.conv_frame_cuda}
+    for c in counters.values():
+        c.launches = 0
+    items = step(st, *batch)
+    torch.cuda.synchronize()
+    counts = {k: c.launches for k, c in counters.items()}
+    st.apply_gradients = orig
+    # VGG's pool-4 tower on K8 three times (the target, the references, the
+    # clean frames), 10 launches each, 9 on the frame kernel; K7 and K8 on
+    # DFPN's own convs are refused on a grad path.
+    want = {"K7": 0, "K8": 30, "K8 frame": 27}
+    print(f"DFPN train step launches in one step: {counts} (expected {want})")
+    if counts != want:
+        raise RuntimeError("the DFPN train step did not launch each kernel as expected")
+    results["K8"]["launches_dfpn_train"] = counts["K8"]
+    loss = {k: v.item() for k, v in items.items()}
+    if set(loss) != set(dfpn_task.LOSSES_NAMES) | {"loss"} or not all(np.isfinite(v) for v in loss.values()):
+        raise RuntimeError(f"DFPN train step items missing or not finite: {loss}")
+    bad = [k for k, g in grads.items() if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    if bad or len(grads) != len(before):
+        raise RuntimeError(f"DFPN grads missing, not finite or zero: {bad[:5]}")
+    moved = sum(not torch.equal(before[k], v) for k, v in dfpn.state_dict().items())
+    if moved != len(before):
+        raise RuntimeError(f"only {moved} of {len(before)} DFPN parameters changed in a step")
+    if any(not torch.equal(vgg_before[k], v) for k, v in vgg.state_dict().items()):
+        raise RuntimeError("a frozen VGG parameter changed in a DFPN train step")
+    print("DFPN train step: " + ", ".join(f"{k} {v:.6g}" for k, v in loss.items())
+          + f"; {len(grads)} grads finite and nonzero; all {moved} DFPN parameters moved, "
+          f"no VGG parameter moved")
+
+    iters = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(st, *batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    print(f"DFPN train step: B={DFPN_TRAIN_B} frames_n={DFPN_TRAIN_F} {H}x{W} base {DFPN_BASE} bf16: "
+          f"{1e3 * dt:.3f} ms/step, {DFPN_TRAIN_B / dt:.3f} samples/s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {device_line}")
+    phase_profile(lambda *b: step(st, *b), batch, dt, grad=True)
+
+    # The loss items and the three frozen feature maps the step reads, with
+    # the features on K8 against the same step's with the module's, on a
+    # small input; the maps are read also with each of K8's planted faults
+    # (the items barely move under them: they are a smoke test).
+    small_dfpn = build_dfpn(base_size=64, dtype=torch.bfloat16, generator=gen(23))
+    small = make_dfpn_batch(1, DFPN_TRAIN_F, 64, 64, SEED + 24)
+
+    def small_step(pallas):
+        """The loss items and the pool-4 maps (target, references, clean
+        frames) of ``forward_and_loss`` on the small input."""
+        seen = []
+
+        def record(pool4):
+            def run(*a):
+                out = pool4(*a)
+                seen.append(out.float())
+                return out
+            return run
+
+        orig = dfpn_task.vgg_pool4_pallas
+        dfpn_task.vgg_pool4_pallas, vgg.pool4 = record(orig), record(vgg.pool4)
+        try:
+            with torch.no_grad():
+                items = dfpn_task.forward_and_loss(small_dfpn, vgg, *small, pallas_vgg=pallas)[1]
+        finally:
+            dfpn_task.vgg_pool4_pallas = orig
+            del vgg.pool4
+        return items, dict(zip(("feats_t", "feats_r", "feats_y"), seen))
+
+    module, module_feats = small_step(False)
+    items_rel = lambda k8: {k: abs(k8[k].item() - module[k].item()) / abs(module[k].item())
+                            for k in module}
+    k8, k8_feats = small_step(True)
+    rel = items_rel(k8)
+    print("check DFPN train items, 1x2x64x64 base 64, K8 features vs module features: relative "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) + f" (limit {REL_K8_ITEMS:g})")
+    if max(rel.values()) > REL_K8_ITEMS:
+        raise RuntimeError("the loss with K8's features disagrees with the loss with the module's")
+    name = "DFPN train features, 1x2x64x64 base 64, K8 vs module"
+    check_groups(name, k8_feats, module_feats, L2_K8_MAPS)
+    for ctx, fault, label in ([(planted_stack, f, lb) for f, lb in STACK_FAULTS.items()]
+                              + [(planted_frame, f, lb) for f, lb in FRAME_FAULTS.items()]):
+        with ctx(fault):
+            k8, k8_feats = small_step(True)
+        rel = items_rel(k8)
+        worst = max(rel, key=rel.get)
+        print(f"planted DFPN train items, {label}: worst relative {rel[worst]:.6g} ({worst})")
+        check_groups(name, k8_feats, module_feats, L2_K8_MAPS, planted=label)
+
+    # The loop: 2 epochs of 3 steps with k = 2 (epoch 1's checkpoint holds
+    # an open window), a validation an epoch; then epoch 2 again from that
+    # checkpoint into a fresh state.
+    have_tbx = importlib.util.find_spec("tensorboardX") is not None
+    if not have_tbx:
+        print("tensorboardX is not installed here: the Trainer logs to chip_smoke's MemoryLogger")
+    loader = [make_dfpn_batch(DFPN_TRAIN_B, DFPN_TRAIN_F, H, W, SEED + 30 + i) for i in range(3)]
+    val_loader = [make_dfpn_batch(DFPN_TRAIN_B, DFPN_TRAIN_F, H, W, SEED + 33)]
+    args = lambda b: b
+
+    def fit(root, epochs, st, saves=None):
+        model = st.model
+        trainer = Trainer(LoopConfig(max_epochs=epochs, default_root_dir=root), "dfpn",
+                          logger=None if have_tbx else MemoryLogger())
+        if saves is not None:
+            save = trainer.checkpointer.save
+
+            def timed_save(step, payload):
+                save(step, payload)
+                torch.cuda.synchronize()
+                saves.append(time.perf_counter())
+
+            trainer.checkpointer.save = timed_save
+        trainer.fit(st, dfpn_task.make_train_step(model, vgg, pallas_vgg=True), args, loader,
+                    eval_step=dfpn_task.make_eval_step(model, vgg, pallas_vgg=True),
+                    eval_args=args, val_loader=val_loader)
+        return trainer
+
+    def fresh_state():
+        model = build_dfpn(base_size=DFPN_BASE, dtype=torch.bfloat16, generator=gen(25))
+        return state.create_train_state(
+            model, state.OptimConfig(accumulate_grad_batches=2), steps_per_epoch=len(loader))
+
+    with tempfile.TemporaryDirectory() as root:
+        full = fresh_state()
+        saves = [time.perf_counter()]
+        trainer = fit(f"{root}/full", 2, full, saves)
+        epochs = [b - a for a, b in zip(saves, saves[1:])]
+        ckpts = sorted(os.listdir(trainer.checkpointer.dir))
+        print(f"DFPN loop: 2 epochs of 3 steps, accumulate_grad_batches=2, a validation and a "
+              f"checkpoint an epoch: {', '.join(f'{e:.3f}' for e in epochs)} s an epoch; checkpoints "
+              f"{ckpts}; counts step {full.step} updates {full.updates}")
+        if ckpts != ["step_3.pt", "step_6.pt"] or (full.step, full.updates, full.micro) != (6, 3, 0):
+            raise RuntimeError("the DFPN loop did not run 2 epochs of 3 steps with 2 checkpoints")
+        runs = {}
+        for label, drop in (("resumed", False), ("resumed again", False),
+                            ("resumed, the open window's grads dropped", True)):
+            st2 = restore_train_state(fresh_state(), f"{trainer.checkpointer.dir}/step_3.pt")
+            if (st2.step, st2.updates, st2.micro) != (3, 1, 1):
+                raise RuntimeError(f"restored counts {(st2.step, st2.updates, st2.micro)}, not (3, 1, 1)")
+            if drop:
+                for p in st2.params():
+                    p.grad = None
+            fit(f"{root}/{len(runs)}", 2, st2)
+            runs[label] = st2
+        reads = {label: rel_l2_groups(st2, full) for label, st2 in runs.items()}
+        floor = rel_l2_groups(runs["resumed again"], runs["resumed"])
+        limits = {"params": L2_RESUME_PARAMS, "exp_avg": L2_RESUME_MOMENTS,
+                  "exp_avg_sq": L2_RESUME_MOMENTS}
+        for label, read in [*reads.items(), ("resumed again, against the first resumed run", floor)]:
+            against = "" if "against" in label else " against the uninterrupted run"
+            print(f"check DFPN resume from epoch 1's checkpoint ({label}){against}: relative L2 "
+                  + ", ".join(f"{k} {v:.3g} (limit {limits[k]:g})" for k, v in read.items()))
+        if any(reads[r][k] > limits[k] for r in ("resumed", "resumed again") for k in limits):
+            raise RuntimeError("the resumed DFPN run does not match the uninterrupted one")
+        lost = reads["resumed, the open window's grads dropped"]
+        if any(lost[k] <= limits[k] for k in limits):
+            raise RuntimeError("the resume check does not see a lost accumulation window in "
+                               "each of the parameters and the moments")
+    print(f"phase DFPN training: {time.perf_counter() - t_phase:.1f} s")
 
 
 @contextlib.contextmanager
@@ -2119,12 +2416,13 @@ def main() -> int:
     # phase has moved the shared one).
     video_chn = CHN(nb=NB, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED + 1))
     phase_video(cpn, video_chn, results, smi)
+    phase_dfpn_train(results, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # Beside them, the first design's time where the kernel was redesigned.
     first = ("first_design_ms", "tiles_ms", "first_ms")
     kernels = [{**{k: r[k] for k in keys}, **{"first_design_ms": r[k] for k in first if k in r},
-                **({"sources": r["sources"]} if "sources" in r else {})}
+                **{k: r[k] for k in ("sources", "launches_dfpn_train") if k in r}}
                for _, r in sorted(results.items())]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -16,7 +16,9 @@ training step (:mod:`.train.chn_task`, :mod:`.train.state`), whose trunk
 and tail backward passes are kernels too (:mod:`.ops.rrdb_bwd`,
 :mod:`.ops.tail_bwd`); DFPN alignment (:mod:`.models.dfpn`) on the
 conv-stack kernels (:mod:`.ops.conv_stack`); and full-video inpainting
-(:mod:`.infer`), whose large frames take the banded trunk and tail.
+(:mod:`.infer`), whose large frames take the banded trunk and tail; and
+DFPN training (:mod:`.train.dfpn_task`) with the train loop, checkpoints
+and logging (:mod:`.train.loop`).
 """
 
 from master_thesis_tpu_torch.device import resolve_device

@@ -297,7 +297,14 @@ def dfpn_infer_apply(
     frames (:func:`prepare_vgg_input`). Returns ``(corr, flow_16, flow_64,
     flow_full)``: the cost volume after the 4-D conv, the flows of the
     cascade 16 -> 64 -> 256 (at base 256), and the last at the input size.
-    The flags route the stages as the module docstring says."""
+    The flags route the stages as the module docstring says; on a grad
+    path (grad mode on, a DFPN parameter requiring grad) any of them raises
+    ``ValueError``, since K7 and K8 have no backward: train with all three
+    ``False``."""
+    flags = {"pallas_sep4d": pallas_sep4d, "pallas_mixer": pallas_mixer, "pallas_flow": pallas_flow}
+    on = [name for name, value in flags.items() if value]
+    if on:
+        conv_stack.refuse_grad_path(dfpn, "dfpn_infer_apply with " + ", ".join(f"{n}=True" for n in on))
     b, f, h, w, _ = x_refs.shape
     x_target, x_refs = _normalize(x_target), _normalize(x_refs)
     s256, s64 = dfpn.base_size, dfpn.base_size // 4

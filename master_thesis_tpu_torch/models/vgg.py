@@ -22,7 +22,7 @@ from torch import nn
 
 from master_thesis_tpu_torch.device import constant, resolve_device
 from master_thesis_tpu_torch.models.nn_ext import Conv
-from master_thesis_tpu_torch.ops.conv_stack import StackCache, conv_stack_banded
+from master_thesis_tpu_torch.ops.conv_stack import StackCache, conv_stack_banded, refuse_grad_path
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -87,7 +87,9 @@ def vgg_pool4_pallas(vgg: VGGFeatures, x: torch.Tensor) -> torch.Tensor:
     """:meth:`VGGFeatures.pool4` with each block's convs as one banded
     conv stack (K8, :func:`..ops.conv_stack.conv_stack_banded`) and the
     max-pools between them (``vgg_pool4_pallas``). ``x`` NHWC, already
-    ImageNet-normalised."""
+    ImageNet-normalised. Forward only: under grad mode with a VGG parameter
+    requiring grad it raises ``ValueError``."""
+    refuse_grad_path(vgg, "vgg_pool4_pallas")
     x = x.to(vgg.dtype).contiguous()
     for i, block in enumerate(_POOL4_BLOCKS):
         convs = [vgg.features[j] for j in block]

@@ -184,6 +184,18 @@ class StackCache:
         return hit[1]
 
 
+def refuse_grad_path(module: torch.nn.Module, route: str) -> None:
+    """Raises ``ValueError`` when ``route`` (a K7 / K8 route of ``module``'s
+    convs) runs under grad mode while a parameter of ``module`` requires
+    grad: the kernels have no backward and :class:`StackCache` packs the
+    weights without grad, so the parameters would get no gradient."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters()):
+        raise ValueError(
+            f"{route} runs the conv-stack kernels K7 / K8, which have no backward: "
+            f"{type(module).__name__}'s parameters would get no gradient. On a grad path "
+            "route its convs through the modules, or run under torch.no_grad()")
+
+
 def conv_stack_plain(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
     """The stack on NCHW ``x`` in its dtype, one ``F.conv2d`` per conv."""
     dt = x.dtype

@@ -5,8 +5,9 @@ make_eval_step).
 A step: the frozen aligner under ``torch.no_grad()`` (the JAX
 ``stop_gradient``), the CHN forward with autograd (its trunk and tail
 backward passes are the kernels K3 and K6 on the card), the five-part
-loss, backward, and the Adam update, after which the packed kernel weights
-are dropped (:meth:`..state.TrainState.apply_gradients`).
+loss, backward into the window's summed grads, and, every
+``accumulate_grad_batches`` steps, the Adam update, after which the packed
+kernel weights are dropped (:meth:`..state.TrainState.apply_gradients`).
 
 Loss (reference model_chn.py:324-376): non-hole (w=0.5) and visible-hole
 (w=2) masked L1 on ``y_hat``, non-visible-hole (w=1) on the composite, all
@@ -79,8 +80,9 @@ def _split(x, m, y):
 
 
 def make_train_step(chn, align_fn: Callable, vgg: Callable, perceptual_grad: bool = False):
-    """``train_step(state, x, m, y) -> items``: one update of ``state`` (its
-    model is ``chn``) on the batch ``x``, ``m``, ``y`` ``(B, F, H, W, C)``.
+    """``train_step(state, x, m, y) -> items``: one micro-step of ``state``
+    (its model is ``chn``; an update every ``accumulate_grad_batches``) on
+    the batch ``x``, ``m``, ``y`` ``(B, F, H, W, C)``.
     ``align_fn(x_t, m_t, x_refs, m_refs) -> (x_aligned, v_aligned, v_maps)``
     is frozen: no gradient reaches it."""
 
@@ -88,7 +90,6 @@ def make_train_step(chn, align_fn: Callable, vgg: Callable, perceptual_grad: boo
         x_t, m_t, x_r, m_r, y_t = _split(x, m, y)
         with torch.no_grad():
             xa, va, vm = align_fn(x_t, m_t, x_r, m_r)
-        state.optimizer.zero_grad(set_to_none=True)
         y_hat, y_hat_comp = chn_infer_apply(chn, x_t, 1 - m_t, xa, va, vm)
         total, items = compute_loss(
             y_t, 1 - m_t, y_hat, y_hat_comp, vm, vgg, perceptual_grad=perceptual_grad

@@ -658,3 +658,39 @@ def test_frame_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     p32 = conv_stack.pack_stack([(w, torch.zeros(64, device=cuda))], [True], torch.float32)
     with pytest.raises(ValueError, match="bfloat16"):
         conv_stack.conv_frame_cuda(nhwc, p32, 0)
+
+
+def test_dfpn_train_step_on_the_card_matches_the_cpu(cuda):
+    """The DFPN train step (``dfpn_task.forward_and_loss`` and its backward)
+    at 1 x (1 + 1) x 64², base 64, f32 with TF32 off, on the card against
+    the same weights and batch on the CPU: each loss item within 1e-4
+    relative, each parameter's grad within 5e-3 relative L2 (cuDNN's and
+    the CPU's sums in other orders, as the CPU parity against JAX reads in
+    tests/test_torch_dfpn_train.py)."""
+    from master_thesis_tpu_torch.models.dfpn import DFPN
+    from master_thesis_tpu_torch.models.vgg import VGGFeatures
+    from master_thesis_tpu_torch.ops.flows import identity_grid
+    from master_thesis_tpu_torch.train import dfpn_task
+
+    rng = np.random.RandomState(0)
+    y = rng.rand(1, 2, 64, 64, 3).astype(np.float32)
+    m = (rng.rand(1, 2, 64, 64, 1) > 0.8).astype(np.float32)
+    flow = (identity_grid(64, 64).numpy() * 1.05 + rng.uniform(-0.2, 0.2, (1, 2, 1, 1, 2))).astype(np.float32)
+    batch = ((1 - m) * y, m, y, flow, np.asarray([True]))
+
+    def run(device):
+        net = DFPN(base_size=64, device=device, generator=torch.Generator().manual_seed(26))
+        vgg = VGGFeatures(device=device, generator=torch.Generator().manual_seed(2))
+        vgg.requires_grad_(False)
+        total, items = dfpn_task.forward_and_loss(net, vgg, *(torch.from_numpy(a).to(device) for a in batch))
+        total.backward()
+        return ({k: v.item() for k, v in items.items()},
+                {k: p.grad.cpu() for k, p in net.named_parameters()})
+
+    got_items, got = run(cuda)
+    want_items, want = run(torch.device("cpu"))
+    for k, v in want_items.items():
+        assert abs(got_items[k] - v) <= 1e-4 * abs(v), k
+    for k, g in want.items():
+        assert g.abs().max() > 0, k
+        assert _rel_l2(got[k], g) <= 5e-3, k
