@@ -141,7 +141,23 @@ Phases, each fatal on failure:
    epoch), and a fresh state restored from epoch 1's checkpoint, which
    lands mid-accumulation, running epoch 2: its parameters and Adam
    moments against the uninterrupted run's by relative L2, each group
-   under its own limit, read also with the open window's grads dropped.
+   under its own limit, read also with the open window's grads dropped;
+12. the CLI: ``master_thesis_tpu_torch.__main__.main(argv)`` on ``cuda`` over
+   a GOT-10k / YouTube-VOS / DAVIS-2017 tree the phase writes at the
+   datasets' resolutions (1280x720, DAVIS 854x480; smooth seeded content,
+   written with OpenCV, or as PNGs by the zlib writer where OpenCV is
+   missing): the train loader's samples/s with threads and with worker
+   processes at 1 and 8 workers, their first batches bit-equal; DFPN train
+   (B=8, frames_n 2, 256x256, base 256, 8 worker processes, an epoch of 10
+   steps with its validation and checkpoint), its checkpoint reloaded and
+   resumed for a second epoch (8 loader threads), DFPN test, CHN train
+   (nb 20, the CPN aligner, 8 loader threads) and CHN test (ff / ip / cp over the DAVIS clip at the default
+   test_size, the videos written); each mode's kernel launches against the
+   expected ones (none in DFPN train, K7 in DFPN test, K1 / K3 / K4 / K6 in
+   CHN train, K1 / K4 in CHN test), batches and parameters on the card,
+   finite items, every parameter moved, CHN test's frames in [0, 1] and the
+   input's where visible; each train mode's ms/step with the real loader
+   and busy share beside the synthetic-batch step of phases 6 and 11.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card or
@@ -1238,7 +1254,8 @@ def phase_train(cpn, chn, results, device_line):
     print(f"train step: B={TRAIN_B} frames_n={TRAIN_F} {H}x{W} nb={NB} bf16: {1e3 * dt:.3f} ms/step, "
           f"{TRAIN_B / dt:.3f} samples/s, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {device_line}")
-    phase_profile(lambda *b: step(st, *b), batch, dt, grad=True)
+    busy, _ = phase_profile(lambda *b: step(st, *b), batch, dt, grad=True)
+    return dt, busy
 
 
 def make_dfpn_batch(b, f, h, w, seed):
@@ -1263,14 +1280,18 @@ def make_dfpn_batch(b, f, h, w, seed):
 
 
 class MemoryLogger:
-    """The Trainer's logger where tensorboardX is not installed: keeps the
-    scalars it is given."""
+    """A logger for the Trainer and the CLI's test modes: keeps the scalars
+    it is given, and the shapes of the images."""
 
     def __init__(self):
         self.scalars = []
+        self.images = []
 
     def log_scalars(self, scalars, step, prefix=""):
         self.scalars.append((prefix, step, dict(scalars)))
+
+    def log_images(self, tag, images, step):
+        self.images.append((tag, step, np.shape(images)))
 
     def flush(self):
         pass
@@ -1370,7 +1391,7 @@ def phase_dfpn_train(results, device_line):
     print(f"DFPN train step: B={DFPN_TRAIN_B} frames_n={DFPN_TRAIN_F} {H}x{W} base {DFPN_BASE} bf16: "
           f"{1e3 * dt:.3f} ms/step, {DFPN_TRAIN_B / dt:.3f} samples/s, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {device_line}")
-    phase_profile(lambda *b: step(st, *b), batch, dt, grad=True)
+    synthetic = (dt, phase_profile(lambda *b: step(st, *b), batch, dt, grad=True)[0])
 
     # The loss items and the three frozen feature maps the step reads, with
     # the features on K8 against the same step's with the module's, on a
@@ -1491,6 +1512,7 @@ def phase_dfpn_train(results, device_line):
             raise RuntimeError("the resume check does not see a lost accumulation window in "
                                "each of the parameters and the moments")
     print(f"phase DFPN training: {time.perf_counter() - t_phase:.1f} s")
+    return synthetic
 
 
 @contextlib.contextmanager
@@ -2376,6 +2398,360 @@ def planted_chn(chn):
 
     return ctx
 
+# The CLI phase: a tree at the datasets' own resolutions (GOT-10k and
+# YouTube-VOS 1280x720, DAVIS-2017 854x480), CLI_STEPS train steps in each
+# train mode's epoch and CLI_VAL validation batches, the steps after tick
+# CLI_TIMED[0] up to CLI_TIMED[1] timed and those after it profiled.
+CLI_STEPS, CLI_VAL, CLI_TIMED = 10, 2, (2, 6)
+CLI_GOT, CLI_VOS, CLI_DAVIS_F = (4, 12), (10, 6), 12  # (sequences, frames); the one clip's frames
+CLI_B, CLI_WORKERS = 8, 8
+
+
+def smooth_frames(rng, n, h, w, pan):
+    """``n`` frames ``(n, h, w, 3)`` uint8 of smooth seeded content, a random
+    colour field bilinearly upsampled from 10 rows, panning ``pan`` pixels a
+    frame: it compresses as the smooth parts of photographs do."""
+    from master_thesis_tpu_torch.ops.interp import resize_hw_np
+
+    cw = w + pan * (n - 1)
+    low = rng.rand(10, 10 * cw // h + 2, 3).astype(np.float32)
+    canvas = (resize_hw_np(low, (h, cw)) * 255).round().astype(np.uint8)
+    return [canvas[:, t * pan: t * pan + w] for t in range(n)]
+
+
+def ellipse_mask(h, w, cy, cx, ry, rx):
+    yy, xx = np.mgrid[:h, :w]
+    return ((((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) <= 1).astype(np.uint8) * 255
+
+
+def write_tree(root, rng):
+    """Writes a GOT-10k / YouTube-VOS / DAVIS-2017 tree in the layout the
+    scanners read: OpenCV's JPEG backgrounds and PNG masks where it is
+    installed, else every file a PNG from the zlib writer (the backgrounds
+    under their ``.jpg`` names, which both pipelines read). The masks cover
+    ~10% of a frame, inside the default mask-size band (0.05, 0.15).
+    Returns (files written, how)."""
+    from master_thesis_tpu_torch.data.decode import opencv
+    from master_thesis_tpu_torch.runtime.png import write_png
+
+    cv2 = opencv()
+    files = []
+
+    def write(path, img):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if cv2 is None:
+            write_png(path, img)
+        elif not cv2.imwrite(path, img[..., ::-1] if img.ndim == 3 else img):
+            raise RuntimeError(f"cv2 could not write {path}")
+        files.append(path)
+
+    n_seq, n_f = CLI_GOT
+    for split, names in (("train", [f"GOT-10k_Train_{i:06d}" for i in range(1, n_seq + 1)]),
+                         ("val", ["GOT-10k_Val_000001"])):
+        for name in names:
+            for t, frame in enumerate(smooth_frames(rng, n_f, 720, 1280, 6)):
+                write(f"{root}/GOT10k/{split}/{name}/{t + 1:08d}.jpg", frame)
+        with open(f"{root}/GOT10k/{split}/list.txt", "w") as f:
+            f.write("\n".join(names) + "\n")
+    n_vid, n_m = CLI_VOS
+    for i in range(n_vid):
+        cy, cx = rng.randint(200, 520), rng.randint(300, 980)
+        for t in range(n_m):
+            write(f"{root}/YouTubeVOS/train/Annotations/vid{i:04d}/{5 * t:05d}.png",
+                  ellipse_mask(720, 1280, cy, cx + 8 * t, 122, 240))
+    davis = f"{root}/DAVIS-2017"
+    for t, frame in enumerate(smooth_frames(rng, CLI_DAVIS_F, 480, 854, 4)):
+        write(f"{davis}/JPEGImages/480p/clip0/{t:05d}.jpg", frame)
+        write(f"{davis}/Annotations_Dense/480p/clip0/{t:05d}.png",
+              ellipse_mask(480, 854, 240 + 4 * t, 300 + 10 * t, 70, 110))
+    os.makedirs(f"{davis}/ImageSets", exist_ok=True)
+    with open(f"{davis}/ImageSets/custom.txt", "w") as f:
+        f.write("clip0\n")
+    return len(files), ("OpenCV (JPEG backgrounds, PNG masks)" if cv2 is not None
+                        else "the zlib PNG writer (every file PNG)")
+
+
+def cli_config(argv):
+    import argparse
+
+    from master_thesis_tpu_torch.config import Config
+
+    parser = argparse.ArgumentParser()
+    Config.add_argparse_args(parser)
+    return Config.from_args(parser.parse_args(argv))
+
+
+def phase_cli_loader(cfg, device_line):
+    """The train loader of ``cfg`` on the card's host: samples/s with
+    threads and with worker processes at 1 and CLI_WORKERS workers (the
+    first batch, which starts the pool, left out), and their first
+    batches, which must be bit-equal."""
+    from master_thesis_tpu_torch.data import meta, pipeline
+    from master_thesis_tpu_torch.train.build import build_loaders
+
+    ds = build_loaders(cfg, meta.prepare_data(cfg), splits=("train",))["train"].dataset
+    # Where an item's host time goes: CLI_B items on this thread under
+    # cProfile (which slows Python calls, not the native work inside them).
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for i in range(CLI_B):
+        ds.get_item(i, np.random.RandomState(i))
+    prof.disable()
+    per_item = 1e3 * (time.perf_counter() - t0) / CLI_B
+    stats = pstats.Stats(prof).stats
+    top = sorted(((tt, nc, f"{os.path.basename(fn)}:{ln}({name})") for (fn, ln, name), (_, nc, tt, _, _)
+                  in stats.items()), reverse=True)[:8]
+    print(f"CLI loader item: {per_item:.3f} ms an item on one thread (cProfile); by own time, ms "
+          "an item: " + "; ".join(f"{1e3 * tt / CLI_B:.3f} {where} x{nc / CLI_B:g}" for tt, nc, where in top))
+    firsts = {}
+    for procs, workers in ((False, 1), (False, CLI_WORKERS), (True, 1), (True, CLI_WORKERS)):
+        label = f"{'processes' if procs else 'threads'}, {workers} worker{'s' * (workers > 1)}"
+        loader = pipeline.Loader(ds, CLI_B, seed=cfg.seed, num_workers=workers, use_processes=procs)
+        t0 = time.perf_counter()
+        try:
+            batches = iter(loader)
+            firsts[label] = next(batches)
+            t1 = time.perf_counter()
+            n = sum(1 for _ in batches)
+            t2 = time.perf_counter()
+        finally:
+            loader.close()
+        print(f"CLI loader, {label}: {CLI_B * n / (t2 - t1):.3f} samples/s over {n} batches of "
+              f"{CLI_B} at {cfg.train_size[0]}x{cfg.train_size[1]}, frames_n {cfg.frames_n} from "
+              f"1280x720 frames (first batch after {t1 - t0:.3f} s) on the host of {device_line}")
+    want = firsts["threads, 1 worker"]
+    for label, got in firsts.items():
+        same = all(np.array_equal(got[k], want[k]) for k in ("x", "m", "y", "flow_gt", "m_movement",
+                                                              "flows_use"))
+        if not same or got["names"] != want["names"] or got["indexes"] != want["indexes"]:
+            raise RuntimeError(f"CLI loader: the first batch with {label} differs from one thread's")
+    print(f"check CLI loader: the first batches of threads and processes are bit-equal ({len(firsts)})")
+
+
+def phase_cli(results, device_line, synthetic):
+    """``__main__.main(argv)`` on the card in its four modes over a tree the
+    phase writes: DFPN train (B=8, frames_n 2, 256x256, base 256, worker
+    processes), a resume of it, DFPN test, CHN train (nb 20, the CPN
+    aligner; these two with loader threads) and CHN test (ff / ip / cp over the DAVIS clip at the default
+    test_size). Each mode's kernel launches, with the counters set to 0
+    just before it and read just after, against the expected ones; the
+    batches and parameters on the card; finite losses, moved parameters;
+    the checkpoint reloaded and resumed; CHN test's frames in [0, 1] and the
+    input's where visible; the loader's samples/s; each train mode's
+    ms/step and busy share with the real loader, beside the synthetic-batch
+    step of the same shape (``synthetic``: (s/step, busy ms) by mode)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from master_thesis_tpu_torch import __main__ as cli
+    from master_thesis_tpu_torch.data import meta
+    from master_thesis_tpu_torch.infer.video import write_video
+    from master_thesis_tpu_torch.data.decode import opencv
+    from master_thesis_tpu_torch.models.chn import RRDBNet
+    from master_thesis_tpu_torch.ops import conv_stack, rrdb, rrdb_bwd, tail, tail_bwd
+    from master_thesis_tpu_torch.runtime import native
+    from master_thesis_tpu_torch.train import build, loop
+
+    t_phase = time.perf_counter()
+    counters = {"K1": rrdb.rdb_cuda, "K2": rrdb.rdb_banded_cuda, "K3": rrdb_bwd.rrdb_bwd_cuda,
+                "K4": tail.tail_cuda, "K5": tail.tail_banded_cuda, "K6": tail_bwd.tail_bwd_cuda,
+                "K7": conv_stack.conv_stack_tiles_cuda, "K8": conv_stack.conv_stack_banded_cuda}
+    none = dict.fromkeys(counters, 0)
+    libs = native.is_available()
+    why = [ln for ln in native.error("codec").splitlines() if "error" in ln] if not libs["codec"] else []
+    print(f"CLI: host libraries {libs}" + ("" if libs["codec"] else
+          f"; the codec did not build ({(why or ['?'])[0].strip()[:160]}), so "
+          f"{'OpenCV' if opencv() is not None else 'nothing'} decodes the JPEGs"))
+
+    devices, ticks, chn_calls = set(), [], [0]
+    prof = {}
+    batch_args, step_timer, rrdbnet_forward = cli.batch_args, loop.StepTimer, RRDBNet.forward
+
+    def recording_batch_args(batch, keys, device):
+        out = batch_args(batch, keys, device)
+        devices.update(t.device.type for t in out)
+        return out
+
+    class CLITimer(step_timer):
+        """The Trainer's timer, synchronised at each tick: times the steps
+        after tick CLI_TIMED[0] up to CLI_TIMED[1], and profiles the card
+        (CUDA activity only) from there to the last step."""
+
+        def tick(self):
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter())
+            if len(ticks) == CLI_TIMED[1]:
+                prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+                prof["p"].start()
+            elif len(ticks) == CLI_STEPS and "p" in prof:
+                prof["p"].stop()
+            super().tick()
+
+    def counting_forward(self, *a, **k):
+        chn_calls[0] += 1
+        return rrdbnet_forward(self, *a, **k)
+
+    def run(label, argv, want, **kw):
+        """main(argv) with the counters set to 0 just before and read just
+        after. Returns (result, counts, host seconds)."""
+        for c in counters.values():
+            c.launches = 0
+        devices.clear()
+        ticks.clear()
+        prof.clear()
+        chn_calls[0] = 0
+        t0 = time.perf_counter()
+        out = cli.main(argv, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: c.launches for k, c in counters.items()}
+        want = want(chn_calls[0]) if callable(want) else want
+        print(f"CLI {label}: {secs:.3f} s on the host; kernel launches {counts} (expected {want})")
+        if counts != want:
+            raise RuntimeError(f"CLI {label} did not launch each kernel as expected")
+        if devices - {"cuda"}:
+            raise RuntimeError(f"CLI {label}: batches on {devices}")
+        return out, counts, secs
+
+    def train_checks(label, state, logger, fresh):
+        if not all(p.is_cuda for p in state.model.parameters()):
+            raise RuntimeError(f"CLI {label}: a parameter is not on the card")
+        items = [(prefix, step, k, v) for prefix, step, sc in logger.scalars for k, v in sc.items()
+                 if k != "step_time_s"]
+        if not items or not all(np.isfinite(v) for *_, v in items):
+            raise RuntimeError(f"CLI {label}: logged items missing or not finite: {items[:8]}")
+        moved = sum(not torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
+                                                          fresh.state_dict().values()))
+        n = len(fresh.state_dict())
+        if moved != n:
+            raise RuntimeError(f"CLI {label}: only {moved} of {n} parameters moved")
+        first = next(sc for prefix, step, sc in logger.scalars if prefix == "training/" and step == 1)
+        print(f"CLI {label}: step 1 " + ", ".join(f"{k} {v:.6g}" for k, v in first.items()
+                                                  if k != "step_time_s")
+              + f"; all logged items finite; all {moved} parameters moved; batches and "
+              f"parameters on cuda")
+        # Ticks 1..CLI_STEPS follow the steps; each interval holds a step and
+        # the wait for the next batch.
+        t = np.asarray(ticks)
+        ms = 1e3 * (t[CLI_TIMED[1] - 1] - t[CLI_TIMED[0] - 1]) / (CLI_TIMED[1] - CLI_TIMED[0])
+        profiled = CLI_STEPS - CLI_TIMED[1]
+        busy = sum(e.self_device_time_total for e in prof["p"].key_averages()
+                   if str(e.device_type).endswith("CUDA")) / 1e3 / profiled
+        return ms, busy
+
+    cli.batch_args, loop.StepTimer, RRDBNet.forward = recording_batch_args, CLITimer, counting_forward
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            n_files, how = write_tree(f"{tmp}/data", np.random.RandomState(SEED + 30))
+            print(f"CLI tree: {n_files} files written with {how} in {time.perf_counter() - t0:.3f} s")
+            common = ["--device", "cuda", "--data_path", f"{tmp}/data", "--data_ckpt_path",
+                      f"{tmp}/data.ckpt", "--default_root_dir", f"{tmp}/logs", "--seed", str(SEED)]
+            train = ["--batch_size", str(CLI_B), "--frames_n", "2", "--train_size", str(H), str(W),
+                     "--train_max_iterations", str(CLI_STEPS), "--validation_max_iterations",
+                     str(CLI_VAL), "--max_epochs", "1", "--num_workers", str(CLI_WORKERS)]
+            # DFPN trains with worker processes, CHN and the resume with
+            # threads (a spawned worker takes seconds to start here).
+            dfpn_argv = common + train + ["--dfpn_base_size", str(DFPN_BASE)]
+            chn_argv = common + train + ["--chn", "--chn_nb", str(NB)]
+            cfg = cli_config(dfpn_argv)
+            t0 = time.perf_counter()
+            metas = meta.prepare_data(cfg)
+            print(f"CLI data.ckpt: {[len(m) for m in metas]} sequences (train backgrounds, train "
+                  f"masks, validation backgrounds, validation masks, test) in "
+                  f"{time.perf_counter() - t0:.3f} s")
+            if min(len(m) for m in metas) == 0:
+                raise RuntimeError("CLI: a split of the tree is empty after the mask-size filter")
+            phase_cli_loader(cfg, device_line)
+
+            timing = {}
+            logger = MemoryLogger()
+            state, counts, secs = run("DFPN train", dfpn_argv + ["--loader_processes", "true"], none,
+                                      logger=logger)
+            timing["dfpn"] = train_checks("DFPN train", state, logger, cli.load_dfpn(cfg))
+            version = f"{tmp}/logs/version_0"
+            saved = torch.load(f"{version}/checkpoints/step_{CLI_STEPS}.pt", map_location="cuda",
+                               weights_only=True)
+            if any(not torch.equal(saved["model"][k], v) for k, v in state.model.state_dict().items()):
+                raise RuntimeError("CLI DFPN train: the checkpoint does not hold the trained parameters")
+            resumed, _, _ = run("DFPN train resumed for a second epoch",
+                                dfpn_argv + ["--max_epochs", "2", "--resume_from_checkpoint", version],
+                                none, logger=MemoryLogger())
+            if resumed.step != 2 * CLI_STEPS or not os.path.isfile(
+                    f"{tmp}/logs/version_1/checkpoints/step_{2 * CLI_STEPS}.pt"):
+                raise RuntimeError(f"CLI DFPN resume: step {resumed.step}, not {2 * CLI_STEPS}")
+            print(f"check CLI DFPN checkpoint: step_{CLI_STEPS}.pt holds the trained parameters; the "
+                  f"resume from it ran steps {CLI_STEPS + 1}..{resumed.step}")
+
+            test_logger = MemoryLogger()
+            means, counts, _ = run("DFPN test", common + ["--test", "--test_checkpoint", version,
+                                                          "--dfpn_base_size", str(DFPN_BASE)],
+                                   {**none, "K7": 5}, logger=test_logger)
+            if not all(np.isfinite(v) for v in means.values()) or not test_logger.images:
+                raise RuntimeError(f"CLI DFPN test: {means}, {len(test_logger.images)} image strips")
+            print("CLI DFPN test: " + ", ".join(f"{k} {v:.6g}" for k, v in means.items())
+                  + f"; {len(test_logger.images)} aligned-frame strips logged")
+            cli_counts = {"DFPN train": none, "DFPN test": counts}
+
+            logger = MemoryLogger()
+            steps, evals = CLI_STEPS, CLI_VAL
+            want = {**none, "K1": 3 * NB * (steps + evals), "K3": NB * steps,
+                    "K4": tail.TAIL_KERNELS * (steps + evals), "K6": tail_bwd.TAIL_BWD_KERNELS * steps}
+            state, counts, _ = run("CHN train", chn_argv, want, logger=logger)
+            cli_counts["CHN train"] = counts
+            timing["chn"] = train_checks("CHN train", state, logger, build.build_chn(cli_config(chn_argv)))
+
+            frames = {}
+
+            def writer(y_hat, name):
+                frames[name] = y_hat
+                return write_video(y_hat, name, out_dir=f"{tmp}/videos") if opencv() else name
+
+            test_argv = common + ["--chn", "--test", "--chn_nb", str(NB), "--test_checkpoint",
+                                  f"{tmp}/logs/version_2"]
+            per_call = lambda calls: {**none, "K1": 3 * NB * calls, "K4": tail.TAIL_KERNELS * calls}
+            means, counts, _ = run("CHN test", test_argv, per_call, logger=MemoryLogger(),
+                                   video_writer=writer)
+            cli_counts["CHN test"] = counts
+            if not chn_calls[0]:
+                raise RuntimeError("CLI CHN test: the CHN's kernel route was not called")
+            tcfg = cli_config(test_argv)
+            clip = next(iter(build.build_loaders(tcfg, meta.prepare_data(tcfg), splits=("test",))["test"]))
+            x, m = clip["x"][0], clip["m"][0]
+            for name, y_hat in frames.items():
+                if y_hat.shape != x.shape or not np.isfinite(y_hat).all() or y_hat.min() < 0 \
+                        or y_hat.max() > 1:
+                    raise RuntimeError(f"CLI CHN test {name}: frames {y_hat.shape} not finite in [0, 1]")
+                visible = np.broadcast_to(m == 0, x.shape)
+                if not np.array_equal(y_hat[visible], x[visible]):
+                    raise RuntimeError(f"CLI CHN test {name}: frames differ from the input where visible")
+            if sorted(frames) != ["clip0_cp", "clip0_ff", "clip0_ip"] or not all(np.isfinite(list(means.values()))):
+                raise RuntimeError(f"CLI CHN test: videos {sorted(frames)}, measures {means}")
+            print(f"CLI CHN test: {x.shape[0]} frames at {x.shape[1]}x{x.shape[2]}, " + ", ".join(
+                f"{k} {v:.4f}" for k, v in means.items()) + f"; {chn_calls[0]} CHN calls; frames in "
+                f"[0, 1], the input's where visible; videos {sorted(frames)}")
+    finally:
+        cli.batch_args, loop.StepTimer, RRDBNet.forward = batch_args, step_timer, rrdbnet_forward
+
+    for mode, (ms, busy) in timing.items():
+        syn_s, syn_busy = synthetic[mode]
+        label, workers = {"dfpn": ("DFPN train (module VGG; the synthetic step's on K8)", "processes"),
+                          "chn": ("CHN train (CPN aligner)", "threads")}[mode]
+        print(f"CLI {label}: B={CLI_B} frames_n 2 {H}x{W}: {ms:.3f} ms/step with the real loader "
+              f"({CLI_WORKERS} worker {workers}, steps {CLI_TIMED[0] + 1}-{CLI_TIMED[1]}), "
+              f"{1e3 * CLI_B / ms:.3f} samples/s; device busy {busy:.3f} ms a step (steps "
+              f"{CLI_TIMED[1] + 1}-{CLI_STEPS} profiled), {100 * busy / ms:.1f}% of it; the "
+              f"synthetic-batch step: {1e3 * syn_s:.3f} ms/step, busy {syn_busy:.3f} ms "
+              f"({100 * syn_busy / (1e3 * syn_s):.1f}%) on {device_line}")
+    for k in ("K1", "K3", "K4", "K6", "K7"):
+        results[k]["launches_cli"] = {mode: c[k] for mode, c in cli_counts.items()}
+    print(f"phase CLI: {time.perf_counter() - t_phase:.1f} s")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2399,7 +2775,7 @@ def main() -> int:
     phase_main_path(cpn, chn, results, smi)
     with torch.no_grad():
         phase_kernels_bwd(chn, results)
-    phase_train(cpn, chn, results, smi)
+    chn_step = phase_train(cpn, chn, results, smi)
     from master_thesis_tpu_torch.models.vgg import VGGFeatures
     from master_thesis_tpu_torch.train.build import build_dfpn
 
@@ -2416,13 +2792,14 @@ def main() -> int:
     # phase has moved the shared one).
     video_chn = CHN(nb=NB, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED + 1))
     phase_video(cpn, video_chn, results, smi)
-    phase_dfpn_train(results, smi)
+    dfpn_step = phase_dfpn_train(results, smi)
+    phase_cli(results, smi, {"dfpn": dfpn_step, "chn": chn_step})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # Beside them, the first design's time where the kernel was redesigned.
     first = ("first_design_ms", "tiles_ms", "first_ms")
     kernels = [{**{k: r[k] for k in keys}, **{"first_design_ms": r[k] for k in first if k in r},
-                **{k: r[k] for k in ("sources", "launches_dfpn_train") if k in r}}
+                **{k: r[k] for k in ("sources", "launches_dfpn_train", "launches_cli") if k in r}}
                for _, r in sorted(results.items())]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -18,7 +18,9 @@ and tail backward passes are kernels too (:mod:`.ops.rrdb_bwd`,
 conv-stack kernels (:mod:`.ops.conv_stack`); and full-video inpainting
 (:mod:`.infer`), whose large frames take the banded trunk and tail; and
 DFPN training (:mod:`.train.dfpn_task`) with the train loop, checkpoints
-and logging (:mod:`.train.loop`).
+and logging (:mod:`.train.loop`); and the host data pipeline
+(:mod:`.data`, :mod:`.runtime`) with the command line
+(``python -m master_thesis_tpu_torch``, :mod:`.__main__`, :mod:`.config`).
 """
 
 from master_thesis_tpu_torch.device import resolve_device

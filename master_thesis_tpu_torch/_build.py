@@ -1,10 +1,17 @@
-"""Builds the port's CUDA kernels from ``csrc/`` with ``nvcc`` at first use.
+"""Builds the port's CUDA kernels from ``csrc/`` with ``nvcc``, and its
+host libraries with the host C++ compiler, at first use.
 
 Each source ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, loaded with ctypes. The library's file name carries a hash of
 the sources and flags, so an edited source is rebuilt and a stale library
 is never loaded. Importing this module runs nothing; :func:`build` starts
 one ``nvcc`` per source, all at once, and waits for them.
+
+A host source ``csrc/<name>.cpp`` (the data pipeline's warps and codecs,
+:mod:`.runtime.native`) is compiled by :func:`build_host` with ``g++`` (or
+``$CXX``). A compile that fails leaves its compiler output beside the
+library's name as ``.failed``; later calls, in this process or another,
+read that and do not compile again (delete the file to retry).
 """
 
 from __future__ import annotations
@@ -38,6 +45,51 @@ def nvcc_path() -> str:
     if found is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
     return found
+
+
+HOST_FLAGS = ("-O3", "-fPIC", "-shared")
+
+
+class HostBuildError(RuntimeError):
+    """A host library could not be compiled here (no compiler, or a header
+    or library it needs is missing)."""
+
+
+def host_compiler() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if not cxx:
+        raise HostBuildError("no host C++ compiler (g++, c++ or $CXX) on this machine")
+    return cxx
+
+
+def host_lib_path(name: str, libs: Tuple[str, ...] = ()) -> Path:
+    """Where ``csrc/<name>.cpp`` built with ``libs`` lives: the name hashes
+    the source and the flags."""
+    h = hashlib.sha1(" ".join(HOST_FLAGS + tuple(libs)).encode())
+    h.update((CSRC / f"{name}.cpp").read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_host(name: str, libs: Tuple[str, ...] = ()) -> Path:
+    """The library of ``csrc/<name>.cpp`` linked with ``libs`` (``-l``
+    flags), compiled now if it is not built yet. Raises
+    :class:`HostBuildError` when the compile fails, now or in an earlier
+    call (the ``.failed`` file beside it holds the compiler's output)."""
+    target = host_lib_path(name, libs)
+    failed = target.with_suffix(".failed")
+    if target.exists():
+        return target
+    if failed.exists():
+        raise HostBuildError(f"{name}: an earlier compile failed ({failed}):\n{failed.read_text()}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+    cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp"), *libs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        failed.write_text(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise HostBuildError(f"{name}: compile failed:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, target)
+    return target
 
 
 def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:

@@ -26,13 +26,15 @@ in training through their autograd Functions (:mod:`..ops.rrdb_bwd`,
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from master_thesis_tpu_torch.device import constant, resolve_device
-from master_thesis_tpu_torch.models.nn_ext import Conv
+from master_thesis_tpu_torch.models.nn_ext import Conv, leaky_relu
 from master_thesis_tpu_torch.models.vgg import IMAGENET_MEAN, IMAGENET_STD
 from master_thesis_tpu_torch.ops import rrdb as rrdb_ops
 from master_thesis_tpu_torch.ops import tail as tail_ops
@@ -69,7 +71,8 @@ def kernel_routes(h: int, w: int, nf: int = 64, gc: int = 32) -> Tuple[bool, boo
 
 class ResidualDenseBlock5C(nn.Module):
     """Five dense 3x3 convs (reference model_chn.py:588-623); holds the
-    parameters, the packed kernels compute it (:mod:`..ops.rrdb`)."""
+    parameters, the packed kernels compute it (:mod:`..ops.rrdb`), and
+    :meth:`forward` is the module route."""
 
     def __init__(self, nf: int, gc: int, *, generator: torch.Generator, dtype: torch.dtype):
         super().__init__()
@@ -77,6 +80,12 @@ class ResidualDenseBlock5C(nn.Module):
             cin = nf + k * gc
             cout = gc if k < 4 else nf
             setattr(self, f"conv{k + 1}", Conv(cin, cout, 3, padding=1, generator=generator, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = [x]
+        for k in range(1, 5):
+            feats.append(leaky_relu(getattr(self, f"conv{k}")(torch.cat(feats, 1))))
+        return self.conv5(torch.cat(feats, 1)) * 0.2 + x
 
 
 class RRDB(nn.Module):
@@ -87,6 +96,9 @@ class RRDB(nn.Module):
         self.rdb1 = ResidualDenseBlock5C(nf, gc, generator=generator, dtype=dtype)
         self.rdb2 = ResidualDenseBlock5C(nf, gc, generator=generator, dtype=dtype)
         self.rdb3 = ResidualDenseBlock5C(nf, gc, generator=generator, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.rdb3(self.rdb2(self.rdb1(x))) * 0.2 + x
 
 
 class RRDBNet(nn.Module):
@@ -175,6 +187,20 @@ class RRDBNet(nn.Module):
             return tail_ops.tail_banded(y, tail_w, tail_band_rows or 0)
         return tail_ops.tail(y, tail_w)
 
+    def forward_modules(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """The module route: the reference's forward (model_chn.py:536-555)
+        through the modules, autograd through every conv (cuDNN on the
+        card) and no kernel; with ``remat`` each RRDB is computed again in
+        the backward instead of keeping its activations."""
+        y = self.conv_first(x)
+        trunk = y
+        for blk in self.rrdb_trunk:
+            trunk = checkpoint(blk, trunk, use_reentrant=False) if remat else blk(trunk)
+        y = y + self.trunk_conv(trunk)
+        y = leaky_relu(self.upconv1(F.interpolate(y, scale_factor=2, mode="nearest")))
+        y = leaky_relu(self.upconv2(F.interpolate(y, scale_factor=2, mode="nearest")))
+        return self.conv_last(leaky_relu(self.hr_conv(y)))
+
     def forward_train(self, x: torch.Tensor) -> torch.Tensor:
         """The differentiable forward: the head and ``trunk_conv`` through
         autograd (cuDNN on the card), the trunk and the tail as autograd
@@ -204,9 +230,11 @@ def chn_infer_apply(
     v_maps: torch.Tensor,
     trunk_band_rows: Optional[int] = None,
     tail_band_rows: Optional[int] = None,
+    net: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CHN forward (models/chn.py:430): returns ``(y_hat, y_hat_comp)``,
-    both ``(B, F, H, W, 3)``.
+    both ``(B, F, H, W, 3)``. ``net`` replaces the RRDBNet's kernel route,
+    as :meth:`RRDBNet.forward_modules` does for the module route.
 
     Network input channels are ``[x_t, x_ref, v_t, v_ref, v_map]``
     (chn.py:494-503); the output is de-normalized, clipped to [0, 1] and
@@ -225,7 +253,10 @@ def chn_infer_apply(
         dim=-1,
     ).reshape(b * f, h, w, 9)
     nn_input = nn_input.permute(0, 3, 1, 2).to(chn.dtype).contiguous()
-    nn_output = chn.nn(nn_input, trunk_band_rows, tail_band_rows)
+    if net is None:
+        nn_output = chn.nn(nn_input, trunk_band_rows, tail_band_rows)
+    else:
+        nn_output = net(nn_input)
     # The tail's output on the card is channels-last: an NHWC view, no copy.
     nn_output = nn_output.permute(0, 2, 3, 1).reshape(b, f, h, w, 3)
     out_dtype = torch.promote_types(x_target.dtype, torch.float32)

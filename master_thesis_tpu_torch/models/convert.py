@@ -1,10 +1,14 @@
 """JAX param trees -> port state dicts (the inverse of
 master_thesis_tpu/models/convert.py: chn_from_torch, cpn_from_torch,
-vgg16_from_torch, dfpn_from_torch).
+vgg16_from_torch, dfpn_from_torch, lpips_from_torch), and reference torch
+checkpoints -> port state dicts (``load_torch_checkpoint``,
+``strip_module_prefix``).
 
 The trees arrive as nested dicts of numpy arrays (no JAX needed). Layout
 rules: conv kernels HWIO -> OIHW; transposed-conv kernels ``(k, k, I, O)``
--> ``(I, O, k, k)``; Dense kernels ``(I, O)`` -> ``(O, I)``.
+-> ``(I, O, k, k)``; Dense kernels ``(I, O)`` -> ``(O, I)``. The port's
+modules keep the reference's state-dict keys, so a reference checkpoint
+needs only unwrapping.
 """
 
 from __future__ import annotations
@@ -25,6 +29,27 @@ def _t(a) -> torch.Tensor:
 def _conv(sd: Dict, prefix: str, kernel, bias) -> None:
     sd[f"{prefix}.weight"] = _t(np.asarray(kernel).transpose(3, 2, 0, 1))
     sd[f"{prefix}.bias"] = _t(bias)
+
+
+def strip_module_prefix(sd: Mapping) -> Dict:
+    """Removes DataParallel ``module.`` prefixes (reference model_cpn.py:111-113)."""
+    return {k.replace("module.", ""): v for k, v in sd.items()}
+
+
+def unwrap_state_dict(data: Mapping) -> Dict[str, torch.Tensor]:
+    """A loaded reference checkpoint as a flat state dict of tensors: a
+    Lightning file's ``state_dict`` level taken, DataParallel ``module.``
+    prefixes dropped. It goes into ``load_state_dict`` as it is."""
+    if "state_dict" in data:
+        data = data["state_dict"]
+    return strip_module_prefix({k: torch.as_tensor(v) for k, v in dict(data).items()})
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth`` / ``.ckpt`` file (:func:`unwrap_state_dict`),
+    on the CPU."""
+    # A Lightning file holds more than tensors (hyper-parameters, loops).
+    return unwrap_state_dict(torch.load(path, map_location="cpu", weights_only=False))
 
 
 def chn_from_jax(params: Mapping, nb: int) -> Dict[str, torch.Tensor]:
@@ -97,4 +122,19 @@ def dfpn_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                 sd[f"{est}.nn.{2 * i}.bias"] = _t(q["bias"])
             else:
                 _conv(sd, f"{est}.nn.{2 * i}", q["kernel"], q["bias"])
+    return sd
+
+
+_ALEX_IDX = (0, 3, 6, 8, 10)
+
+
+def lpips_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``LPIPS`` params (``net`` with ``conv0..4``, ``lin0..4``) -> an
+    ``LPIPS`` state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, idx in enumerate(_ALEX_IDX):
+        q = params["net"][f"conv{i}"]
+        _conv(sd, f"net.features.{idx}", q["kernel"], q["bias"])
+    for i in range(5):
+        sd[f"lin{i}.model.1.weight"] = _t(np.asarray(params[f"lin{i}"]["kernel"]).transpose(3, 2, 0, 1))
     return sd

@@ -1,21 +1,34 @@
-"""Model construction and the closures the algorithms call
-(master_thesis_tpu/train/build.py: build_dfpn, dfpn_align_fn, chn_infer_fn).
+"""Model construction, the closures the tasks and algorithms call, and the
+loaders (master_thesis_tpu/train/build.py: build_vgg, build_cpn,
+build_dfpn, dfpn_align_fn, build_chn, build_lpips, chn_infer_fn,
+chn_train_fn, build_loaders).
 
 :func:`dfpn_align_fn` is the DFPN aligner with ``CPN.align``'s interface:
 VGG-16 pool-4 features of the normalised, ``base_size``-resized frames,
 then :func:`..models.dfpn.dfpn_infer_apply`, then
 :func:`..models.dfpn.dfpn_align`. With ``chn_infer_apply`` after it, that
 is the serving step of ``--chn --chn_aligner dfpn``.
+
+Routes: the JAX package takes its Pallas kernels with ``use_pallas`` on a
+TPU and its modules elsewhere; the port takes its kernels with
+``use_pallas`` on a CUDA device (:func:`use_kernels`) and its modules
+elsewhere: the CHN through :meth:`..models.chn.RRDBNet.forward_modules`,
+the DFPN aligner with every stage on its module. VGG stays on its module,
+as in the JAX CLI.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from functools import partial
 from typing import Callable, Optional
 
 import torch
 
+from master_thesis_tpu_torch.models import convert
 from master_thesis_tpu_torch.models.chn import CHN, chn_infer_apply
+from master_thesis_tpu_torch.models.cpn import CPN
 from master_thesis_tpu_torch.models.dfpn import (
     DFPN,
     dfpn_align,
@@ -23,6 +36,44 @@ from master_thesis_tpu_torch.models.dfpn import (
     prepare_vgg_input,
 )
 from master_thesis_tpu_torch.models.vgg import VGGFeatures, vgg_pool4_pallas
+from master_thesis_tpu_torch.train.checkpoint import load_weights
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def use_kernels(cfg) -> bool:
+    """Whether the run takes the hand-written kernels: ``use_pallas`` on a
+    CUDA device."""
+    return bool(cfg.use_pallas) and torch.device(cfg.device).type == "cuda"
+
+
+def _load_weights(module: torch.nn.Module, checkpoint: Optional[str], what: str) -> None:
+    """Loads ``checkpoint`` into ``module`` where the file exists
+    (:func:`.checkpoint.load_weights`); warns and keeps the random weights
+    where a path was given but no file is there."""
+    if checkpoint and os.path.exists(checkpoint):
+        load_weights(module, checkpoint)
+    elif checkpoint:
+        warnings.warn(f"{what} checkpoint {checkpoint} not found; random init")
+
+
+def build_vgg(cfg, checkpoint: Optional[str] = None) -> VGGFeatures:
+    """The frozen VGG-16 features (random from seed 1, the JAX key, or a
+    torchvision ``vgg16`` state dict)."""
+    vgg = VGGFeatures(dtype=compute_dtype(cfg), device=cfg.device,
+                      generator=torch.Generator().manual_seed(1))
+    _load_weights(vgg, checkpoint, "VGG")
+    return vgg.requires_grad_(False).eval()
+
+
+def build_cpn(cfg, checkpoint: Optional[str] = None) -> CPN:
+    """The frozen CPN aligner (random from seed 2, or the reference
+    ``weight.pth``, whose ``module.`` prefixes are dropped)."""
+    cpn = CPN(dtype=compute_dtype(cfg), device=cfg.device, generator=torch.Generator().manual_seed(2))
+    _load_weights(cpn, checkpoint, "CPN")
+    return cpn.requires_grad_(False).eval()
 
 
 def build_dfpn(
@@ -59,8 +110,92 @@ def dfpn_align_fn(
     return align_fn
 
 
-def chn_infer_fn(chn: CHN) -> Callable:
+def build_chn(cfg) -> CHN:
+    """A CHN of ``cfg.chn_nb`` RRDBs, random from seed 4 (the JAX key)."""
+    return CHN(nb=cfg.chn_nb, dtype=compute_dtype(cfg), device=cfg.device,
+               generator=torch.Generator().manual_seed(4))
+
+
+def build_lpips(cfg, alexnet_checkpoint: Optional[str] = None,
+                lpips_checkpoint: Optional[str] = None) -> Optional[Callable]:
+    """``lpips_fn(y_hat, y)`` (the batch mean); None unless the metric's
+    weights exist (random heads would log meaningless numbers): the lpips
+    package's heads in ``lpips_checkpoint``, and the AlexNet trunk in
+    ``alexnet_checkpoint`` (torchvision keys) or under ``net.`` in the
+    heads' file."""
+    from master_thesis_tpu_torch.models.lpips import LPIPS, lpips_distance
+
+    if not (lpips_checkpoint and os.path.exists(lpips_checkpoint)):
+        return None
+    lins = convert.load_torch_checkpoint(lpips_checkpoint)
+    if alexnet_checkpoint and os.path.exists(alexnet_checkpoint):
+        trunk = {f"net.{k}": v for k, v in convert.load_torch_checkpoint(alexnet_checkpoint).items()}
+    elif any(k.startswith("net.") for k in lins):
+        trunk = {}
+    else:
+        warnings.warn("LPIPS heads found but no AlexNet trunk weights; skipping LPIPS")
+        return None
+    sd = {**trunk, **{k: v for k, v in lins.items() if k.startswith(("net.features.", "lin"))}}
+    model = LPIPS(dtype=compute_dtype(cfg), device=cfg.device)
+    model.load_state_dict(sd)
+    model.requires_grad_(False).eval()
+    return partial(lpips_distance, model)
+
+
+def chn_infer_fn(chn: CHN, kernels: bool = True) -> Callable:
     """``chn_apply(x_t, v_t, x_refs, v_refs, v_maps) -> (y_hat,
-    y_hat_comp)`` through :func:`chn_infer_apply` (the serving routes), the
-    closure :class:`..infer.Inpainter` calls."""
-    return partial(chn_infer_apply, chn)
+    y_hat_comp)``, the closure :class:`..infer.Inpainter` calls: through
+    :func:`chn_infer_apply`'s kernel route (K1 / K4, banded K2 / K5 on large
+    frames; the plain versions on a CPU tensor), or with ``kernels=False``
+    the module route."""
+    if kernels:
+        return partial(chn_infer_apply, chn)
+    return partial(chn_infer_apply, chn, net=chn.nn.forward_modules)
+
+
+def chn_train_fn(cfg, chn: CHN) -> Callable:
+    """The CHN apply of the train and eval steps: with :func:`use_kernels`
+    and ``use_pallas_bwd``, the kernel route, whose training forward and
+    backward are K1 / K3 and K4 / K6; otherwise the module route, with
+    ``chn_remat`` computing each RRDB again in the backward."""
+    if use_kernels(cfg) and cfg.use_pallas_bwd:
+        return partial(chn_infer_apply, chn)
+    return partial(chn_infer_apply, chn, net=partial(chn.nn.forward_modules, remat=cfg.chn_remat))
+
+
+def build_loaders(cfg, metas, splits=("train", "validation")):
+    """The :class:`..data.pipeline.Loader` of each split from the five metas
+    (``prepare_data``), as the JAX package builds them."""
+    from master_thesis_tpu_torch.data.pipeline import ContentProvider, InpaintingDataset, Loader
+    from master_thesis_tpu_torch.ops.movements import MovementSimulator
+
+    train_bgs, train_masks, val_bgs, val_masks, test_meta = metas
+    workers = dict(num_workers=max(1, cfg.num_workers), use_processes=cfg.loader_processes)
+    loaders = {}
+    if "train" in splits:
+        bgs = ContentProvider(
+            train_bgs, cfg.data_path,
+            movement_min_height=cfg.train_size[0] * 2,
+            movement_simulator=MovementSimulator(*cfg.bgs_movement_params),
+            frames_spacing=cfg.frames_spacing,
+            frames_randomize=cfg.frames_randomize,
+        )
+        masks = ContentProvider(
+            train_masks, cfg.data_path,
+            movement_simulator=MovementSimulator(*cfg.masks_movement_params),
+            frames_spacing=cfg.frames_spacing,
+        )
+        ds = InpaintingDataset(bgs, masks, "train", cfg)
+        loaders["train"] = Loader(ds, cfg.batch_size, seed=cfg.seed, **workers)
+    if "validation" in splits:
+        bgs = ContentProvider(val_bgs, cfg.data_path, frames_spacing=cfg.frames_spacing,
+                              frames_randomize=cfg.frames_randomize)
+        masks = ContentProvider(val_masks, cfg.data_path, frames_spacing=cfg.frames_spacing)
+        ds = InpaintingDataset(bgs, masks, "validation", cfg)
+        loaders["validation"] = Loader(ds, cfg.batch_size, seed=cfg.seed + 1, **workers)
+    if "test" in splits:
+        bgs = ContentProvider(test_meta, cfg.data_path)
+        ds = InpaintingDataset(bgs, None, "test", cfg)
+        loaders["test"] = Loader(ds, cfg.batch_size, seed=cfg.seed + 2,
+                                 num_workers=max(1, cfg.num_workers), drop_last=False)
+    return loaders

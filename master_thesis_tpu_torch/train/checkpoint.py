@@ -22,6 +22,10 @@ from typing import Any, List, Optional
 
 import torch
 
+from master_thesis_tpu_torch.models.convert import unwrap_state_dict
+
+# The keys of :meth:`..state.TrainState.state_dict`.
+TRAIN_STATE_KEYS = frozenset({"model", "optimizer", "grads", "micro", "updates", "step"})
 _STEP_FILE = re.compile(r"step_(\d+)\.pt$")
 
 
@@ -103,3 +107,37 @@ def restore_train_state(state, path: str):
     device = next(state.model.parameters()).device
     state.load_state_dict(restore_from_path(path, map_location=device))
     return state
+
+
+def is_train_state(payload: Any) -> bool:
+    """Whether a loaded checkpoint is this trainer's (it holds the train
+    state's keys) rather than a reference state dict."""
+    return isinstance(payload, dict) and TRAIN_STATE_KEYS <= payload.keys()
+
+
+def resume_split(path: Optional[str]):
+    """``(params, train_state)`` of ``--resume_from_checkpoint``: a reference
+    state dict restores the parameters only (``params``, the other None);
+    this trainer's checkpoint restores the whole train state (``train_state``,
+    for :meth:`..state.TrainState.load_state_dict`). ``(None, None)``
+    without a path."""
+    if not path:
+        return None, None
+    if os.path.isdir(path):
+        return None, restore_from_path(path, map_location="cpu")
+    # A reference file may hold more than tensors (Lightning's loops).
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    if is_train_state(data):
+        return None, data
+    return unwrap_state_dict(data), None
+
+
+def load_weights(model: torch.nn.Module, path: Optional[str]) -> torch.nn.Module:
+    """Loads the parameters of ``path`` (either kind, :func:`resume_split`)
+    into ``model``; without a path the model keeps its weights."""
+    params, state = resume_split(path)
+    if state is not None:
+        params = state["model"]
+    if params is not None:
+        model.load_state_dict(params)
+    return model

@@ -20,7 +20,8 @@ frames.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from functools import partial
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -79,18 +80,22 @@ def _split(x, m, y):
     return x[:, t], m[:, t], x[:, refs], m[:, refs], y[:, t]
 
 
-def make_train_step(chn, align_fn: Callable, vgg: Callable, perceptual_grad: bool = False):
+def make_train_step(chn, align_fn: Callable, vgg: Callable, perceptual_grad: bool = False,
+                    chn_apply: Optional[Callable] = None):
     """``train_step(state, x, m, y) -> items``: one micro-step of ``state``
     (its model is ``chn``; an update every ``accumulate_grad_batches``) on
     the batch ``x``, ``m``, ``y`` ``(B, F, H, W, C)``.
     ``align_fn(x_t, m_t, x_refs, m_refs) -> (x_aligned, v_aligned, v_maps)``
-    is frozen: no gradient reaches it."""
+    is frozen: no gradient reaches it. ``chn_apply`` (default
+    ``chn_infer_apply`` on ``chn``, the kernel route) computes ``(y_hat,
+    y_hat_comp)``."""
+    chn_apply = chn_apply or partial(chn_infer_apply, chn)
 
     def train_step(state, x, m, y):
         x_t, m_t, x_r, m_r, y_t = _split(x, m, y)
         with torch.no_grad():
             xa, va, vm = align_fn(x_t, m_t, x_r, m_r)
-        y_hat, y_hat_comp = chn_infer_apply(chn, x_t, 1 - m_t, xa, va, vm)
+        y_hat, y_hat_comp = chn_apply(x_t, 1 - m_t, xa, va, vm)
         total, items = compute_loss(
             y_t, 1 - m_t, y_hat, y_hat_comp, vm, vgg, perceptual_grad=perceptual_grad
         )
@@ -102,20 +107,25 @@ def make_train_step(chn, align_fn: Callable, vgg: Callable, perceptual_grad: boo
     return train_step
 
 
-def make_eval_step(chn, align_fn: Callable, vgg: Callable):
+def make_eval_step(chn, align_fn: Callable, vgg: Callable, chn_apply: Optional[Callable] = None,
+                   lpips_fn: Optional[Callable] = None):
     """``eval_step(x, m, y) -> (items, y_hat_comp)``: the loss items and the
-    PSNR / SSIM of the first composite (reference model_chn.py:282-307).
-    LPIPS waits for converted metric weights."""
+    PSNR / SSIM of the first composite (reference model_chn.py:282-307),
+    and its LPIPS where ``lpips_fn`` (which needs converted metric weights,
+    :func:`..build.build_lpips`) is given."""
+    chn_apply = chn_apply or partial(chn_infer_apply, chn)
 
     @torch.no_grad()
     def eval_step(x, m, y):
         x_t, m_t, x_r, m_r, y_t = _split(x, m, y)
         xa, va, vm = align_fn(x_t, m_t, x_r, m_r)
-        y_hat, y_hat_comp = chn_infer_apply(chn, x_t, 1 - m_t, xa, va, vm)
+        y_hat, y_hat_comp = chn_apply(x_t, 1 - m_t, xa, va, vm)
         total, items = compute_loss(y_t, 1 - m_t, y_hat, y_hat_comp, vm, vgg)
         items["loss"] = total
         items["psnr"] = measures.psnr(y_hat_comp[:, 0], y_t)
         items["ssim"] = measures.ssim(y_hat_comp[:, 0], y_t)
+        if lpips_fn is not None:
+            items["lpips"] = lpips_fn(y_hat_comp[:, 0], y_t)
         return items, y_hat_comp
 
     return eval_step

@@ -3,7 +3,8 @@
 
 The reference logs scalars and images through Lightning's TensorBoard
 logger (model_dfpn.py:396-456, model_chn.py:393-422); here a thin
-tensorboardX writer does the same, imported when a :class:`Logger` is made.
+tensorboardX writer does the same (PyTorch's own where tensorboardX is not
+installed), imported when a :class:`Logger` is made.
 :func:`maybe_profile` traces a region with ``torch.profiler``.
 """
 
@@ -20,7 +21,10 @@ import torch
 
 class Logger:
     def __init__(self, version_dir: str):
-        from tensorboardX import SummaryWriter
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            from torch.utils.tensorboard import SummaryWriter
 
         self.writer = SummaryWriter(version_dir)
 

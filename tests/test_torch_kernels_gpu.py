@@ -694,3 +694,37 @@ def test_dfpn_train_step_on_the_card_matches_the_cpu(cuda):
     for k, g in want.items():
         assert g.abs().max() > 0, k
         assert _rel_l2(got[k], g) <= 5e-3, k
+
+
+def test_cli_trains_dfpn_and_chn_on_the_card(cuda, tmp_path):
+    """One step each of DFPN train and CHN train through ``main([...,
+    "--device", "cuda"])`` on a small fixture tree (bf16, base 64, two
+    RRDBs, no validation). With the JAX CLI's default routes DFPN training
+    launches no kernel (VGG and DFPN's convs on their modules); CHN
+    training launches K1 (3 calls an RRDB) and K3 (one an RRDB) for the
+    trunk, K4 and K6 for the tail."""
+    from master_thesis_tpu_torch.__main__ import main
+    from master_thesis_tpu_torch.ops import conv_stack, rrdb_bwd, tail_bwd
+    from tests.fixtures import make_fake_data_root
+
+    root = make_fake_data_root(str(tmp_path / "data"))
+    common = ["--device", "cuda", "--data_path", root, "--data_ckpt_path", str(tmp_path / "data.ckpt"),
+              "--default_root_dir", str(tmp_path / "logs"), "--dfpn_base_size", "64", "--chn_nb", "2",
+              "--train_size", "64", "64", "--batch_size", "2", "--train_max_iterations", "1",
+              "--max_epochs", "1", "--limit_val_batches", "0"]
+    counters = {"K1": rrdb.rdb_cuda, "K3": rrdb_bwd.rrdb_bwd_cuda, "K4": tail.tail_cuda,
+                "K6": tail_bwd.tail_bwd_cuda, "K7": conv_stack.conv_stack_tiles_cuda,
+                "K8": conv_stack.conv_stack_banded_cuda}
+
+    def run(argv):
+        for c in counters.values():
+            c.launches = 0
+        state = main(common + argv)
+        torch.cuda.synchronize()
+        assert state.step == 1
+        assert all(p.is_cuda and torch.isfinite(p).all() for p in state.model.parameters())
+        return {k: c.launches for k, c in counters.items()}
+
+    assert run(["--frames_n", "2"]) == dict.fromkeys(counters, 0)
+    assert run(["--chn", "--frames_n", "3"]) == {
+        "K1": 2 * 3, "K3": 2, "K4": tail.TAIL_KERNELS, "K6": tail_bwd.TAIL_BWD_KERNELS, "K7": 0, "K8": 0}
