@@ -157,7 +157,23 @@ Phases, each fatal on failure:
    CHN train, K1 / K4 in CHN test), batches and parameters on the card,
    finite items, every parameter moved, CHN test's frames in [0, 1] and the
    input's where visible; each train mode's ms/step with the real loader
-   and busy share beside the synthetic-batch step of phases 6 and 11.
+   and busy share beside the synthetic-batch step of phases 6 and 11;
+13. distribution (``master_thesis_tpu_torch.parallel``): (a) phase 6's
+   train step (CHN, B=8, frames_n 2, 256x256, nb 20, bf16, the same seeds
+   and batch) on a 1x1 NCCL mesh, its items and parameter updates by group
+   against the one-process step's, beside two one-process runs' own
+   spread; (b) two ranks on the one card over gloo (spawned with
+   ``torch.multiprocessing``), the CHN step on a 2x1 mesh (4 rows a rank)
+   and (c) the DFPN train step at B=8, frames_n 3, base 256, its frozen VGG
+   features on K8, on a 1x2 mesh (one reference a rank), each 3 steps from
+   the same seeds and batches as a one-process run of them: each rank's
+   items (summed over the ranks) and its parameter updates by group against
+   the one-process run's, the ranks' parameters bit-equal, each rank's
+   K1 / K3 / K4 / K6 (b) and K8 (c) launches in its last step, each rank's
+   ms/step, all-reduce ms an update (CUDA events) and peak memory; both read
+   also with two planted faults, each denominator local to its rank and
+   rank 1 keeping its own grads, which must be caught. Two ranks on one
+   card check correctness, not scaling.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card or
@@ -265,6 +281,23 @@ LAYOUT_KEYS = ("nchwtonhwc", "nhwctonchw", "transpose", "copy")
 DFPN_TRAIN_B, DFPN_TRAIN_F = 8, 2
 REL_K8_ITEMS, L2_K8_MAPS = 2e-3, 2e-2
 L2_RESUME_PARAMS, L2_RESUME_MOMENTS = 5e-4, 2e-2
+# The distribution phase: DIST_STEPS steps a run; the DFPN step's frames_n
+# (two references, one a model rank); a rank's run must end within
+# DIST_JOIN_S seconds. A distributed run's items may differ from the
+# one-process run's by L2_DIST_ITEMS at most (the largest relative error
+# over the items and steps: the one-process perceptual item is a bf16
+# mean, the mesh's an f32 sum over a count), each group of its first
+# step's grads (after the all-reduce) by L2_DIST_GRADS relative L2 (bf16
+# sums over other batch splits), each group of its parameter updates over
+# the steps by L2_DIST_UPDATES (Adam's first steps turn a grad's noise
+# into a full step where the grad is near zero). Correct runs read at most
+# 7.5e-3 / 4.0e-3 / 0.243; denominators local to a rank 1.0 / 1.0 / 0.19
+# and up; rank 1 keeping its own grads, on rank 1, 0.022 / 0.61 / 0.84 and
+# up, with the ranks' parameters unequal (PERF.md, Findings).
+DIST_STEPS, DIST_DFPN_F, DIST_JOIN_S = 3, 3, 300
+L2_DIST_ITEMS, L2_DIST_GRADS, L2_DIST_UPDATES = 2e-2, 5e-2, 6e-1
+DIST_FAULTS = {"local": "each denominator local to its rank",
+               "skip": "rank 1 keeps its own grads (it takes part in the all-reduce and drops the sum)"}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
@@ -2753,6 +2786,301 @@ def phase_cli(results, device_line, synthetic):
     print(f"phase CLI: {time.perf_counter() - t_phase:.1f} s")
 
 
+def tensor_groups(named):
+    """``(name, tensor)`` pairs (a model's parameters or their grads),
+    flattened in f32, by group: the first part of each name (the CHN's
+    trunk and tail, DFPN's stages) and weight / bias."""
+    groups = {}
+    for name, t in named:
+        parts = name.split(".")
+        top = parts[1] if parts[0] == "nn" else parts[0]
+        groups.setdefault(f"{top}.{parts[-1]}", []).append(t.detach().float().reshape(-1))
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def dist_task(task, mesh):
+    """A fresh model from its seed, its train step on ``mesh`` and its
+    batches (DIST_STEPS of them), and the counters of its kernels: the CHN
+    step of phase 6 (seeds and first batch) or the DFPN step of phase 11 at
+    frames_n DIST_DFPN_F."""
+    from master_thesis_tpu_torch.models.chn import CHN
+    from master_thesis_tpu_torch.models.cpn import CPN
+    from master_thesis_tpu_torch.models.vgg import VGGFeatures
+    from master_thesis_tpu_torch.ops import conv_stack, rrdb, rrdb_bwd, tail, tail_bwd
+    from master_thesis_tpu_torch.train import chn_task, dfpn_task
+    from master_thesis_tpu_torch.train.build import build_dfpn
+
+    gen = lambda k: torch.Generator().manual_seed(SEED + k)
+    if task == "chn":
+        cpn = CPN(dtype=torch.bfloat16, generator=gen(0)).eval()
+        model = CHN(nb=NB, dtype=torch.bfloat16, generator=gen(1)).train()
+        vgg = VGGFeatures(dtype=torch.bfloat16, generator=gen(2)).requires_grad_(False)
+        step = chn_task.make_train_step(model, cpn.align, vgg, mesh=mesh)
+        batches = [make_train_batch(TRAIN_B, TRAIN_F, H, W, SEED + 3 + i) for i in range(DIST_STEPS)]
+        counters = {"K1": rrdb.rdb_cuda, "K3": rrdb_bwd.rrdb_bwd_cuda, "K4": tail.tail_cuda,
+                    "K6": tail_bwd.tail_bwd_cuda}
+    else:
+        vgg = VGGFeatures(dtype=torch.bfloat16, generator=gen(20)).requires_grad_(False)
+        model = build_dfpn(base_size=DFPN_BASE, dtype=torch.bfloat16, generator=gen(24))
+        step = dfpn_task.make_train_step(model, vgg, pallas_vgg=True, mesh=mesh)
+        batches = [make_dfpn_batch(DFPN_TRAIN_B, DIST_DFPN_F, H, W, SEED + 40 + i)
+                   for i in range(DIST_STEPS)]
+        counters = {"K8": conv_stack.conv_stack_banded_cuda, "K8 frame": conv_stack.conv_frame_cuda}
+    return model, step, batches, counters
+
+
+def dist_run(task, mesh, steps=DIST_STEPS):
+    """``steps`` train steps of ``task`` on ``mesh`` (None: this process
+    alone) from the seeded model: each step's items (summed over the
+    ranks), the first step's grads (after the all-reduce) and the parameter
+    updates by group, the launches of the last step,
+    ms/step (host clock over the steps after the first, each ending in a
+    synchronize), the all-reduce's ms an update (CUDA events) and the peak
+    memory of this process."""
+    from master_thesis_tpu_torch.parallel import mesh as mesh_lib
+    from master_thesis_tpu_torch.train import state
+
+    model, step, batches, counters = dist_task(task, mesh)
+    st = state.create_train_state(model, state.OptimConfig(), steps_per_epoch=2000, mesh=mesh)
+    mesh_lib.broadcast_params(model, mesh)
+    before = tensor_groups(model.named_parameters())
+    grads = {}
+
+    def first_grads(*_):
+        if not grads:
+            grads.update(tensor_groups((n, p.grad) for n, p in model.named_parameters()))
+
+    hook = st.optimizer.register_step_pre_hook(first_grads)
+    reduce_ms = []
+    real = mesh_lib.all_reduce_grads
+
+    def timed(params, m):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        real(params, m)
+        ev[1].record()
+        ev[1].synchronize()
+        reduce_ms.append(ev[0].elapsed_time(ev[1]))
+
+    items, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_lib.all_reduce_grads = timed
+    try:
+        for i, batch in enumerate(batches[:steps]):
+            local = mesh_lib.shard_batch(dict(enumerate(batch)), mesh)
+            if i == steps - 1:
+                for c in counters.values():
+                    c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(st, *(local[j] for j in range(len(batch))))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            items.append(mesh_lib.sum_scalars(out, mesh))
+    finally:
+        mesh_lib.all_reduce_grads = real
+        hook.remove()
+    after = tensor_groups(model.named_parameters())
+    return {"items": items, "grads": grads, "updates": {k: after[k] - before[k] for k in before},
+            "launches": {k: c.launches for k, c in counters.items()},
+            "ms": 1e3 * float(np.mean(times[1:] or times)),
+            "reduce_ms": float(np.mean(reduce_ms)) if reduce_ms else None,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "model": model}
+
+
+def dist_compare(run, ref):
+    """``run`` against ``ref``: the largest relative error of the items
+    (over the items and steps), and by group the relative L2 of the first
+    step's grads and of the parameter updates."""
+    items = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                for a, b in zip(run["items"], ref["items"]) for k in b)
+    rel = lambda part: {k: ((run[part][k] - v).norm() / v.norm()).item() for k, v in ref[part].items()}
+    return {"items": items, "grads": rel("grads"), "updates": rel("updates")}
+
+
+def dist_verdict(label, reading, planted=None):
+    """Prints a distributed run's readings (:func:`dist_compare`) against
+    the limits and returns whether they hold."""
+    grads, updates = reading["grads"], reading["updates"]
+    ok = (reading["items"] <= L2_DIST_ITEMS and max(grads.values()) <= L2_DIST_GRADS
+          and max(updates.values()) <= L2_DIST_UPDATES)
+    verdict = ("MISSED" if ok else "caught") if planted else ("ok" if ok else "FAIL")
+    worst = lambda d: f"{max(d.values()):.6g} ({max(d, key=d.get)})"
+    print(f"{'planted' if planted else 'check'} {label}{f' ({planted})' if planted else ''}: "
+          f"items max rel err {reading['items']:.6g} (limit {L2_DIST_ITEMS:g}), first grads rel L2 "
+          f"max {worst(grads)} (limit {L2_DIST_GRADS:g}), updates rel L2 max {worst(updates)} "
+          f"(limit {L2_DIST_UPDATES:g}) {verdict}")
+    return ok
+
+
+def ranks_equal(model, mesh):
+    """Whether every rank holds rank 0's parameters bit for bit (a broadcast
+    of rank 0's and an all-reduce of the ranks' answers)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+    mine = flat.clone()
+    dist.broadcast(flat, 0)
+    differ = torch.tensor([0 if torch.equal(flat, mine) else 1])
+    dist.all_reduce(differ)
+    return differ.item() == 0
+
+
+@contextlib.contextmanager
+def dist_fault(fault, rank):
+    """Plants one of DIST_FAULTS in this process (None: none)."""
+    from master_thesis_tpu_torch.parallel import mesh as mesh_lib
+
+    saved = (mesh_lib.global_sum, mesh_lib.all_reduce_grads)
+    if fault == "local":
+        mesh_lib.global_sum = lambda t, mesh: t
+    elif fault == "skip":
+        real = mesh_lib.all_reduce_grads
+
+        def keep_own(params, mesh):
+            params = [p for p in params if p.grad is not None]
+            own = [p.grad.clone() for p in params]
+            real(params, mesh)
+            if rank == 1:
+                for p, g in zip(params, own):
+                    p.grad.copy_(g)
+
+        mesh_lib.all_reduce_grads = keep_own
+    try:
+        yield
+    finally:
+        mesh_lib.global_sum, mesh_lib.all_reduce_grads = saved
+
+
+def dist_rank(rank, workdir):
+    """One of phase 13's two ranks on cuda:0 (gloo): the CHN step on a 2x1
+    mesh and the DFPN step on a 1x2 mesh, each correct and with each planted
+    fault; writes its readings to ``workdir/rank{rank}.pt``."""
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from master_thesis_tpu_torch.parallel import init_distributed, make_mesh
+
+    workdir = Path(workdir)
+    init_distributed("cuda:0", backend="gloo", init_method=f"file://{workdir / 'rendezvous'}",
+                     rank=rank, world_size=2)
+    out = {}
+    try:
+        for task, shape in (("chn", (2, 1)), ("dfpn", (1, 2))):
+            mesh = make_mesh(*shape)
+            ref = torch.load(workdir / f"ref_{task}.pt", map_location="cuda:0")
+            for fault in (None, *DIST_FAULTS):
+                with dist_fault(fault, rank):
+                    run = dist_run(task, mesh)
+                out[task, fault] = {"reading": dist_compare(run, ref),
+                                    "equal": ranks_equal(run["model"], mesh),
+                                    **{k: run[k] for k in ("launches", "ms", "reduce_ms", "peak_gib")}}
+                del run
+                torch.cuda.empty_cache()
+        torch.save(out, workdir / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_distribution(results, device_line):
+    """Phase 13: (a) the CHN train step on a 1x1 NCCL mesh against the
+    one-process step; (b) / (c) two gloo ranks on the card, CHN on a 2x1
+    mesh and DFPN on a 1x2 mesh, against one-process runs of the same
+    steps, each read also with the planted faults."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from master_thesis_tpu_torch.parallel import init_distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        tmp = Path(tmp)
+        # (a) One process twice (the spread of the card's backward), then
+        # on a 1x1 NCCL mesh, whose collectives run on the card.
+        one = [dist_run("chn", None, steps=1) for _ in range(2)]
+        init_distributed("cuda:0", init_method=f"file://{tmp / 'nccl'}", rank=0, world_size=1)
+        try:
+            nccl = dist_run("chn", make_mesh(1, 1), steps=1)
+        finally:
+            dist.destroy_process_group()
+        print(f"distribution (a): CHN B={TRAIN_B} frames_n {TRAIN_F} {H}x{W} nb {NB} bf16, one step "
+              f"from the same seeds and batch: one process {one[0]['ms']:.3f} ms, 1x1 NCCL mesh "
+              f"{nccl['ms']:.3f} ms (all-reduce {nccl['reduce_ms']:.3f} ms) on {device_line}")
+        dist_verdict("distribution (a) one process against itself (spread)", dist_compare(one[1], one[0]))
+        want = {"K1": NB * 3, "K3": NB, "K4": 4, "K6": 11}
+        if nccl["launches"] != want:
+            raise RuntimeError(f"the 1x1 mesh step launched {nccl['launches']}, expected {want}")
+        if not dist_verdict("distribution (a) 1x1 NCCL mesh vs one process", dist_compare(nccl, one[0])):
+            raise RuntimeError("the CHN step on a 1x1 NCCL mesh disagrees with the one-process step")
+        del one, nccl
+
+        # (b) / (c): the one-process runs (twice: their own spread), then two
+        # ranks on the card.
+        refs = {}
+        for task in ("chn", "dfpn"):
+            run, again = dist_run(task, None), dist_run(task, None)
+            dist_verdict(f"distribution {task} one process against itself (spread)",
+                         dist_compare(again, run))
+            torch.save({k: run[k] for k in ("items", "grads", "updates")}, tmp / f"ref_{task}.pt")
+            refs[task] = {k: run[k] for k in ("ms", "peak_gib", "launches")}
+            del run, again
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = mp.spawn(dist_rank, args=(str(tmp),), nprocs=2, join=False)
+        deadline = time.monotonic() + DIST_JOIN_S
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"a rank of phase 13 did not end within {DIST_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        print(f"distribution: two ranks ran in {time.perf_counter() - t0:.1f} s")
+        ranks = [torch.load(tmp / f"rank{r}.pt") for r in range(2)]
+
+    labels = {"chn": ("(b) CHN 2x1 mesh (DP)", f"B={TRAIN_B} ({TRAIN_B // 2} a rank) frames_n {TRAIN_F}"
+                      f" {H}x{W} nb {NB}"),
+              "dfpn": ("(c) DFPN 1x2 mesh (SP)", f"B={DFPN_TRAIN_B} frames_n {DIST_DFPN_F} (one "
+                       f"reference a rank) {H}x{W} base {DFPN_BASE}")}
+    expected = {"chn": {"K1": NB * 3, "K3": NB, "K4": 4, "K6": 11}, "dfpn": {"K8": 30, "K8 frame": 27}}
+    for task, (label, shape) in labels.items():
+        ref = refs[task]
+        print(f"distribution {label}: {shape} bf16, {DIST_STEPS} steps; one process "
+              f"{ref['ms']:.3f} ms/step, peak {ref['peak_gib']:.3f} GiB, launches {ref['launches']} "
+              f"on {device_line}")
+        for r, rank in enumerate(ranks):
+            run = rank[task, None]
+            print(f"distribution {label}: rank {r} {run['ms']:.3f} ms/step, all-reduce "
+                  f"{run['reduce_ms']:.3f} ms an update (gloo, staged through host memory), peak "
+                  f"{run['peak_gib']:.3f} GiB, launches in its last step {run['launches']} on "
+                  f"{device_line}; two ranks share the card: a check of correctness, not of scaling")
+            if run["launches"] != expected[task]:
+                raise RuntimeError(f"{label} rank {r} launched {run['launches']}, expected "
+                                   f"{expected[task]}")
+            if not dist_verdict(f"distribution {label} rank {r}", run["reading"]):
+                raise RuntimeError(f"{label}: rank {r} disagrees with the one-process run")
+            if not run["equal"]:
+                raise RuntimeError(f"{label}: the ranks' parameters differ")
+        print(f"distribution {label}: the two ranks' parameters bit-equal")
+        for fault, what in DIST_FAULTS.items():
+            caught = [not dist_verdict(f"distribution {label} rank {r}", rank[task, fault]["reading"],
+                                       planted=what) for r, rank in enumerate(ranks)]
+            equal = ranks[0][task, fault]["equal"]
+            print(f"planted distribution {label} ({what}): ranks bit-equal {equal}; "
+                  f"{'caught' if any(caught) or not equal else 'MISSED'}")
+            if not (any(caught) or not equal):
+                raise RuntimeError(f"{label}: the checks do not see a planted fault ({what})")
+        for k in expected[task]:
+            if k in results:
+                results[k]["launches_dist"] = [rank[task, None]["launches"][k] for rank in ranks]
+    print(f"phase distribution: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2794,12 +3122,14 @@ def main() -> int:
     phase_video(cpn, video_chn, results, smi)
     dfpn_step = phase_dfpn_train(results, smi)
     phase_cli(results, smi, {"dfpn": dfpn_step, "chn": chn_step})
+    phase_distribution(results, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # Beside them, the first design's time where the kernel was redesigned.
     first = ("first_design_ms", "tiles_ms", "first_ms")
     kernels = [{**{k: r[k] for k in keys}, **{"first_design_ms": r[k] for k in first if k in r},
-                **{k: r[k] for k in ("sources", "launches_dfpn_train", "launches_cli") if k in r}}
+                **{k: r[k] for k in ("sources", "launches_dfpn_train", "launches_cli", "launches_dist")
+                   if k in r}}
                for _, r in sorted(results.items())]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

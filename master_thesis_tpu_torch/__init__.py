@@ -20,7 +20,9 @@ conv-stack kernels (:mod:`.ops.conv_stack`); and full-video inpainting
 DFPN training (:mod:`.train.dfpn_task`) with the train loop, checkpoints
 and logging (:mod:`.train.loop`); and the host data pipeline
 (:mod:`.data`, :mod:`.runtime`) with the command line
-(``python -m master_thesis_tpu_torch``, :mod:`.__main__`, :mod:`.config`).
+(``python -m master_thesis_tpu_torch``, :mod:`.__main__`, :mod:`.config`);
+and data and sequence parallelism over a ``(data, model)`` mesh of
+``torch.distributed`` processes (:mod:`.parallel`).
 """
 
 from master_thesis_tpu_torch.device import resolve_device

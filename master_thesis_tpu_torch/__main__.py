@@ -9,6 +9,15 @@ DAVIS-2017 tree.
         --chn_aligner_checkpoint weight.pth                # train CHN
     python -m master_thesis_tpu_torch --chn --test ...     # full-video inpainting
     python -m master_thesis_tpu_torch ... --device cpu     # without a card
+    torchrun --nproc_per_node N -m master_thesis_tpu_torch --chn --mesh_data N ...
+
+Under ``torchrun`` (``WORLD_SIZE > 1``) the train modes run on a ``(data,
+model)`` mesh of the launched processes (``--mesh_data`` / ``--mesh_model``,
+:mod:`.parallel.mesh`), one card each (NCCL) or on the CPU (gloo): each
+process loads its data rank's rows of every batch, trains on its model
+rank's share of the references, sums its grads with the others' at each
+update, and rank 0 logs and writes the checkpoints. The test modes run in
+one process.
 
 A checkpoint path is a checkpoint of this trainer (a ``step_*.pt`` file or
 a ``version_*`` directory), or a reference torch file (``.pth`` /
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from master_thesis_tpu_torch.config import Config
+from master_thesis_tpu_torch.parallel import mesh as mesh_lib
 
 
 def batch_args(batch, keys: Sequence[str], device: torch.device):
@@ -64,9 +74,27 @@ def build_aligner(cfg, vgg) -> Callable:
     return build.dfpn_align_fn(dfpn, vgg, pallas_mixer=build.use_kernels(cfg))
 
 
-def _fit(cfg, task: str, model, train_step, eval_step, keys, loaders, logger):
-    """Makes the train state (resumed as ``--resume_from_checkpoint`` says)
-    and runs the :class:`.train.loop.Trainer` over the loaders."""
+def _prepare_data(cfg, mesh=None):
+    """The five metas (``prepare_data``): rank 0 scans the tree and writes
+    the metadata file, which the other ranks then read."""
+    from master_thesis_tpu_torch.data import meta
+
+    if mesh is None or mesh.rank == 0:
+        metas = meta.prepare_data(cfg)
+        mesh_lib.barrier(mesh)
+        return metas
+    mesh_lib.barrier(mesh)
+    return meta.prepare_data(cfg)
+
+
+def _shard(mesh):
+    return (0, 1) if mesh is None else (mesh.data_rank, mesh.data)
+
+
+def _fit(cfg, task: str, model, train_step, eval_step, keys, loaders, logger, mesh=None):
+    """Makes the train state (resumed as ``--resume_from_checkpoint`` says;
+    every rank reads the file) and runs the :class:`.train.loop.Trainer`
+    over the loaders."""
     from master_thesis_tpu_torch.train.checkpoint import resume_split
     from master_thesis_tpu_torch.train.loop import Trainer
     from master_thesis_tpu_torch.train.state import create_train_state
@@ -75,12 +103,13 @@ def _fit(cfg, task: str, model, train_step, eval_step, keys, loaders, logger):
     if params is not None:
         model.load_state_dict(params)
     model.train()
-    state = create_train_state(model, cfg, steps_per_epoch=cfg.train_max_iterations)
+    state = create_train_state(model, cfg, steps_per_epoch=cfg.train_max_iterations, mesh=mesh)
     if full is not None:
         state.load_state_dict(full)
+    mesh_lib.broadcast_params(model, mesh)
     device = torch.device(cfg.device)
     args = lambda b: batch_args(b, keys, device)
-    trainer = Trainer(cfg, task, logger=logger)
+    trainer = Trainer(cfg, task, logger=logger, mesh=mesh)
     try:
         trainer.fit(state, train_step, args, loaders["train"], eval_step=eval_step,
                     eval_args=args, val_loader=loaders["validation"])
@@ -90,17 +119,17 @@ def _fit(cfg, task: str, model, train_step, eval_step, keys, loaders, logger):
     return state
 
 
-def run_dfpn_train(cfg, logger=None):
-    """Trains DFPN (reference __main__.py:55-58); returns the train state."""
-    from master_thesis_tpu_torch.data import meta
+def run_dfpn_train(cfg, logger=None, mesh=None):
+    """Trains DFPN (reference __main__.py:55-58) on ``mesh`` (None: this
+    process alone); returns the train state."""
     from master_thesis_tpu_torch.train import build, dfpn_task
 
-    loaders = build.build_loaders(cfg, meta.prepare_data(cfg))
+    loaders = build.build_loaders(cfg, _prepare_data(cfg, mesh), shard=_shard(mesh))
     vgg = build.build_vgg(cfg, cfg.vgg_checkpoint)
     dfpn = load_dfpn(cfg)
-    return _fit(cfg, "dfpn", dfpn, dfpn_task.make_train_step(dfpn, vgg),
-                dfpn_task.make_eval_step(dfpn, vgg), ("x", "m", "y", "flow_gt", "flows_use"),
-                loaders, logger)
+    return _fit(cfg, "dfpn", dfpn, dfpn_task.make_train_step(dfpn, vgg, mesh=mesh),
+                dfpn_task.make_eval_step(dfpn, vgg, mesh=mesh),
+                ("x", "m", "y", "flow_gt", "flows_use"), loaders, logger, mesh)
 
 
 def run_dfpn_test(cfg, logger=None):
@@ -134,22 +163,22 @@ def run_dfpn_test(cfg, logger=None):
     return means
 
 
-def run_chn_train(cfg, logger=None):
-    """Trains CHN behind the frozen aligner (reference __main__.py:33-49);
-    returns the train state."""
-    from master_thesis_tpu_torch.data import meta
+def run_chn_train(cfg, logger=None, mesh=None):
+    """Trains CHN behind the frozen aligner (reference __main__.py:33-49) on
+    ``mesh`` (None: this process alone); returns the train state."""
     from master_thesis_tpu_torch.train import build, chn_task
 
-    loaders = build.build_loaders(cfg, meta.prepare_data(cfg))
+    loaders = build.build_loaders(cfg, _prepare_data(cfg, mesh), shard=_shard(mesh))
     vgg = build.build_vgg(cfg, cfg.vgg_checkpoint)
     align_fn = build_aligner(cfg, vgg)
     chn = build.build_chn(cfg)
     chn_apply = build.chn_train_fn(cfg, chn)
     lpips_fn = build.build_lpips(cfg, lpips_checkpoint=cfg.lpips_checkpoint)
     train_step = chn_task.make_train_step(chn, align_fn, vgg, perceptual_grad=cfg.perceptual_grad,
-                                          chn_apply=chn_apply)
-    eval_step = chn_task.make_eval_step(chn, align_fn, vgg, chn_apply=chn_apply, lpips_fn=lpips_fn)
-    return _fit(cfg, "chn", chn, train_step, eval_step, ("x", "m", "y"), loaders, logger)
+                                          chn_apply=chn_apply, mesh=mesh)
+    eval_step = chn_task.make_eval_step(chn, align_fn, vgg, chn_apply=chn_apply, lpips_fn=lpips_fn,
+                                        mesh=mesh)
+    return _fit(cfg, "chn", chn, train_step, eval_step, ("x", "m", "y"), loaders, logger, mesh)
 
 
 def run_chn_test(cfg, logger=None, video_writer: Optional[Callable] = None):
@@ -210,20 +239,34 @@ def main(argv=None, *, logger=None, video_writer: Optional[Callable] = None):
     """Parses ``argv`` and runs its mode on ``--device`` (which raises
     without a card unless it is ``cpu``). ``logger`` replaces the
     TensorBoard logger, ``video_writer`` CHN test's. Returns the mode's
-    result: the train state, or the test's mean measures."""
+    result: the train state, or the test's mean measures.
+
+    With ``WORLD_SIZE > 1`` a train mode joins the launcher's process group
+    (unless the caller has joined one) and leaves it at the end."""
+    import torch.distributed as dist
+
     from master_thesis_tpu_torch.device import resolve_device
 
     parser = argparse.ArgumentParser("master_thesis_tpu_torch")
     Config.add_argparse_args(parser)
     cfg = Config.from_args(parser.parse_args(argv))
     resolve_device(cfg.device)
+    if cfg.test and mesh_lib.launched_world_size() > 1:
+        raise ValueError(f"--test runs in one process, not {mesh_lib.launched_world_size()}: "
+                         "launch it without torchrun")
     if cfg.chn and cfg.test:
         return run_chn_test(cfg, logger, video_writer)
-    if cfg.chn:
-        return run_chn_train(cfg, logger)
     if cfg.test:
         return run_dfpn_test(cfg, logger)
-    return run_dfpn_train(cfg, logger)
+    joined = mesh_lib.launched_world_size() > 1 and not dist.is_initialized()
+    if joined:
+        mesh_lib.init_distributed(cfg.device)
+    try:
+        mesh = mesh_lib.make_mesh(cfg.mesh_data, cfg.mesh_model)
+        return (run_chn_train if cfg.chn else run_dfpn_train)(cfg, logger, mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

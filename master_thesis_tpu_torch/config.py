@@ -5,7 +5,8 @@ is the reference CLI's (reference: master_thesis/data.py:319-370 declares
 the 22 data/optim flags; master_thesis/__main__.py:63-67 the run-mode
 flags), with the same names, defaults and rules, plus ``--device``. The
 flags that choose TPU machinery keep their JAX names and defaults; their
-help says what each does here, and a mesh the port cannot run raises.
+help says what each does here. The mesh flags lay the launched processes
+out as the JAX package lays out its devices (:mod:`.parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from typing import Optional, Tuple
+
+from master_thesis_tpu_torch.parallel.mesh import launched_world_size, mesh_shape
 
 
 def str2bool(v) -> bool:
@@ -102,8 +105,8 @@ class Config:
     # Params are always float32 (converters emit f32; optimizer state f32);
     # only the conv compute dtype is configurable.
     compute_dtype: str = "bfloat16"  # dtype for conv compute inside models
-    mesh_data: int = -1  # one device: -1 or 1
-    mesh_model: int = 1  # one device: 1
+    mesh_data: int = -1  # processes on the data axis; -1: the world / mesh_model
+    mesh_model: int = 1  # processes on the reference-frame axis
     donate_buffers: bool = True  # no PyTorch meaning
     use_pallas: bool = True  # the hand-written kernels on a CUDA device
     # DFPN cascade resolution. The reference fixes 256 (model_dfpn.py:74-81)
@@ -135,11 +138,15 @@ class Config:
         self.dilatation_filter_size = tuple(self.dilatation_filter_size)
         self.bgs_movement_params = tuple(self.bgs_movement_params)
         self.masks_movement_params = tuple(self.masks_movement_params)
-        if self.mesh_data not in (-1, 1) or self.mesh_model != 1:
-            raise NotImplementedError(
-                f"--mesh_data {self.mesh_data} --mesh_model {self.mesh_model}: the port runs on "
-                "one device; data and sequence parallelism are not ported yet"
-            )
+        # The mesh must cover the launched processes exactly, give each
+        # model rank a reference to train on (frames_n -1, whole clips, is
+        # checked per clip) and each data rank whole rows.
+        data, model = mesh_shape(self.mesh_data, self.mesh_model, launched_world_size())
+        if not self.test and model > 1 and model >= self.frames_n > 0:
+            raise ValueError(f"--mesh_model {model}: frames_n {self.frames_n} gives "
+                             f"{self.frames_n - 1} references, and each model rank needs one")
+        if self.batch_size % data != 0:
+            raise ValueError(f"--batch_size {self.batch_size} does not split over {data} data ranks")
 
     @staticmethod
     def add_argparse_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -206,10 +213,12 @@ class Config:
         parser.add_argument("--compute_dtype", default="bfloat16")
         parser.add_argument(
             "--mesh_data", type=int, default=-1,
-            help="devices on the data axis; the port runs on one device, so only -1 or 1")
+            help="processes on the data axis (batch rows); -1: the launched processes / "
+            "--mesh_model; launch with torchrun --nproc_per_node N")
         parser.add_argument(
             "--mesh_model", type=int, default=1,
-            help="devices on the sequence axis; the port runs on one device, so only 1")
+            help="processes on the sequence axis (reference frames); at most frames_n - 1; "
+            "mesh_data * mesh_model must equal the launched processes")
         parser.add_argument(
             "--donate_buffers", default=True,
             help="a JAX buffer-donation switch; PyTorch updates in place, so it changes nothing",

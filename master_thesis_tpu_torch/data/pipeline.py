@@ -420,6 +420,12 @@ class Loader:
     as long as the loader, and import only the host modules; the parent
     builds the native host libraries first, so the workers load
     them (or skip a failed build) without compiling.
+
+    ``shard=(data_rank, data)`` makes only that data rank's contiguous
+    ``batch_size // data`` rows of each batch of ``batch_size``
+    (:func:`..parallel.shard_batch` of the whole batch, bit for bit: each
+    item keeps its index and its rng), so each process of a mesh decodes
+    only its own rows.
     """
 
     def __init__(
@@ -431,9 +437,14 @@ class Loader:
         prefetch: int = 2,
         drop_last: bool = True,
         use_processes: bool = False,
+        shard: Tuple[int, int] = (0, 1),
     ):
+        rank, n = shard
+        if batch_size % n != 0 or not 0 <= rank < n:
+            raise ValueError(f"shard {rank} of {n}: a batch of {batch_size} does not split evenly")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = (rank, n)
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
@@ -456,7 +467,9 @@ class Loader:
         if epoch is None:
             epoch = self.epoch
         items = []
-        for j in range(self.batch_size):
+        rank, n = self.shard
+        rows = self.batch_size // n
+        for j in range(rank * rows, (rank + 1) * rows):
             item = batch_idx * self.batch_size + j
             rng = np.random.RandomState(
                 (self.seed * 1_000_003 + epoch * 7_919 + item) % (2**31 - 1)

@@ -12,14 +12,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from master_thesis_tpu_torch.ops.losses import Reduce, mean
 
-def psnr(y_hat: torch.Tensor, y: torch.Tensor, data_range: float = 1.0) -> torch.Tensor:
-    """Mean per-frame PSNR; frames with zero error are excluded."""
+
+def psnr(y_hat: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
+         reduce: Reduce = None) -> torch.Tensor:
+    """Mean per-frame PSNR; frames with zero error are excluded. ``reduce``
+    sums the frame count over the processes of a mesh (each returns its
+    frames' share of the mean of all)."""
     dims = tuple(range(1, y.dim()))
     mse = ((y_hat.float() - y.float()) ** 2).mean(dim=dims)
     vals = 10.0 * torch.log10(data_range**2 / mse.clamp(min=1e-38))
     finite = mse > 0
-    n = finite.sum().clamp(min=1)
+    n = finite.sum()
+    if reduce is not None:
+        n = reduce(n)
+    n = n.clamp(min=1)
     return torch.where(finite, vals, 0.0).sum() / n
 
 
@@ -33,9 +41,10 @@ def _uniform_filter_valid(x: torch.Tensor, win: int) -> torch.Tensor:
 
 def ssim(
     y_hat: torch.Tensor, y: torch.Tensor, data_range: float = 2.0, win: int = 7,
-    k1: float = 0.01, k2: float = 0.03,
+    k1: float = 0.01, k2: float = 0.03, reduce: Reduce = None,
 ) -> torch.Tensor:
-    """Mean SSIM of frame stacks (skimage-compatible)."""
+    """Mean SSIM of frame stacks (skimage-compatible); ``reduce`` as
+    :func:`psnr`'s, over the window count."""
     x, z = y_hat.float(), y.float()
     np_ = win * win
     cov_norm = np_ / (np_ - 1.0)
@@ -48,5 +57,5 @@ def ssim(
     vxz = cov_norm * (uxz - ux * uz)
     c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
     s = ((2 * ux * uz + c1) * (2 * vxz + c2)) / ((ux * ux + uz * uz + c1) * (vx + vz + c2))
-    return s.mean()
+    return mean(s, reduce)
 

@@ -163,9 +163,11 @@ def chn_train_fn(cfg, chn: CHN) -> Callable:
     return partial(chn_infer_apply, chn, net=partial(chn.nn.forward_modules, remat=cfg.chn_remat))
 
 
-def build_loaders(cfg, metas, splits=("train", "validation")):
+def build_loaders(cfg, metas, splits=("train", "validation"), shard=(0, 1)):
     """The :class:`..data.pipeline.Loader` of each split from the five metas
-    (``prepare_data``), as the JAX package builds them."""
+    (``prepare_data``), as the JAX package builds them. ``shard=(data_rank,
+    data)``: the train and validation loaders make only that data rank's
+    rows of each batch of ``batch_size``."""
     from master_thesis_tpu_torch.data.pipeline import ContentProvider, InpaintingDataset, Loader
     from master_thesis_tpu_torch.ops.movements import MovementSimulator
 
@@ -186,13 +188,13 @@ def build_loaders(cfg, metas, splits=("train", "validation")):
             frames_spacing=cfg.frames_spacing,
         )
         ds = InpaintingDataset(bgs, masks, "train", cfg)
-        loaders["train"] = Loader(ds, cfg.batch_size, seed=cfg.seed, **workers)
+        loaders["train"] = Loader(ds, cfg.batch_size, seed=cfg.seed, shard=shard, **workers)
     if "validation" in splits:
         bgs = ContentProvider(val_bgs, cfg.data_path, frames_spacing=cfg.frames_spacing,
                               frames_randomize=cfg.frames_randomize)
         masks = ContentProvider(val_masks, cfg.data_path, frames_spacing=cfg.frames_spacing)
         ds = InpaintingDataset(bgs, masks, "validation", cfg)
-        loaders["validation"] = Loader(ds, cfg.batch_size, seed=cfg.seed + 1, **workers)
+        loaders["validation"] = Loader(ds, cfg.batch_size, seed=cfg.seed + 1, shard=shard, **workers)
     if "test" in splits:
         bgs = ContentProvider(test_meta, cfg.data_path)
         ds = InpaintingDataset(bgs, None, "test", cfg)

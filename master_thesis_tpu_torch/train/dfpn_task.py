@@ -20,12 +20,19 @@ Loss (reference model_dfpn.py:210-293):
 
 As in the JAX package, the reference's warps by the ground-truth flows and
 its 16-tier image pyramid feed no loss and are skipped (PARITY.md #1).
+
+On a mesh (JAX's ``ref_sharding``; :mod:`..parallel.mesh`) a step takes its
+data rank's rows and keeps the target and its model rank's share of the
+references; the target's frozen features are computed on every model rank.
+Every loss term is a sum over references, so each rank's loss is its
+numerator over the whole batch's denominator, and the ranks' losses sum to
+the one-process loss.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +47,7 @@ from master_thesis_tpu_torch.models.vgg import VGGFeatures, normalize_imagenet, 
 from master_thesis_tpu_torch.ops import losses, transforms
 from master_thesis_tpu_torch.ops.flows import align_set, resize_flow
 from master_thesis_tpu_torch.ops.interp import resize_hw
+from master_thesis_tpu_torch.parallel.mesh import Mesh, reducer, ref_slice
 from master_thesis_tpu_torch.train.chn_task import target_ref_indexes
 
 LOSSES_NAMES = (
@@ -63,14 +71,23 @@ def forward_and_loss(
     flow_gt: torch.Tensor,
     flows_use: torch.Tensor,
     pallas_vgg: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Runs DFPN on a ``(B, F, H, W, C)`` batch (masked frames ``x``, masks
     ``m``, clean frames ``y``, absolute flows ``flow_gt`` ``(B, F, H, W,
     2)``, ``flows_use`` ``(B,)`` bool) and returns the total loss and its
     six parts, all f32. ``pallas_vgg`` runs the frozen pool-4 features on
-    K8 (:func:`..models.vgg.vgg_pool4_pallas`) instead of the module."""
+    K8 (:func:`..models.vgg.vgg_pool4_pallas`) instead of the module. On
+    ``mesh`` the batch is this data rank's rows, and the loss and its parts
+    are this rank's contributions."""
+    t, r_list = target_ref_indexes(x.shape[1])
+    keep = sorted([t] + r_list[ref_slice(len(r_list), mesh)])
+    if len(keep) < x.shape[1]:
+        # This model rank's frames: the target and its references.
+        x, m, y, flow_gt = (a[:, keep] for a in (x, m, y, flow_gt))
+        t, r_list = keep.index(t), [i for i, k in enumerate(keep) if k != t]
+    reduce = reducer(mesh)
     b, f, h, w, _ = x.shape
-    t, r_list = target_ref_indexes(f)
     fr = len(r_list)
     x_t, m_t = x[:, t], m[:, t]
     x_r, m_r = x[:, r_list], m[:, r_list]
@@ -105,10 +122,10 @@ def forward_and_loss(
     x_256_al, _ = align_set(x_256[:, r_list], v_256[:, r_list], flow_256)
 
     corr_y = correlation_masked_4d(y_feats[:, t], None, y_feats[:, r_list], None)
-    corr_loss = (corr - corr_y).abs().mean()
+    corr_loss = losses.mean((corr - corr_y).abs(), reduce)
 
     flow_loss = {
-        name: losses.masked_l1(pred, gt, torch.ones_like(pred), batch_mask=flows_use)
+        name: losses.masked_l1(pred, gt, torch.ones_like(pred), batch_mask=flows_use, reduce=reduce)
         for name, pred, gt in (("flow_16", flow_16, flow_16_gt), ("flow_64", flow_64, flow_64_gt),
                                ("flow_256", flow_256, flow_gt_r))
     }
@@ -117,7 +134,8 @@ def forward_and_loss(
         refs = x_s[:, r_list].shape
         v_t = v_s[:, t][:, None].expand(*refs[:-1], v_s.shape[-1])
         x_t_rep = x_s[:, t][:, None].expand(refs)
-        return losses.masked_l1(x_t_rep, x_al, v_t * (1 - _out_mask(flow)), reduction="sum")
+        return losses.masked_l1(x_t_rep, x_al, v_t * (1 - _out_mask(flow)), reduction="sum",
+                                reduce=reduce)
 
     items = {
         "corr_loss": corr_loss,
@@ -150,13 +168,15 @@ def log_alignment_frames(logger, align_fn: Callable, x, m, y, step: int, max_ite
         logger.log_images(f"frames/{i + 1}", np.clip(strip, 0, 1), step)
 
 
-def make_train_step(dfpn: DFPN, vgg: VGGFeatures, pallas_vgg: bool = False) -> Callable:
+def make_train_step(dfpn: DFPN, vgg: VGGFeatures, pallas_vgg: bool = False,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """``train_step(state, x, m, y, flow_gt, flows_use) -> items``: one
     micro-step of ``state`` (its model is ``dfpn``; an update every
-    ``accumulate_grad_batches``). ``vgg`` is frozen."""
+    ``accumulate_grad_batches``). ``vgg`` is frozen. ``mesh``: as
+    :func:`forward_and_loss`'s."""
 
     def train_step(state, x, m, y, flow_gt, flows_use):
-        total, items = forward_and_loss(dfpn, vgg, x, m, y, flow_gt, flows_use, pallas_vgg)
+        total, items = forward_and_loss(dfpn, vgg, x, m, y, flow_gt, flows_use, pallas_vgg, mesh)
         total.backward()
         state.apply_gradients()
         items["loss"] = total
@@ -165,13 +185,14 @@ def make_train_step(dfpn: DFPN, vgg: VGGFeatures, pallas_vgg: bool = False) -> C
     return train_step
 
 
-def make_eval_step(dfpn: DFPN, vgg: VGGFeatures, pallas_vgg: bool = False) -> Callable:
+def make_eval_step(dfpn: DFPN, vgg: VGGFeatures, pallas_vgg: bool = False,
+                   mesh: Optional[Mesh] = None) -> Callable:
     """``eval_step(x, m, y, flow_gt, flows_use) -> items``: the loss and its
-    parts, without grad."""
+    parts, without grad (on ``mesh``, this rank's contributions)."""
 
     @torch.no_grad()
     def eval_step(x, m, y, flow_gt, flows_use):
-        total, items = forward_and_loss(dfpn, vgg, x, m, y, flow_gt, flows_use, pallas_vgg)
+        total, items = forward_and_loss(dfpn, vgg, x, m, y, flow_gt, flows_use, pallas_vgg, mesh)
         items["loss"] = total
         return items
 

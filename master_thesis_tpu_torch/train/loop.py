@@ -1,4 +1,4 @@
-"""Training loop (master_thesis_tpu/train/loop.py: Trainer), on one device.
+"""Training loop (master_thesis_tpu/train/loop.py: Trainer).
 
 Epochs of ``train_max_iterations`` micro-steps (the loader's length where
 it has one) and validation with ``pl.Trainer``'s semantics for
@@ -8,6 +8,13 @@ ahead of the host between them); a checkpoint every epoch; StepLR and
 gradient accumulation inside the train state (:mod:`.state`). A resumed
 state continues the epoch count from its step, so ``max_epochs`` counts
 all epochs, as a Lightning resume does.
+
+On a mesh of processes (:mod:`..parallel.mesh`) every rank runs the same
+steps, validations and checkpoint steps (the step count is shared, so each
+collective is issued by all at once); the logged items are the sums of the
+ranks' contributions (one collective at a logging step and one at the end
+of a validation); rank 0 alone logs, prints and writes the checkpoint, and
+the others wait for the file.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from master_thesis_tpu_torch.parallel.mesh import Mesh, barrier, sum_scalars
 from master_thesis_tpu_torch.train.checkpoint import Checkpointer, next_version_dir
 from master_thesis_tpu_torch.train.logging import Logger, StepTimer, maybe_profile
 
@@ -43,15 +51,22 @@ class Trainer:
     """The epoch loop; tasks supply the steps and the batch adapters.
     ``cfg``: any object with :class:`LoopConfig`'s fields. ``logger``:
     anything with ``log_scalars`` and ``flush``; None makes the tensorboardX
-    :class:`..logging.Logger` in the run's version directory."""
+    :class:`..logging.Logger` in the run's version directory. ``mesh``: the
+    run's processes (None: this one); on a rank other than 0 there is no
+    version directory, logger or checkpointer."""
 
-    def __init__(self, cfg, task_name: str, logger=None):
+    def __init__(self, cfg, task_name: str, logger=None, mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.version_dir = next_version_dir(cfg.default_root_dir)
-        self.logger = Logger(self.version_dir) if logger is None else logger
-        self.checkpointer = Checkpointer(self.version_dir)
+        self.mesh = mesh
         self.task_name = task_name
-        print(f"[{task_name}] logging to {self.version_dir}")
+        self.main = mesh is None or mesh.rank == 0
+        self.version_dir = self.logger = self.checkpointer = None
+        if self.main:
+            self.version_dir = next_version_dir(cfg.default_root_dir)
+            self.logger = Logger(self.version_dir) if logger is None else logger
+            self.checkpointer = Checkpointer(self.version_dir)
+            shape = mesh.shape if mesh is not None else {"data": 1, "model": 1}
+            print(f"[{task_name}] logging to {self.version_dir}, mesh {shape}")
 
     def fit(
         self,
@@ -90,11 +105,12 @@ class Trainer:
                     global_step += 1
                     step_in_epoch += 1
                     if global_step % 50 == 0 or global_step == 1:
-                        scalars = {k: float(v) for k, v in items.items()}
+                        scalars = sum_scalars(items, self.mesh)
                         scalars["step_time_s"] = timer.mean
-                        self.logger.log_scalars(scalars, global_step, "training/")
-                        print(f"[{self.task_name}] epoch {epoch} step {global_step} "
-                              f"loss {scalars['loss']:.4f} ({timer.mean * 1e3:.0f} ms/step)")
+                        if self.main:
+                            self.logger.log_scalars(scalars, global_step, "training/")
+                            print(f"[{self.task_name}] epoch {epoch} step {global_step} "
+                                  f"loss {scalars['loss']:.4f} ({timer.mean * 1e3:.0f} ms/step)")
                     if (
                         val_every is not None
                         and step_in_epoch % val_every == 0
@@ -103,8 +119,10 @@ class Trainer:
                         self._validate(eval_step, eval_args, val_loader, epoch, global_step)
 
                 self._validate(eval_step, eval_args, val_loader, epoch, global_step)
-                self.checkpointer.save(global_step, state.state_dict())
-                self.logger.flush()
+                if self.main:
+                    self.checkpointer.save(global_step, state.state_dict())
+                    self.logger.flush()
+                barrier(self.mesh)
         return state
 
     def _validate(self, eval_step, eval_args, val_loader, epoch, global_step):
@@ -126,7 +144,8 @@ class Trainer:
             items = out[0] if isinstance(out, tuple) else out
             for k, v in items.items():
                 agg.setdefault(k, []).append(float(v))
-        val_scalars = {k: float(np.mean(v)) for k, v in agg.items()}
-        self.logger.log_scalars(val_scalars, global_step, "validation/")
-        print(f"[{self.task_name}] epoch {epoch} validation "
-              + " ".join(f"{k}={v:.4f}" for k, v in val_scalars.items()))
+        val_scalars = sum_scalars({k: float(np.mean(v)) for k, v in agg.items()}, self.mesh)
+        if self.main:
+            self.logger.log_scalars(val_scalars, global_step, "validation/")
+            print(f"[{self.task_name}] epoch {epoch} validation "
+                  + " ".join(f"{k}={v:.4f}" for k, v in val_scalars.items()))

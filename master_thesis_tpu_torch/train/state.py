@@ -9,16 +9,22 @@ rate is ``lr * gamma ** ((count // steps_per_epoch) // step_size)``, with
 norm (``optax.clip_by_global_norm``). With ``accumulate_grad_batches = k``
 an update is made every k micro-steps from the mean of their gradients,
 clipped as a whole, as ``optax.MultiSteps`` wraps the chain; the schedule
-then counts updates, ``steps_per_epoch // k`` an epoch.
+then counts updates, ``steps_per_epoch // k`` an epoch. On a mesh of
+processes the window's summed grads are summed over the world at each
+update, once (:func:`..parallel.all_reduce_grads`): each rank's grads are
+those of its numerator over the whole batch's denominator, so the sum is
+the one-process gradient, and every rank applies the same update.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 from torch import nn
+
+from master_thesis_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclass
@@ -60,7 +66,8 @@ class TrainState:
     """The trainable model, its optimizer and schedule, and the counts:
     ``step`` micro-steps (JAX's ``state.step``), ``updates`` optimizer
     updates (the schedule's count), ``micro`` micro-steps whose gradients
-    ``param.grad`` holds, summed, since the last update."""
+    ``param.grad`` holds, summed, since the last update. ``mesh``: the
+    processes whose grads an update sums (None: this one)."""
 
     model: nn.Module
     optimizer: torch.optim.Adam
@@ -70,6 +77,7 @@ class TrainState:
     step: int = 0
     updates: int = 0
     micro: int = 0
+    mesh: Optional[mesh_lib.Mesh] = None
 
     def params(self) -> List[torch.Tensor]:
         """The optimizer's parameters, in its order (a checkpoint's grads')."""
@@ -77,9 +85,10 @@ class TrainState:
 
     def apply_gradients(self) -> bool:
         """Ends a micro-step whose backward added its gradients to
-        ``param.grad``. On every ``accumulate_grad_batches``-th: their mean
-        over the window, clipped, then Adam at the schedule's learning rate
-        for this update's count; the grads are dropped, which opens the next
+        ``param.grad``. On every ``accumulate_grad_batches``-th: their sum
+        over the mesh's processes, their mean over the window, clipped, then
+        Adam at the schedule's learning rate for this update's count; the
+        grads are dropped, which opens the next
         window, and so is every packed copy of the weights (``repack``), so
         no forward serves the old ones. Returns whether it updated."""
         self.step += 1
@@ -87,6 +96,7 @@ class TrainState:
         if self.micro < self.accumulate_grad_batches:
             return False
         params = [p for p in self.params() if p.grad is not None]
+        mesh_lib.all_reduce_grads(params, self.mesh)
         grads = [p.grad for p in params]
         if self.accumulate_grad_batches > 1:
             torch._foreach_div_(grads, float(self.accumulate_grad_batches))
@@ -127,9 +137,11 @@ class TrainState:
         self._repack()
 
 
-def create_train_state(model: nn.Module, cfg, steps_per_epoch: int) -> TrainState:
+def create_train_state(model: nn.Module, cfg, steps_per_epoch: int,
+                       mesh: Optional[mesh_lib.Mesh] = None) -> TrainState:
     """``cfg``: any object with :class:`OptimConfig`'s fields. The model's
-    grads are dropped: the first window starts empty."""
+    grads are dropped: the first window starts empty. ``mesh``: see
+    :class:`TrainState`."""
     k = max(1, int(cfg.accumulate_grad_batches))
     schedule = step_lr_schedule(
         cfg.lr, cfg.lr_scheduler_step_size, cfg.lr_scheduler_gamma, max(1, steps_per_epoch // k)
@@ -140,4 +152,4 @@ def create_train_state(model: nn.Module, cfg, steps_per_epoch: int) -> TrainStat
     opt = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8, fused=True)
     opt.zero_grad(set_to_none=True)
     clip = float(getattr(cfg, "gradient_clip_val", 0.0) or 0.0)
-    return TrainState(model, opt, schedule, clip, k)
+    return TrainState(model, opt, schedule, clip, k, mesh=mesh)

@@ -5,6 +5,7 @@ one DFPN-train run of both CLIs from the same weights."""
 
 import argparse
 import glob
+import json
 import os
 import subprocess
 import sys
@@ -128,7 +129,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
-def test_config_rules():
+def test_config_rules(monkeypatch):
     cfg = Config(chn=True, test=True)
     assert (cfg.batch_size, cfg.frames_n, cfg.device) == (1, -1, "cuda")
     assert Config(chn=True).frames_n == 2
@@ -137,11 +138,27 @@ def test_config_rules():
     cfg = Config.from_args(args)
     assert (cfg.batch_size, cfg.frames_n, cfg.train_size, cfg.use_pallas, cfg.device) == \
            (1, -1, (32, 48), False, "cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
+    # The mesh covers the launched processes exactly (WORLD_SIZE, 1 without
+    # a launcher), gives each model rank a reference and each data rank
+    # whole rows of the batch.
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="needs more than 1 devices"):
         Config(mesh_data=2)
-    with pytest.raises(NotImplementedError, match="one device"):
-        Config(mesh_model=2)
     assert Config(mesh_data=1).mesh_data == 1
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    assert Config(mesh_data=2).mesh_data == 2 and Config().mesh_data == -1  # -1: 2 // 1
+    with pytest.raises(ValueError, match="leaves 1 of 2 processes"):
+        Config(mesh_data=1)
+    with pytest.raises(ValueError, match="not divisible by model=3"):
+        Config(mesh_model=3, frames_n=4)
+    with pytest.raises(ValueError, match="frames_n 2 gives 1 references"):
+        Config(mesh_model=2)
+    assert Config(mesh_model=2, frames_n=3).mesh_model == 2
+    with pytest.raises(ValueError, match="batch_size 3 does not split over 2"):
+        Config(mesh_data=2, batch_size=3)
+    # The test modes run in one process.
+    with pytest.raises(ValueError, match="runs in one process"):
+        main(["--test", "--device", "cpu", "--mesh_data", "2", "--batch_size", "2"])
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -235,6 +252,30 @@ def test_resume_full_state_and_reference_params(data_root, tmp_path):
     assert (params_only.step, params_only.updates) == (0, 0) and not params_only.optimizer.state
     for k, v in params_only.model.state_dict().items():
         torch.testing.assert_close(v, ref.state_dict()[k], rtol=0, atol=0)
+
+
+def test_cli_chn_train_on_two_gloo_ranks_equals_one_process(data_root, tmp_path):
+    """``main([--chn, --mesh_data 2, --device cpu, ...])`` in two spawned
+    gloo ranks (one row of each batch of 2 a rank) for 2 steps on the
+    fixture tree: one checkpoint, rank 0's, and parameters within atol 1e-5
+    of the one-process CLI run's, bit-equal across the ranks."""
+    from tests.test_torch_parallel import spawned
+
+    def argv(logs, mesh_data):
+        return _common(data_root, tmp_path, logs) + TRAIN + [
+            "--chn", "--chn_nb", "1", "--data_ckpt_path", str(tmp_path / f"{logs}.ckpt"),
+            "--mesh_data", mesh_data]
+
+    (tmp_path / "argv.json").write_text(json.dumps(argv("ranks", "2")))
+    with spawned("cli", 2, tmp_path):
+        one = main(argv("one", "-1"), logger=Recorder())
+    outs = [torch.load(tmp_path / f"out{r}.pt", weights_only=True) for r in range(2)]
+    assert one.step == outs[0]["step"] == outs[1]["step"] == 2
+    for k, v in one.model.state_dict().items():
+        torch.testing.assert_close(outs[0]["params"][k], v, rtol=0, atol=1e-5)
+        assert torch.equal(outs[0]["params"][k], outs[1]["params"][k]), k
+    assert [os.path.relpath(p, tmp_path / "ranks") for p in glob.glob(str(tmp_path / "ranks" / "*" / "checkpoints" / "*"))] \
+        == [os.path.join("version_0", "checkpoints", "step_2.pt")]
 
 
 def _jax_first_losses(logdir):
