@@ -88,17 +88,32 @@ Phases, each fatal on failure:
    each frame conv against its floor (a frame conv also beside one cuDNN
    ``F.conv2d``); stage 1 with the swap in the epilogue and with one
    permute; the mixer's kernels, ``mixer_apply`` and the first design on
-   the mixer;
+   the mixer; K8 on the default hybrid route (flow_256's c0 alone at
+   256x256 and its mids c6-c7, c9-c10, c11-c12 at 64 / 32 / 64, flow_64's
+   c0 at 64x64) against its plain version with the faults, beside the plain
+   version, the module route and the bound, each c0 launch beside its floor
+   and one cuDNN ``F.conv2d``; both flow estimators (20 frames) on the
+   module route, every kernel route and the four hybrid ones, and VGG's
+   pool-4 tower (24 frames) through its module, on K8 and as
+   ``vgg_pool4_hybrid``, each hybrid output held against the module route's
+   by relative L2, CUDA-event times in two rounds;
 8. the CHN+DFPN path: VGG pool-4 features, ``dfpn_infer_apply`` at base
    256, ``dfpn_align`` and ``chn_infer_apply`` at B=4, F=5, 256x256,
    nb=20, bf16, once with the JAX package's default routes (K7 on the
-   mixer) and once with every kernel route (K7 on sep4d too, K8 on both
-   flow estimators and on VGG's pool-4 tower): the launch counts of one
-   step; output checks; on a small input (1x2x64x64, base 64) the DFPN
-   outputs through the kernels against their plain versions on the card,
-   read also with a planted fault; host-clock step time, inpainted
-   frames/s, the DFPN align alone, peak memory; one step under
-   ``torch.profiler``;
+   mixer), once with every kernel route (K7 on sep4d too, K8 on both
+   flow estimators and on VGG's pool-4 tower) and once on each hybrid
+   route (``HYBRID_ROUTES``: c0 and the 64x64 / 32x32 mid segments on K8,
+   c0 alone on K8, c0 as one phase-packed conv or one im2col product, and
+   the last with ``vgg_pool4_hybrid``): the launch counts of one step;
+   output checks; on a small input (1x2x64x64, base 64) the DFPN outputs
+   through the kernels against their plain versions on the card, read also
+   with a planted fault, and the same on the default hybrid route at
+   1x2x128x128, base 128 (the mixer and VGG through their modules; the
+   outputs and each K8 call's output held); host-clock step time,
+   inpainted frames/s, the DFPN align alone, peak memory; one step under
+   ``torch.profiler`` (with its layout copies); then CPN's context modules
+   (``CPNContext``: Encoder, ``cm_module``, Decoder), which no path calls,
+   at 1 x (1 + 4) x 256x256 in f32 against the same modules on the CPU;
 9. banded kernels: K2 (the trunk's RDBs in 32-row bands) on one RRDB and
    on the 20-RRDB trunk at 8 frames of 128x256, K5 (the tail in 32-row
    bands) at 8 frames of 128x128 and 128x256, each held against its plain
@@ -216,6 +231,21 @@ FAULTS = {1: "lrelu slope 0.25 in the masks", 2: "centre tap left out of dW",
 K6_FAULTS = {**FAULTS, 4: "upconv2's adjoint reads phase plane (0, 1) where (1, 0) belongs"}
 # The CHN+DFPN step: B targets, F references, DFPN's base size.
 DFPN_B, DFPN_F, DFPN_BASE = 4, 5, 256
+# The hybrid DFPN routes (``dfpn_align_fn``'s ``hybrid_*`` flags), the JAX
+# A/B's candidates (scripts/measure/dfpn_serving_ab.py), with K8's launches
+# (all, on the frame kernel) in one CHN+DFPN step: the default hybrid runs
+# flow_256's c0 (256x256) and c6-c7, c9-c10, c11-c12 (64, 32, 64) and
+# flow_64's c0 (64x64) on K8, its mids (16, 8, 16) through the modules
+# (tests/test_torch_dfpn_hybrid.py holds the plans to these).
+HYBRID_ROUTES = (
+    ("hybrid, mids and c0 on K8", dict(hybrid_flow=True), (8, 6)),
+    ("hybrid, c0 alone on K8", dict(hybrid_flow=True, hybrid_fuse_mids=False), (2, 0)),
+    ("hybrid, c0 s2d", dict(hybrid_flow=True, hybrid_fuse_mids=False, hybrid_c0_mode="s2d"), (0, 0)),
+    ("hybrid, c0 im2col", dict(hybrid_flow=True, hybrid_fuse_mids=False, hybrid_c0_mode="im2col"),
+     (0, 0)),
+    ("hybrid, c0 s2d + vgg_pool4_hybrid", dict(hybrid_flow=True, hybrid_fuse_mids=False,
+                                                hybrid_c0_mode="s2d", hybrid_vgg=True), (0, 0)),
+)
 STACK_FAULTS = {1: "corner tap left out", 2: "ReLU off the last ReLU conv of each launch",
                 3: "biases dropped"}
 # Faults compiled into K7's wide-conv kernel (csrc/conv3x3_wide_wgmma.cuh)
@@ -1600,6 +1630,26 @@ def plain_stacks():
             setattr(conv_stack, n, f)
 
 
+@contextlib.contextmanager
+def recorded_banded(outs):
+    """Within: each call of ``conv_stack.conv_stack_banded`` (K8's entry, the
+    kernel or, under :func:`plain_stacks`, its plain version) appends its
+    output to ``outs``."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    orig = conv_stack.conv_stack_banded
+
+    def record(x, p):
+        outs.append(orig(x, p))
+        return outs[-1]
+
+    conv_stack.conv_stack_banded = record
+    try:
+        yield
+    finally:
+        conv_stack.conv_stack_banded = orig
+
+
 def module_stack(convs, relus, x):
     """The same stack as the module route: the convs' modules (cuDNN, the
     compute dtype) on NCHW ``x``."""
@@ -1808,7 +1858,7 @@ def k8_callers(dfpn, vgg, rnd):
         for (names, _), hw in zip(_FLOW_SEGMENTS, [base >> i for i in (0, 1, 2, 3, 2, 1, 0)]):
             convs = [est.layer(nm) for nm in names]
             relus = [nm != "c17" for nm in names]
-            p = est.stacks.get(names[0], convs, relus, bf)
+            p = est.stacks.get(names, convs, relus, bf)
             items.append(("-".join(names), p, convs, relus, rnd(n, hw, hw, p.specs[0][1])))
         callers[label] = items
     items = []
@@ -1924,26 +1974,166 @@ def phase_kernels_band(dfpn, vgg, results):
           f"first_design_ms={r['first_ms']:.4f} library_ms=null")
 
 
-def dfpn_outputs(dfpn, vgg, x_t, m_t, x_r, m_r):
-    """VGG pool-4 features on K8 and ``dfpn_infer_apply`` with every kernel
-    route, as named groups (for the small-input check)."""
+EVERY_KERNEL = dict(pallas_sep4d=True, pallas_mixer=True, pallas_flow=True)
+
+
+def phase_hybrid_routes(dfpn, vgg, results):
+    """K8 on the default hybrid route at the CHN+DFPN step's shapes (20
+    frames): flow_256's c0 alone at 256x256 and its mid segments c6-c7,
+    c9-c10, c11-c12 at 64 / 32 / 64, flow_64's c0 at 64x64; each held against
+    its plain version and read on the faults of the kernels its plan runs;
+    their CUDA-event time beside the plain version, the module route and the
+    bound; each c0 launch beside its floor and one cuDNN ``F.conv2d``. Then
+    both flow estimators on each route (modules, every kernel, the four
+    hybrid ones) and VGG's pool-4 tower (module, K8, ``vgg_pool4_hybrid``),
+    each hybrid output held against the module route's by relative L2, and
+    CUDA-event times in two rounds."""
+    import torch.nn.functional as F
+
+    from master_thesis_tpu_torch.models.dfpn import (
+        flow_estimator_apply_hybrid,
+        flow_estimator_apply_pallas,
+    )
+    from master_thesis_tpu_torch.models.vgg import vgg_pool4_hybrid, vgg_pool4_pallas
+    from master_thesis_tpu_torch.ops import conv_stack as cst
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf, n = torch.bfloat16, DFPN_B * DFPN_F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(bf)
+    band, band_plain = cst.conv_stack_banded_cuda, cst.conv_stack_banded_plain
+
+    items = []
+    for label, est, base, segs in (
+            ("flow_256", dfpn.flow_256, DFPN_BASE, ((("c0",), 0), (("c6", "c7"), 2), (("c9", "c10"), 3),
+                                                    (("c11", "c12"), 2))),
+            ("flow_64", dfpn.flow_64, DFPN_BASE // 4, ((("c0",), 0),))):
+        for names, down in segs:
+            convs = [est.layer(nm) for nm in names]
+            p = est.stacks.get(names, convs, [True] * len(convs), bf)
+            hw = base >> down
+            items.append((f"{label} {'-'.join(names)}", p, convs, rnd(n, hw, hw, p.specs[0][1])))
+    for name, p, _, x in items:
+        check_stack(f"K8 hybrid {name} {tuple(x.shape)}", band, band_plain, x, p,
+                    band_faults(p, x.shape[1], x.shape[2]))
+    plans = [cst.plan_banded(p, x.shape[1], x.shape[2]) for _, p, _, x in items]
+    launches, frames = sum(map(len, plans)), sum(g.kernel == "frame" for pl in plans for g in pl)
+    run = lambda fn: [fn(x, p) for _, p, _, x in items]
+    module = lambda: [module_stack(c, [True] * len(c), x.permute(0, 3, 1, 2)) for _, _, c, x in items]
+    flops = sum(cst.stack_flops(p, *x.shape[:3]) for _, p, _, x in items)
+    moved = sum(nbytes(x, p.w, p.b) + x.numel() // x.shape[3] * p.specs[-1][2] * x.element_size()
+                for _, p, _, x in items)
+    b_ms, b_by = bound_ms(flops, moved)
+    k_ms = [cuda_ms(lambda: run(band), iters=10) for _ in range(2)]
+    p_ms, m_ms = cuda_ms(lambda: run(band_plain), iters=3, warmup=1), cuda_ms(module, iters=10)
+    results["K8"].update(hybrid_ms=k_ms[0], hybrid_plain_ms=p_ms, hybrid_module_ms=m_ms,
+                         hybrid_bound_ms=b_ms)
+    print(f"kernel K8 on the hybrid route (flow_256 c0, c6-c7, c9-c10, c11-c12; flow_64 c0; {n} "
+          f"frames): kernel_ms={k_ms[0]:.4f} / {k_ms[1]:.4f} ({launches} launches, {frames} on the "
+          f"frame kernel) plain_ms={p_ms:.4f} module_ms={m_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    for name, p, _, x in items:
+        if len(p.specs) != 1:
+            continue
+        k, ci, co = p.specs[0]
+        t = cuda_ms(lambda: band(x, p))
+        f_ms, f_by = bound_ms(cst.stack_flops(p, *x.shape[:3]),
+                              nbytes(x, p.w, p.b) + x.numel() // ci * co * x.element_size())
+        xc, wk, bb = x.permute(0, 3, 1, 2), channels_last(p.kernels[0]), p.biases[0].to(bf)
+        lib = cuda_ms(lambda: F.conv2d(xc, wk, bb, padding=k // 2))
+        print(f"kernel K8 hybrid c0, {name} {k}x{k} {ci}->{co} at {tuple(x.shape[:3])}: {t:.4f} ms "
+              f"(fused kernel), floor {f_ms:.4f} ms ({f_by}), {100 * f_ms / t:.1f}% of it; cuDNN "
+              f"F.conv2d {lib:.4f} ms")
+
+    # Whole estimators on every route, on seeded frames of the step's shapes.
+    for label, est, size in (("flow_256", dfpn.flow_256, DFPN_BASE), ("flow_64", dfpn.flow_64, DFPN_BASE // 4)):
+        x_t, m_t, x_r, m_r = make_inputs(DFPN_B, DFPN_F, size, size, SEED + 20)
+        ins = (x_t, m_t, x_r, m_r, 0.1 * torch.randn(*x_r.shape[:4], 2, generator=gen, device="cuda"))
+        routes = {"modules": lambda: est(*ins), "every kernel": lambda: flow_estimator_apply_pallas(est, *ins)}
+        for route, flags, _ in HYBRID_ROUTES[:4]:
+            kw = dict(fuse_mids=flags.get("hybrid_fuse_mids", True),
+                      c0_mode=flags.get("hybrid_c0_mode", "pallas"))
+            routes[route] = functools.partial(flow_estimator_apply_hybrid, est, *ins, **kw)
+        want = routes["modules"]()
+        times = {r: [] for r in routes}
+        for _ in range(2):
+            for r, fn in routes.items():
+                times[r].append(cuda_ms(fn, iters=10))
+        for r, fn in routes.items():
+            got = fn()
+            err = rel_l2(got, want)
+            ok = bool(torch.isfinite(got).all()) and err <= L2_DFPN
+            print(f"{label} estimator ({DFPN_B}x{DFPN_F}x{size}x{size}), {r}: "
+                  f"{' / '.join(f'{t:.4f}' for t in times[r])} ms; rel_l2 to the module route "
+                  f"{err:.6g} (limit {L2_DFPN:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"the {label} estimator on {r} disagrees with its module route")
+
+    # VGG's pool-4 tower over the step's 4 + 20 frames on its three routes.
+    x = make_inputs(1, DFPN_B + DFPN_F * DFPN_B, DFPN_BASE, DFPN_BASE, SEED + 21)[2][0]
+    towers = {"module": lambda: vgg.pool4(x), "K8": lambda: vgg_pool4_pallas(vgg, x),
+              "vgg_pool4_hybrid": lambda: vgg_pool4_hybrid(vgg, x)}
+    want = towers["module"]()
+    times = {r: [cuda_ms(fn, iters=10)] for r, fn in towers.items()}
+    for r, fn in towers.items():
+        times[r].append(cuda_ms(fn, iters=10))
+        err = rel_l2(fn(), want)
+        print(f"VGG pool-4 ({x.shape[0]}x{DFPN_BASE}x{DFPN_BASE}), {r}: "
+              f"{' / '.join(f'{t:.4f}' for t in times[r])} ms; rel_l2 to the module {err:.6g} "
+              f"(limit {L2_DFPN:g}) {'ok' if err <= L2_DFPN else 'FAIL'}")
+        if err > L2_DFPN:
+            raise RuntimeError(f"VGG pool-4 on {r} disagrees with its module")
+
+
+def phase_cpn_context(device_line):
+    """CPN's context modules (``CPNContext``: Encoder, ``cm_module``,
+    Decoder), which no path calls, once at 1 x (1 + 4) x 256x256 in f32 on
+    the card (cuDNN, TF32 off) against the same modules on the CPU."""
+    from master_thesis_tpu_torch.models.cpn import CPNContext
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x_t, m_t, x_r, m_r = make_inputs(1, 4, 256, 256, SEED + 22)
+    ins = (x_t, m_t, x_r, 1 - m_r)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ctx = CPNContext(device=dev, generator=torch.Generator().manual_seed(SEED + 23)).eval()
+        with torch.inference_mode():
+            outs[dev] = [o.cpu() for o in ctx(*(t.to(dev) for t in ins))]
+    (frame, c_mask), (frame_c, c_mask_c) = outs["cuda"], outs["cpu"]
+    # c_mask is 1 less a sum of softmax weights: ~0 (f32 rounding) wherever a
+    # reference is visible, so it is held by its largest difference.
+    err, mask_err = rel_l2(frame, frame_c), (c_mask - c_mask_c).abs().max().item()
+    ok = (frame.shape == (1, 256, 256, 3) and c_mask.shape == (1, 64, 64, 1) and err <= 1e-4
+          and mask_err <= 1e-5)
+    print(f"check CPN context (Encoder, cm_module, Decoder) 1x(1+4)x256x256 f32, card vs CPU: "
+          f"frame rel_l2 {err:.3g} (limit 1e-4), c_mask max|diff| {mask_err:.3g} (limit 1e-5, "
+          f"max|c_mask| {c_mask_c.abs().max().item():.3g}) {'ok' if ok else 'FAIL'} on {device_line}")
+    if not ok:
+        raise RuntimeError("CPN's context modules on the card disagree with the CPU")
+
+
+def dfpn_outputs(dfpn, vgg, x_t, m_t, x_r, m_r, pool4=None, routes=EVERY_KERNEL):
+    """VGG pool-4 features (on K8 unless ``pool4`` is given) and
+    ``dfpn_infer_apply`` on ``routes`` (every kernel route by default), as
+    named groups (for the small-input checks)."""
     from master_thesis_tpu_torch.models.dfpn import dfpn_infer_apply, prepare_vgg_input
     from master_thesis_tpu_torch.models.vgg import vgg_pool4_pallas
 
+    pool4 = pool4 or functools.partial(vgg_pool4_pallas, vgg)
     b, f, h, w, _ = x_r.shape
     base = dfpn.base_size
-    feats_t = vgg_pool4_pallas(vgg, prepare_vgg_input(x_t, size=base))
-    feats_r = vgg_pool4_pallas(vgg, prepare_vgg_input(x_r.reshape(b * f, h, w, 3), size=base))
+    feats_t = pool4(prepare_vgg_input(x_t, size=base))
+    feats_r = pool4(prepare_vgg_input(x_r.reshape(b * f, h, w, 3), size=base))
     feats_r = feats_r.reshape(b, f, *feats_r.shape[1:])
-    outs = dfpn_infer_apply(dfpn, x_t, m_t, x_r, m_r, feats_t, feats_r, pallas_sep4d=True,
-                            pallas_mixer=True, pallas_flow=True)
+    outs = dfpn_infer_apply(dfpn, x_t, m_t, x_r, m_r, feats_t, feats_r, **routes)
     return dict(zip(("feats_t", "feats_r", "corr", "flow_16", "flow_64", "flow_full"),
                     (feats_t, feats_r, *outs)))
 
 
 def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
     """The CHN+DFPN step at B=4, F=5, 256x256, nb=20, bf16, with the default
-    routes and with every kernel route."""
+    routes, with every kernel route and on each hybrid route."""
     from master_thesis_tpu_torch.models.chn import chn_infer_apply
     from master_thesis_tpu_torch.models.vgg import VGGFeatures
     from master_thesis_tpu_torch.ops import conv_stack, rrdb, tail
@@ -1967,6 +2157,10 @@ def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
         "every kernel route": (dict(pallas_sep4d=True, pallas_flow=True, pallas_vgg=True),
                                {"K1": NB * 3, "K4": tail.TAIL_KERNELS, "K7": 11, "K7 wide": 5,
                                 "K8": 50, "K8 frame": 44}),
+        # The hybrid routes: the mixer on K7 as by default, K8 as HYBRID_ROUTES says.
+        **{label: (flags, {"K1": NB * 3, "K4": tail.TAIL_KERNELS, "K7": 5, "K7 wide": 1, "K8": k8,
+                           "K8 frame": k8_frame})
+           for label, flags, (k8, k8_frame) in HYBRID_ROUTES},
     }
     for label, (flags, want) in routes.items():
         align = dfpn_align_fn(dfpn, vgg, **flags)
@@ -1989,8 +2183,10 @@ def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
         print(f"CHN+DFPN step, {label}: launches in one step {counts} (expected {want})")
         if counts != want:
             raise RuntimeError(f"the CHN+DFPN step ({label}) did not launch each kernel as expected")
-        if flags:
+        if label == "every kernel route":
             results["K7"]["launches"], results["K8"]["launches"] = counts["K7"], counts["K8"]
+        elif label == HYBRID_ROUTES[0][0]:
+            results["K8"]["launches_hybrid"] = counts["K8"]
         shape = (DFPN_B, DFPN_F, H, W)
         if y_hat.shape != (*shape, 3) or y_comp.shape != (*shape, 3) or va.shape != (*shape, 1):
             raise RuntimeError(f"output shapes {tuple(y_hat.shape)}, {tuple(y_comp.shape)}, {tuple(va.shape)}")
@@ -2041,6 +2237,41 @@ def phase_dfpn_path(chn, dfpn, vgg, results, device_line):
                                   + [(planted_frame, f, lb) for f, lb in FRAME_FAULTS.items()]):
             with ctx(fault):
                 check_groups("CHN+DFPN DFPN outputs", run(), want, L2_DFPN, planted=label)
+    # The same on the default hybrid route at 1x2x128x128, base 128, where it
+    # calls K8 on flow_256's c0 (fused kernel) and c6-c7, c11-c12 at 32x32
+    # (frame kernel) and on flow_64's c0 at 32x32; VGG and the mixer through
+    # their modules, so each fault reaches the outputs through K8 alone. The
+    # groups are the DFPN outputs and each K8 call's output: at random
+    # weights the flows barely see c0 (a corner tap left out of it moves
+    # flow_64 by 5e-5 relative), so the calls' outputs carry the check.
+    hyb_dfpn = build_dfpn(base_size=128, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(SEED + 18))
+    small_h = make_inputs(1, 2, 128, 128, SEED + 19)
+
+    def run():
+        outs = []
+        with recorded_banded(outs):
+            groups = dfpn_outputs(hyb_dfpn, small_vgg, *small_h, pool4=small_vgg.pool4,
+                                  routes=dict(pallas_mixer=False, hybrid_flow=True))
+        return {**groups, **{f"K8 call {i}": y for i, y in enumerate(outs)}}
+
+    with torch.inference_mode():
+        with plain_stacks():
+            want = run()
+        for c in counters.values():
+            c.launches = 0
+        got = run()
+        torch.cuda.synchronize()
+        counts = {k: counters[k].launches for k in ("K7", "K8", "K8 frame")}
+        if counts != {"K7": 0, "K8": 6, "K8 frame": 4}:
+            raise RuntimeError(f"the small hybrid check launched {counts}")
+        check_groups("CHN+DFPN DFPN outputs and K8 calls, hybrid route, 1x2x128x128 base 128, "
+                     "kernels vs plain versions", got, want, L2_DFPN)
+        for ctx, fault, label in ([(planted_stack, f, lb) for f, lb in STACK_FAULTS.items()]
+                                  + [(planted_frame, f, lb) for f, lb in FRAME_FAULTS.items()]):
+            with ctx(fault):
+                check_groups("CHN+DFPN DFPN outputs and K8 calls, hybrid route", run(), want, L2_DFPN,
+                             planted=label)
 
 
 @contextlib.contextmanager
@@ -3113,7 +3344,9 @@ def main() -> int:
     with torch.inference_mode():
         phase_kernels_stack(dfpn, results)
         phase_kernels_band(dfpn, vgg, results)
+        phase_hybrid_routes(dfpn, vgg, results)
     phase_dfpn_path(chn, dfpn, vgg, results, smi)
+    phase_cpn_context(smi)
     with torch.inference_mode():
         phase_kernels_banded(chn, results)
     # The video phase's CHN: the serving weights as seeded (the training
@@ -3128,8 +3361,8 @@ def main() -> int:
     # Beside them, the first design's time where the kernel was redesigned.
     first = ("first_design_ms", "tiles_ms", "first_ms")
     kernels = [{**{k: r[k] for k in keys}, **{"first_design_ms": r[k] for k in first if k in r},
-                **{k: r[k] for k in ("sources", "launches_dfpn_train", "launches_cli", "launches_dist")
-                   if k in r}}
+                **{k: r[k] for k in ("sources", "launches_hybrid", "hybrid_ms", "launches_dfpn_train",
+                                     "launches_cli", "launches_dist") if k in r}}
                for _, r in sorted(results.items())]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,8 +1,9 @@
 """JAX param trees -> port state dicts (the inverse of
 master_thesis_tpu/models/convert.py: chn_from_torch, cpn_from_torch,
-vgg16_from_torch, dfpn_from_torch, lpips_from_torch), and reference torch
-checkpoints -> port state dicts (``load_torch_checkpoint``,
-``strip_module_prefix``).
+cpn_aux_from_torch, vgg16_from_torch, dfpn_from_torch, lpips_from_torch),
+and reference torch checkpoints -> port state dicts
+(``load_torch_checkpoint``, ``strip_module_prefix``, and ``cpn_state`` /
+``cpn_aux_state``, which split a reference CPN ``weight.pth``).
 
 The trees arrive as nested dicts of numpy arrays (no JAX needed). Layout
 rules: conv kernels HWIO -> OIHW; transposed-conv kernels ``(k, k, I, O)``
@@ -20,6 +21,9 @@ import torch
 
 _CPN_AENC = ["conv12", "conv2", "conv23", "conv3", "conv34", "conv4a", "conv4b"]
 _CPN_AREG = ["conv45", "conv5a", "conv5b", "conv56"]
+_CPN_ENC = ["conv12", "conv2", "conv23", "conv3", "value3"]
+_CPN_DEC = ["conv4", "conv5_1", "conv5_2", "convA4_1", "convA4_2", "convA4_3", "convA4_4", "conv3c",
+            "conv3b", "conv3a", "conv32", "conv2", "conv21"]
 
 
 def _t(a) -> torch.Tensor:
@@ -92,6 +96,35 @@ def cpn_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     sd["A_Regressor.fc.weight"] = _t(np.asarray(fc["kernel"]).T)
     sd["A_Regressor.fc.bias"] = _t(fc["bias"])
     return sd
+
+
+def cpn_aux_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX CPN context params ``{"Encoder": ..., "Decoder": ...}`` (the
+    layout of ``cpn_aux_from_torch``) -> a ``CPNContext`` state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for group, names in (("Encoder", _CPN_ENC), ("Decoder", _CPN_DEC)):
+        for name in names:
+            q = params[group][name]
+            _conv(sd, f"{group}.{name}.conv.0", q["kernel"], q["bias"])
+    return sd
+
+
+def _select(sd: Mapping, groups) -> Dict[str, torch.Tensor]:
+    return {k: v for k, v in sd.items() if k.split(".", 1)[0] in groups}
+
+
+def cpn_state(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``CPN`` keys of a reference CPN state dict (``load_torch_checkpoint``
+    of its ``weight.pth``): the aligner's, without the regressor's dead
+    conv6a / conv6b and without the context modules'."""
+    sd = _select(sd, ("A_Encoder", "A_Regressor"))
+    return {k: v for k, v in sd.items() if not k.startswith(("A_Regressor.conv6a.", "A_Regressor.conv6b."))}
+
+
+def cpn_aux_state(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``CPNContext`` keys of a reference CPN state dict: ``Encoder.*`` and
+    ``Decoder.*``."""
+    return _select(sd, ("Encoder", "Decoder"))
 
 
 # The reference DFPN's Sequential positions (model_dfpn.py:586-743).

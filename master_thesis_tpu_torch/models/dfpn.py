@@ -1,7 +1,8 @@
 """Dense Flow Prediction Network (master_thesis_tpu/models/dfpn.py:
 correlation_masked_4d, softmax_3d, SeparableConv4d,
 AlignmentCorrelationMixer, FlowEstimator, DFPN, flow_estimator_apply_pallas,
-dfpn_infer_apply, prepare_vgg_input, dfpn_align).
+_conv_im2col, flow_estimator_apply_hybrid, dfpn_infer_apply,
+prepare_vgg_input, dfpn_align).
 
 Public tensors are channel-last like the JAX package's: images ``(B, H, W,
 C)``, sequences ``(B, F, H, W, C)``, the cost volume ``(B, F, H, W, H,
@@ -20,7 +21,10 @@ modules (cuDNN on the card) or, with ``pallas_sep4d``, on the tile
 conv-stack kernel K7; the mixer on K7 (``pallas_mixer``, default on); the
 flow estimators through the modules or, with ``pallas_flow``, their
 fixed-resolution segments on the banded conv-stack kernel K8
-(:mod:`..ops.conv_stack`).
+(:mod:`..ops.conv_stack`), or with ``hybrid_flow`` the JAX package's
+hybrid schedule: c0 on K8, as one phase-packed conv or as one im2col
+product, and the 64² / 32² mid segments on K8, the rest through the
+modules (:func:`flow_estimator_apply_hybrid`).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from master_thesis_tpu_torch.device import constant, resolve_device
-from master_thesis_tpu_torch.models.nn_ext import Conv, ConvTranspose2dTorch
+from master_thesis_tpu_torch.models.nn_ext import Conv, ConvTranspose2dTorch, conv_phase_s2d
 from master_thesis_tpu_torch.models.vgg import IMAGENET_MEAN, IMAGENET_STD
 from master_thesis_tpu_torch.ops import conv_stack
 from master_thesis_tpu_torch.ops.flows import align_set, resize_flow
@@ -238,10 +242,81 @@ def flow_estimator_apply_pallas(est: FlowEstimator, x_target, m_target, x_refs, 
     for names, step in _FLOW_SEGMENTS:
         convs = [est.layer(n) for n in names]
         relus = [n != "c17" for n in names]
-        x = conv_stack.conv_stack_banded(x, est.stacks.get(names[0], convs, relus, est.dtype))
+        x = conv_stack.conv_stack_banded(x, est.stacks.get(names, convs, relus, est.dtype))
         if step is not None:
             y = F.relu(est.layer(step)(x.permute(0, 3, 1, 2)))
             x = y.permute(0, 2, 3, 1).contiguous()
+    return x.reshape(b, f, h, w, 2)
+
+
+def _conv_im2col(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A same-padded ``k x k`` conv of NHWC ``x (N, H, W, Cin)`` with the OIHW
+    ``weight`` as one product (JAX ``_conv_im2col``): the k² shifted slices
+    of the zero-padded frame concatenated in ``(dy, dx, ci)`` order, times
+    the ``(k² Cin, Cout)`` kernel matrix in ``x``'s dtype, plus ``bias`` in
+    its own (an f32 bias makes the result f32, as in JAX)."""
+    cout, cin, kh, kw = weight.shape
+    n, h, w, _ = x.shape
+    xp = F.pad(x, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+    cols = torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(kh) for dx in range(kw)], dim=-1)
+    return torch.matmul(cols, weight.permute(2, 3, 1, 0).reshape(kh * kw * cin, cout)) + bias
+
+
+# The hybrid estimator's mid segments, on K8 where their frames hold at least
+# HYBRID_MIN_PIXELS pixels (JAX ``flow_estimator_apply_hybrid``).
+_HYBRID_MIDS = (("c6", "c7"), ("c9", "c10"), ("c11", "c12"))
+HYBRID_MIN_PIXELS = 1024
+
+
+def flow_estimator_apply_hybrid(est: FlowEstimator, x_target, m_target, x_refs, m_refs, flow_pre, *,
+                                fuse_mids: bool = True, c0_mode: str = "pallas") -> torch.Tensor:
+    """:class:`FlowEstimator` on the JAX package's hybrid schedule
+    (``flow_estimator_apply_hybrid``), the same products regrouped:
+
+    - c0 by ``c0_mode``: ``"pallas"`` one K8 launch where the frame holds
+      at least ``HYBRID_MIN_PIXELS``, ``"s2d"`` one phase-packed conv
+      (:func:`..nn_ext.conv_phase_s2d`) where H and W are even,
+      ``"im2col"`` one product (:func:`_conv_im2col`); otherwise, or for
+      any other mode, its module. The s2d and im2col forms add the f32 bias
+      to the compute-dtype product and pass f32 on, as JAX does;
+    - with ``fuse_mids``, each of c6-c7, c9-c10 and c11-c12 as one K8 stack
+      where its frames hold at least ``HYBRID_MIN_PIXELS``;
+    - every other conv, the strided downs and the transposed ups through
+      their modules (cuDNN on the card), which see the channels-last view
+      of the NHWC activations.
+
+    Returns ``(B, F, H, W, 2)`` in the compute dtype."""
+    b, f, h, w, _ = x_refs.shape
+    dt = est.dtype
+    x = est.inputs(x_target, m_target, x_refs, m_refs, flow_pre, dt).contiguous()
+
+    def module(x, name, relu=True):
+        y = est.layer(name)(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return F.relu(y) if relu else y
+
+    def banded(x, names):
+        p = est.stacks.get(names, [est.layer(n) for n in names], [True] * len(names), dt)
+        return conv_stack.conv_stack_banded(x.contiguous(), p)
+
+    c0 = est.layer("c0")
+    if c0_mode == "im2col":
+        x = F.relu(_conv_im2col(x, c0.weight.to(dt), c0.bias))
+    elif c0_mode == "s2d" and h % 2 == 0 and w % 2 == 0:
+        x = F.relu(conv_phase_s2d(x, c0.weight, 2, 2, 2, dt) + c0.bias)
+    elif c0_mode == "pallas" and h * w >= HYBRID_MIN_PIXELS:
+        x = banded(x, ("c0",))
+    else:
+        x = module(x, "c0")
+    for names, step in _FLOW_SEGMENTS:
+        if names[0] == "c0":
+            names = names[1:]
+        if fuse_mids and names in _HYBRID_MIDS and x.shape[1] * x.shape[2] >= HYBRID_MIN_PIXELS:
+            x = banded(x, names)
+        else:
+            for name in names:
+                x = module(x, name, relu=name != "c17")
+        if step is not None:
+            x = module(x, step)
     return x.reshape(b, f, h, w, 2)
 
 
@@ -289,6 +364,9 @@ def dfpn_infer_apply(
     pallas_sep4d: bool = False,
     pallas_mixer: bool = True,
     pallas_flow: bool = False,
+    hybrid_flow: bool = False,
+    hybrid_fuse_mids: bool = True,
+    hybrid_c0_mode: str = "pallas",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The DFPN serving forward. ``x_target (B, H, W, 3)`` and ``m_target (B,
     H, W, 1)`` (masked target and its mask), ``x_refs (B, F, H, W, 3)``,
@@ -297,11 +375,14 @@ def dfpn_infer_apply(
     frames (:func:`prepare_vgg_input`). Returns ``(corr, flow_16, flow_64,
     flow_full)``: the cost volume after the 4-D conv, the flows of the
     cascade 16 -> 64 -> 256 (at base 256), and the last at the input size.
-    The flags route the stages as the module docstring says; on a grad
-    path (grad mode on, a DFPN parameter requiring grad) any of them raises
-    ``ValueError``, since K7 and K8 have no backward: train with all three
-    ``False``."""
-    flags = {"pallas_sep4d": pallas_sep4d, "pallas_mixer": pallas_mixer, "pallas_flow": pallas_flow}
+    The flags route the stages as the module docstring says
+    (``pallas_flow`` takes precedence over ``hybrid_flow``, whose
+    ``hybrid_fuse_mids`` and ``hybrid_c0_mode`` are those of
+    :func:`flow_estimator_apply_hybrid`); on a grad path (grad mode on, a
+    DFPN parameter requiring grad) any of the four raises ``ValueError``,
+    since K7 and K8 have no backward: train with all four ``False``."""
+    flags = {"pallas_sep4d": pallas_sep4d, "pallas_mixer": pallas_mixer, "pallas_flow": pallas_flow,
+             "hybrid_flow": hybrid_flow}
     on = [name for name, value in flags.items() if value]
     if on:
         conv_stack.refuse_grad_path(dfpn, "dfpn_infer_apply with " + ", ".join(f"{n}=True" for n in on))
@@ -330,7 +411,12 @@ def dfpn_infer_apply(
         flow_16 = mixer(corr)
 
     def flow_est(est: FlowEstimator, *args):
-        return flow_estimator_apply_pallas(est, *args) if pallas_flow else est(*args)
+        if pallas_flow:
+            return flow_estimator_apply_pallas(est, *args)
+        if hybrid_flow:
+            return flow_estimator_apply_hybrid(est, *args, fuse_mids=hybrid_fuse_mids,
+                                               c0_mode=hybrid_c0_mode)
+        return est(*args)
 
     flow_64_pre = resize_flow(flow_16, (s64, s64), mode="bilinear")
     flow_64 = flow_est(dfpn.flow_64, x_t_64, m_t_64, x_r_64, m_r_64, flow_64_pre)

@@ -1,6 +1,6 @@
 """VGG-16 pool-feature extractor (master_thesis_tpu/models/vgg.py:
-VGGFeatures, normalize_imagenet, vgg_pool4_pallas) and the ImageNet
-constants.
+VGGFeatures, normalize_imagenet, vgg_pool4_pallas, vgg_pool4_hybrid) and
+the ImageNet constants.
 
 :class:`VGGFeatures` returns the five post-pool maps the CHN perceptual
 loss reads, and :meth:`VGGFeatures.pool4` the pool-4 map alone, which DFPN's
@@ -9,7 +9,9 @@ torchvision's ``features.{idx}`` positions, so a torchvision ``vgg16``
 state dict loads as it is. They are plain convs (cuDNN on the card), as
 the JAX package computes them outside Pallas on the serving and training
 paths; :func:`vgg_pool4_pallas` runs the pool-4 tower on the banded
-conv-stack kernel K8 instead.
+conv-stack kernel K8 instead, and :func:`vgg_pool4_hybrid` block 1 as one
+phase-packed conv whose 2x2 pool is a max over the phase groups (no
+kernel: the JAX package computes it outside Pallas too).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from master_thesis_tpu_torch.device import constant, resolve_device
-from master_thesis_tpu_torch.models.nn_ext import Conv
+from master_thesis_tpu_torch.models.nn_ext import Conv, conv_phase_s2d
 from master_thesis_tpu_torch.ops.conv_stack import StackCache, conv_stack_banded, refuse_grad_path
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -97,3 +99,21 @@ def vgg_pool4_pallas(vgg: VGGFeatures, x: torch.Tensor) -> torch.Tensor:
         x = conv_stack_banded(x, p)
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1).contiguous()
     return x
+
+
+def vgg_pool4_hybrid(vgg: VGGFeatures, x: torch.Tensor) -> torch.Tensor:
+    """:meth:`VGGFeatures.pool4` with block 1's second conv as one
+    phase-packed conv (``vgg_pool4_hybrid``): conv_0 through its module;
+    conv_1 as :func:`..nn_ext.conv_phase_s2d` unshuffled (``(py, px, o)``
+    channels at half resolution) plus its f32 bias tiled four times, ReLU,
+    and the 2x2 max-pool as the max over the four phase groups; blocks 2-4
+    through their modules. ``x`` NHWC, already ImageNet-normalised. The
+    product runs in the compute dtype, the bias and the max in f32, as in
+    JAX."""
+    conv_0, conv_1 = vgg.features[0], vgg.features[2]
+    x = F.relu(conv_0(x.to(vgg.dtype).permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+    y4 = conv_phase_s2d(x, conv_1.weight, 2, 1, 1, vgg.dtype, shuffle_out=False)
+    y4 = F.relu(y4 + conv_1.bias.repeat(4))
+    n, h4, w4, _ = y4.shape
+    x = y4.reshape(n, h4, w4, 4, -1).amax(dim=3)
+    return vgg.features[5:_POOL4_END](x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -45,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Hashable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -173,8 +173,10 @@ class StackCache:
     def __init__(self):
         self._entries = {}
 
-    def get(self, name: str, convs: Sequence, relus: Sequence[bool], dtype: torch.dtype) -> PackedStack:
-        """``convs``: modules with ``weight`` and ``bias``."""
+    def get(self, name: Hashable, convs: Sequence, relus: Sequence[bool], dtype: torch.dtype) -> PackedStack:
+        """``convs``: modules with ``weight`` and ``bias``; ``name`` keys the
+        stack (two stacks of one module need two names: the flow
+        estimators key theirs by the tuple of their convs' names)."""
         key = (dtype,) + tuple((p.data_ptr(), p._version) for m in convs for p in (m.weight, m.bias))
         hit = self._entries.get(name)
         if hit is None or hit[0] != key:

@@ -1,11 +1,13 @@
 """Image transforms on channel-last tensors
-(master_thesis_tpu/ops/transforms.py: resize, resize_set, resize_set_bis)."""
+(master_thesis_tpu/ops/transforms.py: resize, resize_set, resize_set_bis,
+crop, dilate)."""
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from master_thesis_tpu_torch.ops.interp import resize_hw
 
@@ -58,3 +60,26 @@ def resize_set_bis(
         resize_hw(x_ref, size, "bilinear"),
         resize_hw(m_ref, size, "nearest"),
     )
+
+
+def crop(image: torch.Tensor, size: Sequence[int], crop_position: Sequence[int]) -> torch.Tensor:
+    """The ``size=(h, w)`` window of ``(..., H, W, C)`` images whose top-left
+    corner is ``crop_position`` (a view). The caller picks the position, as
+    in the JAX package (the reference draws it on the host, utils.py:597-616)."""
+    ph, pw = crop_position
+    return image[..., ph:ph + size[0], pw:pw + size[1], :]
+
+
+def dilate(mask: torch.Tensor, filter_size: Sequence[int] = (3, 3), iterations: int = 4) -> torch.Tensor:
+    """Morphological dilation of ``(..., H, W, C)`` masks by a ``kh x kw``
+    cross, ``iterations`` times, as ``cv2.dilate`` with ``MORPH_CROSS``
+    (reference utils.py:618-640): each time the elementwise max of a ``kh x
+    1`` and a ``1 x kw`` max-pool, same-padded; in f32, returned in the
+    mask's dtype (a bool mask too)."""
+    kh, kw = int(filter_size[0]), int(filter_size[1])
+    h, w, c = mask.shape[-3:]
+    x = mask.to(torch.float32).reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    for _ in range(iterations):
+        x = torch.maximum(F.max_pool2d(x, (kh, 1), 1, (kh // 2, 0)),
+                          F.max_pool2d(x, (1, kw), 1, (0, kw // 2)))
+    return x.permute(0, 2, 3, 1).reshape(*mask.shape[:-3], *x.shape[2:], c).to(mask.dtype)

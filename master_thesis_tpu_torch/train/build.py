@@ -1,7 +1,8 @@
 """Model construction, the closures the tasks and algorithms call, and the
 loaders (master_thesis_tpu/train/build.py: build_vgg, build_cpn,
 build_dfpn, dfpn_align_fn, build_chn, build_lpips, chn_infer_fn,
-chn_train_fn, build_loaders).
+chn_train_fn, build_loaders), and :func:`build_cpn_context`, the CPN's
+context modules, which the JAX package converts but builds nowhere.
 
 :func:`dfpn_align_fn` is the DFPN aligner with ``CPN.align``'s interface:
 VGG-16 pool-4 features of the normalised, ``base_size``-resized frames,
@@ -28,14 +29,14 @@ import torch
 
 from master_thesis_tpu_torch.models import convert
 from master_thesis_tpu_torch.models.chn import CHN, chn_infer_apply
-from master_thesis_tpu_torch.models.cpn import CPN
+from master_thesis_tpu_torch.models.cpn import CPN, CPNContext
 from master_thesis_tpu_torch.models.dfpn import (
     DFPN,
     dfpn_align,
     dfpn_infer_apply,
     prepare_vgg_input,
 )
-from master_thesis_tpu_torch.models.vgg import VGGFeatures, vgg_pool4_pallas
+from master_thesis_tpu_torch.models.vgg import VGGFeatures, vgg_pool4_hybrid, vgg_pool4_pallas
 from master_thesis_tpu_torch.train.checkpoint import load_weights
 
 
@@ -68,12 +69,32 @@ def build_vgg(cfg, checkpoint: Optional[str] = None) -> VGGFeatures:
     return vgg.requires_grad_(False).eval()
 
 
+def _load_cpn_part(module: torch.nn.Module, checkpoint: Optional[str], select: Callable, what: str) -> None:
+    """Loads ``select`` of the reference CPN ``weight.pth`` (``module.``
+    prefixes dropped) into ``module`` where the file exists; warns and keeps
+    the random weights where a path was given but no file is there."""
+    if checkpoint and os.path.exists(checkpoint):
+        module.load_state_dict(select(convert.load_torch_checkpoint(checkpoint)))
+    elif checkpoint:
+        warnings.warn(f"{what} checkpoint {checkpoint} not found; random init")
+
+
 def build_cpn(cfg, checkpoint: Optional[str] = None) -> CPN:
-    """The frozen CPN aligner (random from seed 2, or the reference
-    ``weight.pth``, whose ``module.`` prefixes are dropped)."""
+    """The frozen CPN aligner (random from seed 2, or the aligner's part of
+    the reference ``weight.pth``, :func:`..models.convert.cpn_state`)."""
     cpn = CPN(dtype=compute_dtype(cfg), device=cfg.device, generator=torch.Generator().manual_seed(2))
-    _load_weights(cpn, checkpoint, "CPN")
+    _load_cpn_part(cpn, checkpoint, convert.cpn_state, "CPN")
     return cpn.requires_grad_(False).eval()
+
+
+def build_cpn_context(cfg, checkpoint: Optional[str] = None) -> CPNContext:
+    """The frozen CPN context modules, which no path calls (random from seed
+    2, or the ``Encoder`` / ``Decoder`` part of the reference ``weight.pth``,
+    :func:`..models.convert.cpn_aux_state`)."""
+    ctx = CPNContext(dtype=compute_dtype(cfg), device=cfg.device,
+                     generator=torch.Generator().manual_seed(2))
+    _load_cpn_part(ctx, checkpoint, convert.cpn_aux_state, "CPN")
+    return ctx.requires_grad_(False).eval()
 
 
 def build_dfpn(
@@ -88,15 +109,25 @@ def build_dfpn(
 
 def dfpn_align_fn(
     dfpn: DFPN, vgg: VGGFeatures, *, pallas_sep4d: bool = False, pallas_mixer: bool = True,
-    pallas_flow: bool = False, pallas_vgg: bool = False,
+    pallas_flow: bool = False, pallas_vgg: bool = False, hybrid_flow: bool = False,
+    hybrid_fuse_mids: bool = True, hybrid_c0_mode: str = "pallas", hybrid_vgg: bool = False,
 ) -> Callable:
     """``align_fn(x_t, m_t, x_r, m_r) -> (x_aligned, v_aligned, v_map)``.
-    The ``pallas_*`` flags route DFPN's stages (:func:`dfpn_infer_apply`);
-    ``pallas_vgg`` runs the pool-4 tower on K8 (:func:`vgg_pool4_pallas`)
-    instead of the module, which the JAX package keeps for serving."""
+    The ``pallas_*`` and ``hybrid_*`` flags route DFPN's stages
+    (:func:`dfpn_infer_apply`); ``pallas_vgg`` runs the pool-4 tower on K8
+    (:func:`vgg_pool4_pallas`) and ``hybrid_vgg`` with block 1 phase-packed
+    (:func:`vgg_pool4_hybrid`; ``pallas_vgg`` takes precedence) instead of
+    the module, which the JAX package keeps for serving. The hybrid flags
+    are the JAX A/B's candidates (``scripts/measure/dfpn_serving_ab.py``)."""
     apply_fn = partial(dfpn_infer_apply, dfpn, pallas_sep4d=pallas_sep4d,
-                       pallas_mixer=pallas_mixer, pallas_flow=pallas_flow)
-    pool4 = partial(vgg_pool4_pallas, vgg) if pallas_vgg else vgg.pool4
+                       pallas_mixer=pallas_mixer, pallas_flow=pallas_flow, hybrid_flow=hybrid_flow,
+                       hybrid_fuse_mids=hybrid_fuse_mids, hybrid_c0_mode=hybrid_c0_mode)
+    if pallas_vgg:
+        pool4 = partial(vgg_pool4_pallas, vgg)
+    elif hybrid_vgg:
+        pool4 = partial(vgg_pool4_hybrid, vgg)
+    else:
+        pool4 = vgg.pool4
 
     def align_fn(x_t, m_t, x_r, m_r):
         b, f, h, w, _ = x_r.shape

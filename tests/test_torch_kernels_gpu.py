@@ -660,6 +660,65 @@ def test_frame_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         conv_stack.conv_frame_cuda(nhwc, p32, 0)
 
 
+def _flow_inputs(rng, cuda, b, f, size):
+    """Frames, 20%-hole masks and a small prior flow, f32 on the card."""
+    arrays = (rng.rand(b, size, size, 3), rng.rand(b, size, size, 1) > 0.8, rng.rand(b, f, size, size, 3),
+              rng.rand(b, f, size, size, 1) > 0.8, rng.randn(b, f, size, size, 2) * 0.1)
+    return [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in arrays]
+
+
+# Relative L2 limit of a whole flow estimator (21 convs in bf16) through K8
+# against the same schedule through K8's plain version: chip_smoke.py's
+# L2_DFPN.
+ESTIMATOR_L2 = 5e-2
+
+
+def test_hybrid_flow_estimator_launches_k8_and_matches_plain(cuda, monkeypatch):
+    """The default hybrid estimator (bf16) at 1 x 2 x 128²: c0 (one launch
+    of the fused kernel) and c6-c7, c11-c12 at 32² (two frame launches each)
+    on K8, c9-c10 at 16² through the modules; held against the same
+    schedule with K8's plain version."""
+    from master_thesis_tpu_torch.models.dfpn import FlowEstimator, flow_estimator_apply_hybrid
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    est = FlowEstimator(generator=torch.Generator().manual_seed(3), dtype=torch.bfloat16).to(cuda)
+    ins = _flow_inputs(np.random.RandomState(13), cuda, 1, 2, 128)
+    launches0, frame0 = conv_stack.conv_stack_banded_cuda.launches, conv_stack.conv_frame_cuda.launches
+    with torch.no_grad():
+        got = flow_estimator_apply_hybrid(est, *ins)
+    torch.cuda.synchronize()
+    assert conv_stack.conv_stack_banded_cuda.launches - launches0 == 5
+    assert conv_stack.conv_frame_cuda.launches - frame0 == 4
+    monkeypatch.setattr(conv_stack, "conv_stack_banded_cuda", conv_stack.conv_stack_banded_plain)
+    with torch.no_grad():
+        want = flow_estimator_apply_hybrid(est, *ins)
+    assert got.shape == want.shape == (1, 2, 128, 128, 2)
+    assert _rel_l2(got, want) <= ESTIMATOR_L2
+
+
+def test_hybrid_route_refused_on_a_grad_path_on_the_card(cuda):
+    """``dfpn_infer_apply(hybrid_flow=True)`` raises under grad mode with
+    trainable parameters before any K8 launch; under ``torch.no_grad()`` it
+    runs its K8 launch (flow_256's c0 at 64²)."""
+    from master_thesis_tpu_torch.models.dfpn import DFPN, dfpn_infer_apply
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    net = DFPN(base_size=64, dtype=torch.bfloat16, device=cuda, generator=torch.Generator().manual_seed(4))
+    rng = np.random.RandomState(14)
+    x_t, m_t, x_r, m_r, _ = _flow_inputs(rng, cuda, 1, 1, 64)
+    feats = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(cuda) for s in ((1, 4, 4, 512), (1, 1, 4, 4, 512))]
+    run = lambda: dfpn_infer_apply(net, x_t, m_t, x_r, m_r, *feats, pallas_mixer=False, hybrid_flow=True)
+    before = conv_stack.conv_stack_banded_cuda.launches
+    with pytest.raises(ValueError, match="hybrid_flow=True.*no backward"):
+        run()
+    assert conv_stack.conv_stack_banded_cuda.launches == before
+    with torch.no_grad():
+        out = run()
+    torch.cuda.synchronize()
+    assert conv_stack.conv_stack_banded_cuda.launches == before + 1
+    assert all(torch.isfinite(o).all() for o in out)
+
+
 def test_dfpn_train_step_on_the_card_matches_the_cpu(cuda):
     """The DFPN train step (``dfpn_task.forward_and_loss`` and its backward)
     at 1 x (1 + 1) x 64², base 64, f32 with TF32 off, on the card against
