@@ -173,6 +173,11 @@ Phases, each fatal on failure:
    finite items, every parameter moved, CHN test's frames in [0, 1] and the
    input's where visible; each train mode's ms/step with the real loader
    and busy share beside the synthetic-batch step of phases 6 and 11;
+   then at ``--compute_dtype float32`` DFPN test, CHN train (3 steps) and
+   CHN test (at 480x720, past the f32 band thresholds), the CHN modes with
+   ``--chn_aligner dfpn``: each takes the f32 routes it runs (K7 in DFPN
+   test; K1 / K3 / K4 / K6 / K7 in CHN train; K2 / K5 / K7 in CHN test) and
+   no bf16 kernel;
 13. distribution (``master_thesis_tpu_torch.parallel``): (a) phase 6's
    train step (CHN, B=8, frames_n 2, 256x256, nb 20, bf16, the same seeds
    and batch) on a 1x1 NCCL mesh, its items and parameter updates by group
@@ -188,7 +193,23 @@ Phases, each fatal on failure:
    ms/step, all-reduce ms an update (CUDA events) and peak memory; both read
    also with two planted faults, each denominator local to its rank and
    rank 1 keeping its own grads, which must be caught. Two ranks on one
-   card check correctness, not scaling.
+   card check correctness, not scaling;
+14. f32 (run after phase 11, before the CLI; ``csrc/conv_f32.cu``, TF32
+   off): each site's f32 route at its main-path shapes (K1 / K4
+   80x64x64, K3 / K6 8x64x64, K2 / K5 8x128x256 in bands, K7 sep4d's two
+   stages and the mixer, K8 its three callers)
+   against its plain f32 version by relative L2 (limit 1e-5; the backward
+   checks' plain versions sum in f64 over the route's own activations),
+   each check read on two faults compiled in with ``-DF32_PLANT`` (tap
+   (0, 0) dropped; the channel slice read one group of 8 off), which must
+   be caught; each route's device time with its launch count beside its
+   bound at 67 TFLOP/s, the 3 x TF32 figure, the plain version, the cuDNN
+   route and the library yardstick (one ``F.conv2d`` / ``conv2d_weight``
+   a launch); the f32 CPN serving step (B=4, F=5, 256x256, nb 20) against
+   its plain routes, profiled; the f32 CHN train step (B=8, frames_n 2),
+   its grads against the plain backward versions from the same forward
+   (limit 1e-4), 3 steps after 1; a CHN+DFPN step on every kernel route in
+   f32; each f32 route's launches.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card or
@@ -453,7 +474,8 @@ def phase_build():
       + [("conv_stack_wgmma", (f"-DWIDE_PLANT={f}",)) for f in WIDE_FAULTS]
       + [("conv_stack_wgmma", (f"-DFRAME_PLANT={f}",)) for f in FRAME_FAULTS]
       + [(name, ("-DBAND_PLANT=1",)) for name in ("rrdb", "tail")]
-      + [("rrdb", ("-DRDB_PLANT=1",)), ("tail", ("-DTAIL_PLANT=1",))])
+      + [("rrdb", ("-DRDB_PLANT=1",)), ("tail", ("-DTAIL_PLANT=1",))]
+      + [("conv_f32", (f"-DF32_PLANT={f}",)) for f in F32_FAULTS])
     print(f"build: {len(report)} libraries in {time.perf_counter() - t0:.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})")
     for name, (secs, log) in sorted(report.items()):
@@ -1842,7 +1864,7 @@ def band_faults(p, h, w):
                      if frames and (f != 3 or any(g.th < h for g in frames))]
 
 
-def k8_callers(dfpn, vgg, rnd):
+def k8_callers(dfpn, vgg, rnd, dtype=torch.bfloat16):
     """K8's three callers in the CHN+DFPN step as ``{caller: [(name, packed
     stack, conv modules, relus, NHWC input), ...]}`` on seeded inputs:
     flow_256's and flow_64's 7 segments (20 frames at base 256: 256 .. 32 and
@@ -1851,7 +1873,7 @@ def k8_callers(dfpn, vgg, rnd):
     from master_thesis_tpu_torch.models.dfpn import _FLOW_SEGMENTS
     from master_thesis_tpu_torch.models.vgg import _POOL4_BLOCKS
 
-    bf, n = torch.bfloat16, DFPN_B * DFPN_F
+    bf, n = dtype, DFPN_B * DFPN_F
     callers = {}
     for label, est, base in (("flow_256", dfpn.flow_256, DFPN_BASE), ("flow_64", dfpn.flow_64, DFPN_BASE // 4)):
         items = []
@@ -2822,6 +2844,7 @@ def phase_cli(results, device_line, synthetic):
     from master_thesis_tpu_torch.train import build, loop
 
     t_phase = time.perf_counter()
+    cli_f32 = {}
     counters = {"K1": rrdb.rdb_cuda, "K2": rrdb.rdb_banded_cuda, "K3": rrdb_bwd.rrdb_bwd_cuda,
                 "K4": tail.tail_cuda, "K5": tail.tail_banded_cuda, "K6": tail_bwd.tail_bwd_cuda,
                 "K7": conv_stack.conv_stack_tiles_cuda, "K8": conv_stack.conv_stack_banded_cuda}
@@ -2999,6 +3022,61 @@ def phase_cli(results, device_line, synthetic):
             print(f"CLI CHN test: {x.shape[0]} frames at {x.shape[1]}x{x.shape[2]}, " + ", ".join(
                 f"{k} {v:.4f}" for k, v in means.items()) + f"; {chn_calls[0]} CHN calls; frames in "
                 f"[0, 1], the input's where visible; videos {sorted(frames)}")
+
+            # The f32 runs: DFPN test, CHN train and CHN test with the DFPN
+            # aligner at --compute_dtype float32 on the kernels (F32_CLI_STEPS
+            # steps; the CHN test's frames at F32_TEST_SIZE, past the f32 band
+            # thresholds). Each takes the f32 routes it runs and no bf16 kernel.
+            f32c = f32_counters()
+            f32_want = {"DFPN test": {"K7"}, "CHN train": {"K1", "K3", "K4", "K6", "K7"},
+                        "CHN test": {"K2", "K5", "K7"}}
+
+            def run_f32(label, argv, **kw):
+                for c in (*counters.values(), *f32c.values()):
+                    c.launches = 0
+                ticks.clear()
+                prof.clear()
+                t0 = time.perf_counter()
+                out = cli.main(argv + ["--compute_dtype", "float32"], **kw)
+                torch.cuda.synchronize()
+                got = {k: c.launches for k, c in f32c.items()}
+                bf16 = {k: c.launches for k, c in counters.items()}
+                print(f"CLI {label}, f32: {time.perf_counter() - t0:.3f} s on the host; f32 route launches "
+                      f"{got} (expected above 0 on {sorted(f32_want[label])} alone); bf16 kernels {bf16}")
+                if any(bf16.values()) or {k for k, v in got.items() if v} != f32_want[label]:
+                    raise RuntimeError(f"CLI {label}, f32: the f32 routes did not launch as expected")
+                cli_f32[label] = got
+                return out
+
+            aligner = ["--chn_aligner", "dfpn", "--chn_aligner_checkpoint", version,
+                       "--dfpn_base_size", str(DFPN_BASE)]
+            means = run_f32("DFPN test", common + ["--test", "--test_checkpoint", version, "--dfpn_base_size",
+                                                   str(DFPN_BASE)], logger=MemoryLogger())
+            if not all(np.isfinite(v) for v in means.values()):
+                raise RuntimeError(f"CLI DFPN test, f32: {means}")
+            logs32 = ["--default_root_dir", f"{tmp}/logs32"]
+            logger = MemoryLogger()
+            state = run_f32("CHN train", chn_argv + logs32 + aligner + [
+                "--train_max_iterations", str(F32_CLI_STEPS), "--validation_max_iterations", "1"],
+                logger=logger)
+            items = [v for prefix, _, sc in logger.scalars for k, v in sc.items() if k != "step_time_s"]
+            if state.step != F32_CLI_STEPS or not items or not all(np.isfinite(items)):
+                raise RuntimeError(f"CLI CHN train, f32: step {state.step}, items {items[:8]}")
+            frames32 = {}
+
+            def keep(y_hat, name):
+                frames32[name] = y_hat
+                return name
+
+            means = run_f32("CHN test", common + logs32 + aligner + [
+                "--chn", "--test", "--chn_nb", str(NB), "--test_checkpoint", f"{tmp}/logs32/version_0",
+                "--test_size", *map(str, F32_TEST_SIZE)], logger=MemoryLogger(), video_writer=keep)
+            bad = [k for k, v in frames32.items() if not np.isfinite(v).all() or v.min() < 0 or v.max() > 1]
+            if sorted(frames32) != ["clip0_cp", "clip0_ff", "clip0_ip"] or bad or not all(
+                    np.isfinite(list(means.values()))):
+                raise RuntimeError(f"CLI CHN test, f32: videos {sorted(frames32)}, bad {bad}, {means}")
+            print(f"CLI CHN test, f32, DFPN aligner: {F32_TEST_SIZE[0]}x{F32_TEST_SIZE[1]}, " + ", ".join(
+                f"{k} {v:.4f}" for k, v in means.items()) + "; frames finite in [0, 1]")
     finally:
         cli.batch_args, loop.StepTimer, RRDBNet.forward = batch_args, step_timer, rrdbnet_forward
 
@@ -3015,6 +3093,7 @@ def phase_cli(results, device_line, synthetic):
     for k in ("K1", "K3", "K4", "K6", "K7"):
         results[k]["launches_cli"] = {mode: c[k] for mode, c in cli_counts.items()}
     print(f"phase CLI: {time.perf_counter() - t_phase:.1f} s")
+    return cli_f32
 
 
 def tensor_groups(named):
@@ -3312,6 +3391,506 @@ def phase_distribution(results, device_line):
     print(f"phase distribution: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the f32 routes (csrc/conv_f32.cu), every kernel site in f32.
+# ---------------------------------------------------------------------------
+
+# An f32 route against its plain f32 version on the card (f32 sums in another
+# order), and the f32 steps' outputs and grads against the plain routes'
+# (the same through hundreds of convs).
+L2_F32, L2_F32_STEP = 1e-5, 1e-4
+# H100 SXM: f32 outside the tensor cores, and TF32 on them (the 3 x TF32
+# design's rate: the H100 SXM dense TF32 peak).
+PEAK_F32_FLOPS, PEAK_TF32_FLOPS = 67e12, 495e12
+# The f32 CPN serving step's batch (cut from the bf16 step's 16 to keep the
+# phase short), and the f32 CLI runs' steps and CHN test frame size (its
+# trunk grid past the f32 band threshold, so K2 and K5 run).
+F32_SERVE_B, F32_CLI_STEPS, F32_TEST_SIZE = 4, 3, (480, 720)
+F32_REPLACES = {
+    "K1": "master_thesis_tpu/ops/pallas_rrdb.py:181", "K2": "master_thesis_tpu/ops/pallas_rrdb.py:541",
+    "K3": "master_thesis_tpu/ops/pallas_rrdb.py:625", "K4": "master_thesis_tpu/ops/pallas_tail.py:263",
+    "K5": "master_thesis_tpu/ops/pallas_tail.py:292", "K6": "master_thesis_tpu/ops/pallas_tail.py:732",
+    "K7": "master_thesis_tpu/ops/pallas_sep4d.py:192", "K8": "master_thesis_tpu/ops/pallas_sep4d.py:316",
+}
+KERNELS_F32 = r"\bcf::"
+# The faults compiled into csrc/conv_f32.cu with -DF32_PLANT=n.
+F32_FAULTS = {1: "tap (0, 0) dropped", 2: "channel slice read one group of 8 channels off"}
+
+
+def f32_counters():
+    """Each site's f32 route's launch counter."""
+    from master_thesis_tpu_torch.ops import conv_stack, rrdb, rrdb_bwd, tail, tail_bwd
+
+    return {"K1": rrdb.rdb_f32, "K2": rrdb.rdb_banded_f32, "K3": rrdb_bwd.rrdb_bwd_f32,
+            "K4": tail.tail_f32, "K5": tail.tail_banded_f32, "K6": tail_bwd.tail_bwd_f32,
+            "K7": conv_stack.conv_stack_tiles_f32, "K8": conv_stack.conv_stack_banded_f32}
+
+
+@contextlib.contextmanager
+def tf32_off():
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@contextlib.contextmanager
+def f32_plain_convs():
+    """Within: the f32 routes' two kernels run their plain versions on card
+    tensors (the routes' own code around them stays): the plain routes."""
+    from master_thesis_tpu_torch.ops import conv_f32
+
+    orig = conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda
+    conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = (conv_f32.conv_f32_fwd_plain,
+                                                                conv_f32.conv_f32_wgrad_plain)
+    try:
+        yield
+    finally:
+        conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = orig
+
+
+@contextlib.contextmanager
+def planted_f32(fault):
+    """Within: the f32 routes launch their kernels from the library built
+    with ``-DF32_PLANT=fault`` (csrc/conv_f32.cu)."""
+    from master_thesis_tpu_torch.ops import conv_f32
+
+    orig = conv_f32._lib
+    conv_f32._lib = lambda _=(): orig((f"-DF32_PLANT={fault}",))
+    try:
+        yield
+    finally:
+        conv_f32._lib = orig
+
+
+@contextlib.contextmanager
+def f32_plain_backward():
+    """Within: the trunk's and the tail's autograd Functions run the plain
+    backward versions over the f32 routes' forward (the kept activations,
+    and the tail's recompute on K4's f32 stages), as :func:`plain_backward`
+    does in bf16: a forward that differs by f32 noise would flip a few
+    leaky masks, and the L1 loss's signs."""
+    from master_thesis_tpu_torch.ops import rrdb_bwd, tail, tail_bwd
+    from master_thesis_tpu_torch.ops.conv_f32 import nhwc
+
+    orig = rrdb_bwd.rrdb_bwd, tail_bwd.tail_bwd
+
+    def rrdb_plain(x, g, rdbs, pulls, kept, out, scratch=None):
+        nf = x.shape[1]
+        hids = [c[..., nf:].permute(0, 3, 1, 2) for c in kept[1]]
+        dx, grads = rrdb_bwd.rrdb_bwd_plain(x, g, rdbs, (kept[0], hids))
+        return dx, rrdb_bwd.flat_grads(grads, out)
+
+    def tail_plain(x, g, p):
+        hidden = [t.permute(0, 3, 1, 2) for t in tail.tail_f32_stages(nhwc(x), p, keep=3)]
+        return tail_bwd.tail_bwd_plain(x, g, p, hidden=hidden)
+
+    rrdb_bwd.rrdb_bwd, tail_bwd.tail_bwd = rrdb_plain, tail_plain
+    try:
+        yield
+    finally:
+        rrdb_bwd.rrdb_bwd, tail_bwd.tail_bwd = orig
+
+
+def f32_library_ms(fn):
+    """The library yardstick of an f32 route: its launches recorded over one
+    call, and for each the one PyTorch call that computes it (``F.conv2d``
+    at the conv's shape, through x2 at the upsampled size, the 2x2 sums'
+    convs at the full size; ``conv2d_weight`` for a weight grad), f32,
+    TF32 off, channels-last, timed alone and summed."""
+    import torch.nn.functional as F
+
+    from master_thesis_tpu_torch.ops import conv_f32
+
+    shapes = {}
+    orig = conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda
+
+    def fwd(x, w, out, **kw):
+        g = conv_f32.geometry(x, w, out, k=kw.get("k", 3), up=kw.get("up", False),
+                              pool=kw.get("pool", False), hin=kw.get("hin"), rows=kw.get("rows"),
+                              x_row0=kw.get("x_row0", 0), out_row0=kw.get("out_row0", 0))
+        key = ("fwd", x.shape[0], x.shape[3], out.shape[3], (g.r1 - g.r0) * g.so, g.wout * g.so,
+               kw.get("k", 3))
+        shapes[key] = shapes.get(key, 0) + 1
+        return orig[0](x, w, out, **kw)
+
+    def wgrad(x, dy, dw, db, k=3, up=False):
+        key = ("wgrad", x.shape[0], x.shape[3], dy.shape[3], dy.shape[1], dy.shape[2], k)
+        shapes[key] = shapes.get(key, 0) + 1
+        return orig[1](x, dy, dw, db, k=k, up=up)
+
+    # The wrapped kernels count their launches on the wrappers in their
+    # place, and hand the counts back.
+    fwd.launches, wgrad.launches = orig[0].launches, orig[1].launches
+    conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = fwd, wgrad
+    try:
+        fn()
+    finally:
+        conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = orig
+        orig[0].launches, orig[1].launches = fwd.launches, wgrad.launches
+    total = 0.0
+    for (kind, n, cin, cout, h, w, k), count in shapes.items():
+        x = channels_last(torch.randn(n, cin, h, w, device="cuda"))
+        wt = channels_last(torch.randn(cout, cin, k, k, device="cuda"))
+        if kind == "fwd":
+            call = lambda: F.conv2d(x, wt, padding=k // 2)
+        else:
+            dy = channels_last(torch.randn(n, cout, h, w, device="cuda"))
+            call = lambda: torch.nn.grad.conv2d_weight(x, wt.shape, dy, padding=k // 2)
+        total += count * cuda_ms(call, iters=3, warmup=1)
+        del x, wt
+    return total
+
+
+def tail_cudnn(y, p, leaves=None):
+    """The tail as the cuDNN route: nearest x2 then ``F.conv2d`` for each
+    upconv, hr_conv, conv_last, f32 channels-last (TF32 off); ``leaves``,
+    if given, the (kernel, bias) pairs to use (autograd leaves for the
+    backward's yardstick). The port never calls it."""
+    import torch.nn.functional as F
+
+    convs = leaves or [(channels_last(p[f"{n}_oihw"]), p[f"{n}_b"]) for n in ("up1", "up2", "hr", "last")]
+    up = lambda t: F.interpolate(t, scale_factor=2, mode="nearest")
+    lrelu = lambda t: F.leaky_relu(t, 0.2)
+    y = lrelu(F.conv2d(up(y), *convs[0], padding=1))
+    y = lrelu(F.conv2d(up(y), *convs[1], padding=1))
+    y = lrelu(F.conv2d(y, *convs[2], padding=1))
+    return F.conv2d(y, *convs[3], padding=1)
+
+
+def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, check_fn):
+    """One site's f32 route: its check against the plain version (and on
+    both planted faults), then its device time with its launch count, the
+    bound, the 3 x TF32 figure, the plain version, the cuDNN route and the
+    library yardstick. Returns the route's output."""
+    got, want = route(), plain()
+    err = check_fn(f"{key} f32 {name}", got, want, None)
+    for fault, label in F32_FAULTS.items():
+        with planted_f32(fault):
+            check_fn(f"{key} f32 {name}", route(), want, label)
+    # The time is CUDA events' over 3 calls (a route's launches each take
+    # 0.05-5 ms, so the host's gaps between them are a few percent at
+    # most); beside it the profiler's device time and its count of the
+    # conv_f32 kernels, which late in this process falls a few short of
+    # the launches (114 of 120 in three readings running on K2).
+    ms = cuda_ms(route, iters=3, warmup=1)
+    dev_ms, counted = device_ms(route, iters=1, kernels=KERNELS_F32)
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    cudnn_ms = cuda_ms(cudnn, iters=3, warmup=1)
+    lib_ms = f32_library_ms(route)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes_ / PEAK_BYTES
+    b_ms, b_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    tf32 = 1e3 * 3 * flops / PEAK_TF32_FLOPS
+    print(f"kernel {key} f32 {name}: {ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms, {counted} of "
+          f"{launches} conv_f32 launches counted), bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it), "
+          f"3xTF32 {tf32:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, cuDNN f32 route {cudnn_ms:.4f} ms, library {lib_ms:.4f} ms "
+          f"({flops / ms / 1e9:.2f} TFLOP/s)")
+    results[f"{key} f32"] = dict(
+        name=f"{name}, f32 route (conv_f32_fwd / conv_f32_wgrad)", route="cuda",
+        source="master_thesis_tpu_torch/csrc/conv_f32.cu", replaces=F32_REPLACES[key], launches=0,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        cudnn_ms=cudnn_ms, tf32x3_ms=tf32)
+    return got
+
+
+def f32_check(name, got, want, planted):
+    return check(f"{name}, {planted}" if planted else name, got, want, None, L2_F32, max_abs=False,
+                 planted=bool(planted))
+
+
+def f32_check_groups(name, got, want, planted):
+    worst = check_groups(name, got, want, L2_F32, planted=planted or None)
+    return max((got[k] - want[k]).abs().max().item() for k in want) if not planted else worst
+
+
+def phase_f32(results, device_line):
+    """Every site's f32 route on the card (phase 14): held against its
+    plain f32 version by relative L2 (TF32 off) and read on both planted
+    faults, timed beside its bound, the 3 x TF32 figure, the plain version,
+    the cuDNN route and the library yardstick; then the f32 CPN serving
+    step, the f32 CHN train step (grads against the plain routes') and a
+    CHN+DFPN step on every kernel route in f32, full width, nb 20, 256x256,
+    with their launches."""
+    from master_thesis_tpu_torch.models.chn import CHN, chn_infer_apply
+    from master_thesis_tpu_torch.models.cpn import CPN
+    from master_thesis_tpu_torch.models.vgg import VGGFeatures
+    from master_thesis_tpu_torch.ops import conv_stack, rrdb, rrdb_bwd, tail, tail_bwd
+    from master_thesis_tpu_torch.ops.conv_f32 import nhwc as nhwc32
+    from master_thesis_tpu_torch.train import chn_task, state
+    from master_thesis_tpu_torch.train.build import build_dfpn, dfpn_align_fn
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    g = torch.Generator().manual_seed(SEED + 40)
+    rnd = lambda *s: torch.randn(*s, generator=g).cuda()
+    chn = CHN(nb=NB, dtype=f32, generator=torch.Generator().manual_seed(SEED + 1)).eval()
+    trunk_w, tail_w = chn.nn.packed()
+    rdbs = trunk_w[0]
+    n, h, w = B * F, H // 4, W // 4  # the bf16 checks' main-path shapes: 80 x 64^2
+    with torch.inference_mode():
+        # K1 / K4 at 80 x 64^2; K2 / K5 at 8 x 128 x 256 in bands.
+        x = channels_last(rnd(n, 64, h, w))
+        f32_site(results, "K1", "RRDB (3 RDBs x 5 convs)", lambda: rrdb.rrdb_trunk(x, [rdbs]),
+                 lambda: rrdb.rrdb_trunk(x, [rdbs], rdb_fn=rrdb.rdb_plain), lambda: rrdb_cudnn(x, rdbs),
+                 3 * rrdb.rdb_flops(n, h, w), 2 * nbytes(x), 3 * rrdb.RDB_CONVS, f32_check)
+        f32_site(results, "K4", "tail (4 convs)", lambda: tail.tail(x, tail_w),
+                 lambda: tail.tail_plain(x, tail_w), lambda: tail_cudnn(x, tail_w),
+                 tail.tail_flops(n, h, w), nbytes(x) + n * 3 * 16 * h * w * 4, tail.TAIL_KERNELS,
+                 f32_check)
+        del x
+        xb = channels_last(rnd(BAND_N, 64, BAND_H, BAND_WS[1]))
+        bands_k2 = len(rrdb.bands(BAND_H, rrdb.TRUNK_BAND_ROWS))
+        f32_site(results, "K2", f"RRDB in {rrdb.TRUNK_BAND_ROWS}-row bands",
+                 lambda: rrdb.rrdb_trunk_banded(xb, [rdbs]),
+                 lambda: rrdb.rrdb_trunk_banded_plain(xb, [rdbs]), lambda: rrdb_cudnn(xb, rdbs),
+                 3 * rrdb.rdb_flops(BAND_N, BAND_H, BAND_WS[1]), 2 * nbytes(xb),
+                 3 * rrdb.RDB_CONVS * bands_k2, f32_check)
+        bands_k5 = len(rrdb.bands(BAND_H, tail.TAIL_BAND_ROWS))
+        f32_site(results, "K5", f"tail in {tail.TAIL_BAND_ROWS}-row bands",
+                 lambda: tail.tail_banded(xb, tail_w), lambda: tail.tail_banded_plain(xb, tail_w),
+                 lambda: tail_cudnn(xb, tail_w), tail.tail_flops(BAND_N, BAND_H, BAND_WS[1]),
+                 nbytes(xb) + BAND_N * 3 * 16 * BAND_H * BAND_WS[1] * 4, tail.TAIL_KERNELS * bands_k5,
+                 f32_check)
+        del xb
+    with torch.no_grad():
+        # K3 / K6 at the train step's 8 x 64^2.
+        nt = TRAIN_B
+        x, gy = channels_last(rnd(nt, 64, h, w)), channels_last(rnd(nt, 64, h, w))
+        _, kept = rrdb_bwd.rrdb_forward_kept_f32(x, rdbs)
+        convs = rrdb.rrdb_convs(chn.nn.rrdb_trunk[0])
+        pulls = rrdb_bwd.pack_rdb_pulls_f32(convs)
+
+        def k3():
+            dx, flat = rrdb_bwd.rrdb_bwd(x, gy, rdbs, pulls, kept)
+            return rrdb_groups(dx, rrdb_bwd.rdb_grads(flat))
+
+        # The backward checks' plain versions sum in f64: cuDNN's f32 weight
+        # grads (TF32 off) read 8.7e-6 to 3.5e-5 from f64 at these sizes, the
+        # kernel's 3e-7 (PERF.md, Findings).
+        rdbs64 = [rrdb.PackedRDB(None, p.b.double(), tuple(k.double() for k in p.kernels)) for p in rdbs]
+        kept64 = ([t.double() for t in kept[0]], [c[..., 64:].permute(0, 3, 1, 2).double() for c in kept[1]])
+
+        def k3_plain():
+            dx, grads = rrdb_bwd.rrdb_bwd_plain(x.double(), gy.double(), rdbs64, kept64)
+            return rrdb_groups(dx, grads)
+
+        bwd_cudnn = rrdb_cudnn_backward(x, rdbs)
+        f32_site(results, "K3", "RRDB backward", k3, k3_plain, lambda: bwd_cudnn(gy),
+                 rrdb_bwd.rrdb_bwd_flops(nt, h, w), 3 * nbytes(x) + sum(nbytes(c) for c in kept[1]),
+                 rrdb_bwd.RRDB_BWD_F32_KERNELS, f32_check_groups)
+        del kept, kept64, bwd_cudnn
+        gt = channels_last(rnd(nt, 3, 4 * h, 4 * w))
+
+        def k6():
+            dx, grads = tail_bwd.tail_bwd(x, gt, tail_w)
+            return {"dx": dx, **grads}
+
+        # The plain version takes its masks from the route's own recompute
+        # (K4's stages, checked above), as K3's reads the kept activations:
+        # an f32 recompute and an f64 one differ in the sign of an odd one
+        # of 33.5 M activations, and one flipped mask moves a bias grad
+        # summed over 0.5 M pixels by ~1e-3 of it.
+        tail64 = {k: v.double() for k, v in tail_w.items()}
+        kept6 = [t.permute(0, 3, 1, 2).double() for t in tail.tail_f32_stages(nhwc32(x), tail_w, keep=3)]
+
+        def k6_plain():
+            dx, grads = tail_bwd.tail_bwd_plain(x.double(), gt.double(), tail64, hidden=kept6)
+            return {"dx": dx, **grads}
+
+        leaves = [(channels_last(tail_w[f"{k}_oihw"]).requires_grad_(), tail_w[f"{k}_b"].clone().requires_grad_())
+                  for k in ("up1", "up2", "hr", "last")]
+        xs = x.detach().requires_grad_()
+        with torch.enable_grad():
+            yt = tail_cudnn(xs, tail_w, leaves)
+        flat_leaves = [xs] + [t for pair in leaves for t in pair]
+        f32_site(results, "K6", "tail backward", k6, k6_plain,
+                 lambda: torch.autograd.grad(yt, flat_leaves, gt, retain_graph=True),
+                 tail_bwd.tail_bwd_flops(nt, h, w), 2 * nbytes(x) + nbytes(gt),
+                 tail_bwd.TAIL_BWD_F32_KERNELS, f32_check_groups)
+        del x, gy, gt, yt, leaves, xs, kept6
+
+    dfpn = build_dfpn(base_size=DFPN_BASE, dtype=f32, generator=torch.Generator().manual_seed(SEED + 5))
+    vgg = VGGFeatures(dtype=f32, generator=torch.Generator().manual_seed(SEED + 6))
+    with torch.inference_mode():
+        # K7: sep4d's two stages (5 120 tiles) and the mixer (20 tiles).
+        p1, p2 = dfpn.corr.conv.packed()
+        cs = DFPN_BASE // 16
+        nt7 = DFPN_B * DFPN_F * cs * cs
+        x1 = rnd(nt7, 1, cs, cs).contiguous(memory_format=torch.channels_last)
+        y1 = conv_stack.conv_stack_tiles_cl(x1, p1, swap=True)
+        x2 = y1.detach()
+        mix = dfpn.corr_mixer.packed()
+        xm = rnd(DFPN_B * DFPN_F, cs * cs, cs, cs).contiguous(memory_format=torch.channels_last)
+        stacks7 = ((x1, p1, True), (x2, p2, False), (xm, mix, False))
+
+        def k7():
+            return {f"stage {i}": conv_stack.conv_stack_tiles_cl(xx, p, swap=s)
+                    for i, (xx, p, s) in enumerate(stacks7)}
+
+        def k7_plain():
+            return {f"stage {i}": conv_stack.conv_stack_tiles_cl_plain(xx, p, swap=s)
+                    for i, (xx, p, s) in enumerate(stacks7)}
+
+        def k7_cudnn():
+            return [conv_stack.conv_stack_plain(xx, p) for xx, p, _ in stacks7]
+
+        f32_site(results, "K7", "sep4d's two stages and the mixer", k7, k7_plain, k7_cudnn,
+                 sum(conv_stack.stack_flops(p, xx.shape[0], cs, cs) for xx, p, _ in stacks7),
+                 sum(2 * nbytes(xx) for xx, _, _ in stacks7) + nbytes(y1),
+                 sum(len(p.specs) for _, p, _ in stacks7), f32_check_groups)
+        del x1, y1, x2, xm
+        # K8: flow_256's and flow_64's segments and VGG's pool-4 tower.
+        items = [it for lst in k8_callers(dfpn, vgg, lambda *s: rnd(*s), dtype=f32).values() for it in lst]
+
+        def k8():
+            return {nm: conv_stack.conv_stack_banded(xx, p) for nm, p, _, _, xx in items}
+
+        def k8_plain():
+            return {nm: conv_stack.conv_stack_banded_plain(xx, p) for nm, p, _, _, xx in items}
+
+        def k8_cudnn():
+            return [module_stack(cv, rl, xx.permute(0, 3, 1, 2)) for _, _, cv, rl, xx in items]
+
+        outs8 = k8()
+        f32_site(results, "K8", "flow_256 / flow_64 segments and VGG pool-4", k8, k8_plain, k8_cudnn,
+                 sum(conv_stack.stack_flops(p, xx.shape[0], xx.shape[1], xx.shape[2]) for _, p, _, _, xx in items),
+                 sum(nbytes(xx) + nbytes(outs8[nm]) for nm, _, _, _, xx in items),
+                 sum(len(p.specs) for _, p, _, _, _ in items), f32_check_groups)
+        del items, outs8
+
+    counters = f32_counters()
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    # The f32 CPN serving step: CPN.align, then the CHN on the kernels.
+    cpn = CPN(dtype=f32, generator=torch.Generator().manual_seed(SEED)).eval()
+    inputs = make_inputs(F32_SERVE_B, F, H, W, SEED + 41)
+
+    def serve(x_t, m_t, x_r, m_r):
+        aligned = cpn.align(x_t, m_t, x_r, m_r)
+        return chn_infer_apply(chn, x_t, 1 - m_t.float(), *aligned)
+
+    with torch.inference_mode():
+        (y_hat, y_comp), counts = counted(lambda: serve(*inputs))
+        want = {**dict.fromkeys(counters, 0), "K1": 3 * NB * rrdb.RDB_CONVS, "K4": tail.TAIL_KERNELS}
+        print(f"f32 serving step launches: {counts} (expected {want})")
+        if counts != want:
+            raise RuntimeError("the f32 serving step did not launch each f32 route as expected")
+        results["K1 f32"]["launches"], results["K4 f32"]["launches"] = counts["K1"], counts["K4"]
+        if not torch.isfinite(y_hat).all() or y_hat.min() < 0 or y_hat.max() > 1:
+            raise RuntimeError("f32 serving step: y_hat not finite in [0, 1]")
+        with f32_plain_convs():
+            y_plain, _ = serve(*inputs)
+        rel = rel_l2(y_hat, y_plain)
+        print(f"check f32 serving step, kernels vs plain routes: rel_l2 {rel:.6g} limit {L2_F32_STEP:g} "
+              + ("ok" if rel <= L2_F32_STEP else "FAIL"))
+        if rel > L2_F32_STEP:
+            raise RuntimeError("the f32 serving step disagrees with its plain routes")
+        iters = 5
+        for _ in range(2):
+            serve(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            serve(*inputs)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        print(f"f32 CPN serving step: B={F32_SERVE_B} F={F} {H}x{W} nb={NB} f32: {1e3 * dt:.3f} ms/step, "
+              f"{F32_SERVE_B * F / dt:.3f} frames/s on {device_line}")
+        phase_profile(serve, inputs, dt)
+
+    # The f32 CHN train step at B=8, frames_n 2: grads against the plain
+    # routes' on the same batch and weights, then 3 timed steps after 1.
+    chn_t = CHN(nb=NB, dtype=f32, generator=torch.Generator().manual_seed(SEED + 1))
+    chn_t.train()
+    vgg.requires_grad_(False)
+    batch = make_train_batch(TRAIN_B, TRAIN_F, H, W, SEED + 42)
+    t, refs = chn_task.target_ref_indexes(TRAIN_F)
+    x, m, y = batch
+    with torch.no_grad():
+        aligned = cpn.align(x[:, t], m[:, t], x[:, refs], m[:, refs])
+
+    def grads():
+        chn_t.zero_grad(set_to_none=True)
+        y_hat, y_c = chn_infer_apply(chn_t, x[:, t], 1 - m[:, t], *aligned)
+        total, _ = chn_task.compute_loss(y[:, t], 1 - m[:, t], y_hat, y_c, aligned[2], vgg)
+        total.backward()
+        out = {"loss": total.detach().reshape(1), **grad_groups(chn_t)}
+        chn_t.zero_grad(set_to_none=True)
+        return out
+
+    got, counts = counted(grads)
+    with f32_plain_backward():
+        want_g = grads()
+    check_groups("f32 CHN train step grads, backward routes vs plain versions from the same forward",
+                 got, want_g, L2_F32_STEP)
+    want = {**dict.fromkeys(counters, 0), "K1": 3 * NB * rrdb.RDB_CONVS, "K3": NB * rrdb_bwd.RRDB_BWD_F32_KERNELS,
+            "K4": tail.TAIL_KERNELS, "K6": tail_bwd.TAIL_BWD_F32_KERNELS}
+    print(f"f32 train step launches: {counts} (expected {want})")
+    if counts != want:
+        raise RuntimeError("the f32 train step did not launch each f32 route as expected")
+    results["K3 f32"]["launches"], results["K6 f32"]["launches"] = counts["K3"], counts["K6"]
+    st = state.create_train_state(chn_t, state.OptimConfig(), steps_per_epoch=2000)
+    step = chn_task.make_train_step(chn_t, cpn.align, vgg)
+    step(st, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        items = step(st, *batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 3
+    loss = {k: v.item() for k, v in items.items()}
+    if not all(np.isfinite(v) for v in loss.values()):
+        raise RuntimeError(f"f32 train step loss not finite: {loss}")
+    print(f"f32 CHN train step: B={TRAIN_B} frames_n={TRAIN_F} {H}x{W} nb={NB} f32: {1e3 * dt:.3f} ms/step "
+          f"(3 steps after 1), {TRAIN_B / dt:.3f} samples/s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; " + ", ".join(f"{k} {v:.6g}" for k, v in loss.items())
+          + f" on {device_line}")
+    del st, step, chn_t
+
+    # A CHN+DFPN step in f32 with every kernel route (K7 on sep4d and the
+    # mixer, K8 on the flow estimators and VGG's pool-4).
+    inputs = make_inputs(DFPN_B, DFPN_F, H, W, SEED + 43)
+    align = dfpn_align_fn(dfpn, vgg, **EVERY_KERNEL, pallas_vgg=True)
+
+    def dfpn_step(x_t, m_t, x_r, m_r):
+        xa, va, vm = align(x_t, m_t, x_r, m_r)
+        return chn_infer_apply(chn, x_t, 1 - m_t.float(), xa, va, vm)
+
+    with torch.inference_mode():
+        (y_hat, _), counts = counted(lambda: dfpn_step(*inputs))
+        if not torch.isfinite(y_hat).all() or counts["K7"] == 0 or counts["K8"] == 0 or counts["K1"] == 0:
+            raise RuntimeError(f"f32 CHN+DFPN step: launches {counts}, finite {torch.isfinite(y_hat).all()}")
+        results["K7 f32"]["launches"], results["K8 f32"]["launches"] = counts["K7"], counts["K8"]
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dfpn_step(*inputs)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 3
+    print(f"f32 CHN+DFPN step, every kernel route: B={DFPN_B} F={DFPN_F} {H}x{W} base {DFPN_BASE} nb={NB} "
+          f"f32: {1e3 * dt:.3f} ms/step; launches {counts} on {device_line}")
+    print(f"phase f32: {time.perf_counter() - t_phase:.1f} s")
+
+
+def record_f32_cli(results, cli_f32):
+    """The CLI's f32 runs' launches (``phase_cli``) in the f32 rows: each
+    route's by mode, and K2's and K5's as their main-path launches (the
+    CHN test at F32_TEST_SIZE is the f32 path that bands)."""
+    for k in F32_REPLACES:
+        results[f"{k} f32"]["launches_cli"] = {mode: c[k] for mode, c in cli_f32.items()}
+    for k in ("K2", "K5"):
+        results[f"{k} f32"]["launches"] = cli_f32["CHN test"][k]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3354,7 +3933,12 @@ def main() -> int:
     video_chn = CHN(nb=NB, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED + 1))
     phase_video(cpn, video_chn, results, smi)
     dfpn_step = phase_dfpn_train(results, smi)
-    phase_cli(results, smi, {"dfpn": dfpn_step, "chn": chn_step})
+    # The f32 phase runs before the CLI's and distribution's (torch.profiler
+    # dropped some of its kernels from device_ms's windows after those, in
+    # three readings running); the CLI's f32 runs fill in its launches.
+    with tf32_off():
+        phase_f32(results, smi)
+    record_f32_cli(results, phase_cli(results, smi, {"dfpn": dfpn_step, "chn": chn_step}))
     phase_distribution(results, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3362,7 +3946,7 @@ def main() -> int:
     first = ("first_design_ms", "tiles_ms", "first_ms")
     kernels = [{**{k: r[k] for k in keys}, **{"first_design_ms": r[k] for k in first if k in r},
                 **{k: r[k] for k in ("sources", "launches_hybrid", "hybrid_ms", "launches_dfpn_train",
-                                     "launches_cli", "launches_dist") if k in r}}
+                                     "launches_cli", "launches_dist", "cudnn_ms", "tf32x3_ms") if k in r}}
                for _, r in sorted(results.items())]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -44,25 +44,27 @@ from master_thesis_tpu_torch.ops.tail_bwd import TailFunction
 _HEAD_STRIDES = (1, 1, 2, 1, 2)
 
 
-def kernel_routes(h: int, w: int, nf: int = 64, gc: int = 32) -> Tuple[bool, bool]:
+def kernel_routes(h: int, w: int, nf: int = 64, gc: int = 32, itemsize: int = 2) -> Tuple[bool, bool]:
     """``(trunk banded, tail banded)`` for a trunk grid of ``h x w`` pixels:
     the decomposition the JAX package's serving path takes at that shape in
-    bf16, so both packages band the same frames.
+    a working dtype of ``itemsize`` bytes (2 bf16, 4 f32), so both packages
+    band the same frames.
 
     - The trunk is banded (K2) past ``pallas_trunk_fits_big``: a 72 MiB
       budget at ``_trunk_bytes_per_lane`` = 2 432 B a pixel for nf 64, gc
-      32, i.e. past 31 043 pixels (``make_hybrid_trunk``). Where
-      ``banded_trunk_fits`` fails too (grids wider than 287 columns) the
-      JAX package falls back to XLA; the port keeps K2.
+      32 in bf16 (3 840 in f32), i.e. past 31 043 pixels (19 660 in f32;
+      ``make_hybrid_trunk``). Where ``banded_trunk_fits`` fails too (grids
+      wider than 287 columns in bf16) the JAX package falls back to XLA;
+      the port keeps K2.
     - The tail is banded (K5) past ``tail_pallas_fits``: 60 nf-row planes
-      of 2 bytes a pixel plus 4 MiB within 88 MiB, i.e. past 11 469 pixels
-      (``make_hybrid_tail``; ``_tail_band_rows`` >= 8 keeps it on the band
-      kernel there, as the port does everywhere).
+      of ``itemsize`` bytes a pixel plus 4 MiB within 88 MiB, i.e. past
+      11 469 pixels in bf16, 5 734 in f32 (``make_hybrid_tail``;
+      ``_tail_band_rows`` >= 8 keeps it on the band kernel there, as the
+      port does everywhere).
 
     These are the TPU's VMEM budgets, kept as the route rule so that the
     two packages decompose the same shapes alike; they say nothing of the
     card."""
-    itemsize = 2
     trunk_px_bytes = 9 * nf * itemsize + nf * 4 + (nf + 4 * gc) * 4 + 2 * nf * itemsize
     trunk_banded = trunk_px_bytes * h * w > 72 << 20
     tail_banded = 60 * nf * itemsize * h * w + (4 << 20) > 88 << 20
@@ -174,7 +176,8 @@ class RRDBNet(nn.Module):
         # The trunk's kernels take channels-last on the card (trunk_conv, a
         # cuDNN conv, takes it as it is); the CPU path keeps NCHW.
         y = y.contiguous(memory_format=torch.channels_last if y.is_cuda else torch.contiguous_format)
-        trunk_banded, tail_banded = kernel_routes(y.shape[2], y.shape[3], self.nf, self.gc)
+        trunk_banded, tail_banded = kernel_routes(y.shape[2], y.shape[3], self.nf, self.gc,
+                                                  self.dtype.itemsize)
         if trunk_band_rows is not None or trunk_banded:
             trunk = rrdb_ops.rrdb_trunk_banded(y, trunk_w, trunk_band_rows or 0)
         else:

@@ -38,6 +38,14 @@ the frame kernel and the thin convs to the fused groups, NHWC between the
 launches; :func:`conv_stack_banded_first_cuda` keeps K8's first design,
 the fused groups alone. A CUDA tensor goes through the kernels, a CPU
 tensor through the plain version; nothing falls back.
+
+In f32 each entry takes its f32 route (:func:`conv_stack_tiles_f32`,
+:func:`conv_stack_tiles_cl_f32`, :func:`conv_stack_banded_f32`): one
+:func:`.conv_f32.conv_f32_fwd` launch a conv, NHWC, bias and ReLU in its
+epilogue, f32 throughout as the TPU kernel takes it under
+``Precision.HIGHEST``; K7's tiles are the launch's images (each tile's own
+border is its zero padding). :func:`.conv_f32.kernel_route` picks the route
+by the working dtype.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ import torch.nn.functional as F
 
 from master_thesis_tpu_torch import _build
 from master_thesis_tpu_torch.ops import fragments
+from master_thesis_tpu_torch.ops.conv_f32 import conv_f32_fwd, hwio, kernel_route, nhwc
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block can have on an H100
 MAX_STAGES = 16  # convs per launch (csrc/conv_stack.cu)
@@ -89,6 +98,8 @@ class PackedStack(NamedTuple):
     # of each conv that :func:`is_frame`, None for the others. A K7 stack's
     # 5x5 convs get one too, which no kernel reads (K7 routes 3x3s alone).
     wide: Tuple[Optional[torch.Tensor], ...]
+    # Each conv's HWIO kernel for the f32 route (f32 stacks only, else empty).
+    hwio: Tuple[torch.Tensor, ...] = ()
 
     @property
     def specs(self) -> List[Tuple[int, int, int]]:
@@ -161,8 +172,9 @@ def pack_stack(
     w_offs = tuple(itertools.accumulate([m.numel() // 8 for m in mats[:-1]], initial=0))
     b_offs = tuple(itertools.accumulate([b.numel() for b in padded[:-1]], initial=0))
     wide = tuple(fragments.wgmma_wide_matrix(k) if is_frame(_spec(k)) else None for k in kernels)
+    f32 = tuple(hwio(k) for k in kernels) if dtype == torch.float32 else ()
     return PackedStack(torch.cat(mats).contiguous(), torch.cat(padded).contiguous(), kernels,
-                       biases, tuple(bool(r) for r in relus), w_offs, b_offs, wide)
+                       biases, tuple(bool(r) for r in relus), w_offs, b_offs, wide, f32)
 
 
 class StackCache:
@@ -641,35 +653,90 @@ def conv_stack_banded_plain(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
     return conv_stack_plain(x.permute(0, 3, 1, 2), p).permute(0, 2, 3, 1).contiguous()
 
 
+def _stack_f32(x: torch.Tensor, p: PackedStack, counter) -> torch.Tensor:
+    """The stack's f32 route on NHWC ``(N, H, W, Cin)`` f32 (any strides
+    with contiguous channels): one :func:`.conv_f32.conv_f32_fwd` a conv,
+    NHWC between them; launches count in ``counter.launches``."""
+    if x.dtype != torch.float32 or x.dim() != 4 or x.shape[3] != p.specs[0][1]:
+        raise ValueError(f"x must be f32 NHWC with {p.specs[0][1]} channels, got {tuple(x.shape)} {x.dtype}")
+    if not p.hwio or p.hwio[0].device != x.device:
+        raise ValueError("the stack must be packed in float32 on x's device")
+    n, h, w, _ = x.shape
+    for (k, _, co), wk, b, relu in zip(p.specs, p.hwio, p.biases, p.relus):
+        out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
+        x = conv_f32_fwd(x, wk, out, bias=b.contiguous(), k=k, epi="relu" if relu else "none")
+    if x.is_cuda:
+        counter.launches += len(p.specs)
+    return x
+
+
+def conv_stack_tiles_f32(x: torch.Tensor, p: PackedStack, tile_side: int) -> torch.Tensor:
+    """K7's f32 route on channel-major ``(NT, Cin, tile_side**2)``: the
+    tiles as NHWC images, one launch a conv (``conv_stack_tiles_f32.launches``,
+    which counts both K7 entries' f32 launches)."""
+    nt, cin, hw = x.shape
+    if hw != tile_side * tile_side:
+        raise ValueError(f"x holds {hw} pixels per tile, not {tile_side}**2")
+    y = _stack_f32(x.view(nt, cin, tile_side, tile_side).permute(0, 2, 3, 1).contiguous(), p,
+                   conv_stack_tiles_f32)
+    return y.permute(0, 3, 1, 2).reshape(nt, -1, hw)
+
+
+conv_stack_tiles_f32.launches = 0
+
+
+def conv_stack_tiles_cl_f32(x: torch.Tensor, p: PackedStack, swap: bool = False) -> torch.Tensor:
+    """K7's f32 route on ``(NT, Cin, side, side)`` tiles (channels-last, or
+    copied so once): channels-last output, regrouped by one permute with
+    ``swap`` (:func:`swap_tiles`)."""
+    y = _stack_f32(nhwc(x), p, conv_stack_tiles_f32).permute(0, 3, 1, 2)
+    return swap_tiles(y) if swap else y
+
+
+def conv_stack_banded_f32(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
+    """K8's f32 route on NHWC ``(N, H, W, Cin)``: one launch a conv over
+    the whole frames (``conv_stack_banded_f32.launches``)."""
+    return _stack_f32(x, p, conv_stack_banded_f32)
+
+
+conv_stack_banded_f32.launches = 0
+
+
+def _f32(x: torch.Tensor) -> bool:
+    """Whether a CUDA tensor takes the f32 route (else the bf16 kernels)."""
+    return kernel_route(x.dtype) == "f32"
+
+
 def _check_cpu(x: torch.Tensor) -> None:
     if x.device.type != "cpu":
         raise ValueError(f"no conv-stack implementation for device {x.device}")
 
 
 def conv_stack_tiles(x: torch.Tensor, p: PackedStack, tile_side: int) -> torch.Tensor:
-    """``(NT, Cin, hw)`` -> ``(NT, Cout, hw)``: the kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    """``(NT, Cin, hw)`` -> ``(NT, Cout, hw)``: the kernel for a CUDA tensor
+    (bf16, or the f32 route in f32), the plain version for a CPU tensor."""
     if x.is_cuda:
-        return conv_stack_tiles_cuda(x, p, tile_side)
+        return (conv_stack_tiles_f32 if _f32(x) else conv_stack_tiles_cuda)(x, p, tile_side)
     _check_cpu(x)
     return conv_stack_tiles_plain(x, p, tile_side)
 
 
 def conv_stack_tiles_cl(x: torch.Tensor, p: PackedStack, swap: bool = False) -> torch.Tensor:
     """Channels-last ``(NT, Cin, side, side)`` -> channels-last ``(NT, Cout,
-    side, side)``, regrouped with ``swap``: the kernels for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    side, side)``, regrouped with ``swap``: the kernels for a CUDA tensor
+    (bf16, or the f32 route in f32), the plain version for a CPU tensor."""
     if x.is_cuda:
-        return conv_stack_tiles_cl_cuda(x, p, swap=swap)
+        return (conv_stack_tiles_cl_f32 if _f32(x) else conv_stack_tiles_cl_cuda)(x, p, swap=swap)
     _check_cpu(x)
     return conv_stack_tiles_cl_plain(x, p, swap)
 
 
 def conv_stack_banded(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
     """NHWC ``(N, H, W, Cin)`` -> ``(N, H, W, Cout)``: the kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    tensor (bf16, or the f32 route in f32), the plain version for a CPU
+    tensor."""
     if x.is_cuda:
-        return conv_stack_banded_cuda(x, p)
+        return (conv_stack_banded_f32 if _f32(x) else conv_stack_banded_cuda)(x, p)
     _check_cpu(x)
     return conv_stack_banded_plain(x, p)
 

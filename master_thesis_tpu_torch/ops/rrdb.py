@@ -20,6 +20,15 @@ read, x read in place from the frame.
 Rounding, shared by the kernel and :func:`rdb_plain`: conv operands and
 x1..x4 in the working dtype, sums, bias and lrelu in f32, the RDB output
 rounded to the working dtype before the RRDB residual.
+
+In f32 (:func:`rdb_f32`, :func:`rdb_banded_f32`) an RDB is five launches
+of :func:`.conv_f32.conv_f32_fwd` over one NHWC buffer of ``nf + 4 gc``
+channels, the dense concat: x copied into its first nf channels, conv k
+reading the first ``nf + (k - 1) gc`` and writing its own gc, conv5 adding
+the residuals in its epilogue. Sums, operands and the kept activations are
+f32, as the TPU kernel takes them under ``Precision.HIGHEST``. :func:`rdb`
+and :func:`rrdb_trunk_banded` pick the route by the working dtype
+(:func:`.conv_f32.kernel_route`).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch.nn.functional as F
 
 from master_thesis_tpu_torch import _build
 from master_thesis_tpu_torch.ops import fragments
+from master_thesis_tpu_torch.ops.conv_f32 import conv_f32_fwd, kernel_route, nhwc
 from master_thesis_tpu_torch.models.nn_ext import leaky_relu
 
 # Channel widths the CUDA kernel is compiled for (the production RRDBNet).
@@ -48,6 +58,7 @@ class PackedRDB(NamedTuple):
     b: torch.Tensor  # the five biases, concatenated (f32)
     kernels: Tuple[torch.Tensor, ...]  # conv1..conv5 OIHW (working dtype)
     wg: Optional[torch.Tensor] = None  # K1 / K2's wgmma B blocks (working dtype)
+    hwio: Optional[torch.Tensor] = None  # the f32 route's five HWIO kernels (f32 only)
 
 
 def _widths(nf: int, gc: int):
@@ -86,9 +97,39 @@ def _gather(kind: str, shapes: Tuple[Tuple[int, ...], ...], device) -> torch.Ten
             sizes = [math.prod(s) for s in shapes]
             pos = torch.arange(sum(sizes)).split(sizes)
             return fragments.wgmma_pull_matrix([p.view(s) for p, s in zip(pos, shapes)]).to(device)
+        if kind in ("hwio", "pull_f32"):
+            return _f32_index(kind, shapes).to(device)
         layout = {"conv": fragments.conv_matrix, "wgmma": fragments.wgmma_conv_matrix,
                   "adjoint": lambda w, fill: fragments.adjoint_matrix(w, fill=fill)}[kind]
         return fragments.gather_index([layout] * len(shapes), shapes).to(device)
+
+
+def _f32_index(kind: str, shapes) -> torch.Tensor:
+    """Positions in one RDB's flat OIHW kernels (``_sources``) of the f32
+    route's operands: ``"hwio"`` each conv's HWIO kernel, conv1..conv5;
+    ``"pull_f32"`` each source's pull kernel (x, then x1..x4), the HWIO
+    kernel of one adjoint conv from the cotangents of every conv the source
+    feeds (their pre-activation cotangents in conv order, as K3's f32
+    route stores them) to the source's channels:
+    ``[ky, kx, (u, o), c] = conv_u[o, lo + c, 2 - ky, 2 - kx]``."""
+    sizes = [math.prod(s) for s in shapes]
+    views = [p.view(s) for p, s in zip(torch.arange(sum(sizes)).split(sizes), shapes)]
+    if kind == "hwio":
+        return torch.cat([v.permute(2, 3, 1, 0).reshape(-1) for v in views])
+    nf, gc = shapes[4][0], shapes[0][0]
+    parts = []
+    for s in range(5):
+        lo, width = (0, nf) if s == 0 else (nf + (s - 1) * gc, gc)
+        m = torch.cat([views[u][:, lo:lo + width] for u in range(s, 5)])
+        parts.append(m.flip(2, 3).permute(2, 3, 0, 1).reshape(-1))
+    return torch.cat(parts)
+
+
+def hwio_kernels(p: PackedRDB) -> List[torch.Tensor]:
+    """The five HWIO kernels of ``p.hwio``, conv1..conv5."""
+    shapes = [tuple(k.shape) for k in p.kernels]
+    parts = p.hwio.split([math.prod(s) for s in shapes])
+    return [t.view(s[2], s[3], s[1], s[0]) for t, s in zip(parts, shapes)]
 
 
 def _sources(convs_list, dtype: torch.dtype):
@@ -110,12 +151,13 @@ def pack_rdbs(convs_list: Sequence[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
     w = src[:, _gather("conv", shapes, src.device)]
     wgmma = all(s[1] % 32 == 0 and s[0] % 8 == 0 for s in shapes)
     wg = src[:, _gather("wgmma", shapes, src.device)] if wgmma else None
+    f32 = src[:, _gather("hwio", shapes, src.device)] if dtype == torch.float32 else None
     b = torch.cat([bias.detach().reshape(-1) for convs in convs_list for _, bias in convs])
     b = b.float().view(len(convs_list), -1)
     sizes = [math.prod(s) for s in shapes]
     return [
         PackedRDB(w[r], b[r], tuple(k.view(s) for k, s in zip(src[r, :-1].split(sizes), shapes)),
-                  None if wg is None else wg[r])
+                  None if wg is None else wg[r], None if f32 is None else f32[r])
         for r in range(len(convs_list))
     ]
 
@@ -341,10 +383,97 @@ def rdb_banded_plain(
     return torch.cat(outs, dim=2)
 
 
-def rdb(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+def _check_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor]) -> None:
+    if x.dim() != 4 or x.dtype != torch.float32 or x.shape[1] != p.kernels[4].shape[0]:
+        raise ValueError(f"x must be an f32 (N, {p.kernels[4].shape[0]}, H, W) tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if res is not None and (res.shape != x.shape or res.dtype != x.dtype or res.device != x.device):
+        raise ValueError("res must match x in shape, dtype and device")
+    if p.hwio is None or p.hwio.device != x.device or p.b.device != x.device:
+        raise ValueError("the RDB must be packed in float32 (pack_rdb) on x's device")
+
+
+def _rdb_convs_f32(cat: torch.Tensor, p: PackedRDB, out: torch.Tensor, res_x: torch.Tensor,
+                   res: Optional[torch.Tensor], windows=None, x_row0: int = 0, hin=None) -> None:
+    """The five convs of an RDB over the dense-concat buffer ``cat`` (NHWC,
+    x in its first nf channels): conv1..conv4 into ``cat``, conv5 into
+    ``out`` with ``0.2 * (0.2 * acc + res_x) + res`` (``0.2 * acc + res_x``
+    without ``res``). ``windows``: each conv's output rows (a band's, with
+    ``cat`` holding frame rows from ``x_row0`` and ``out`` / ``res_x`` /
+    ``res`` whole frames), else whole frames."""
+    ks = hwio_kernels(p)
+    outs = [k.shape[0] for k in p.kernels]
+    nf, gc = outs[4], outs[0]
+    bs = p.b.split(outs)
+    rows = lambda k: {} if windows is None else dict(rows=windows[k], hin=hin, x_row0=x_row0,
+                                                      out_row0=x_row0)
+    for k in range(4):
+        cin = nf + k * gc
+        conv_f32_fwd(cat[..., :cin], ks[k], cat[..., cin:cin + gc], bias=bs[k], epi="leaky", **rows(k))
+    last = {} if windows is None else dict(rows=windows[4], hin=hin, x_row0=x_row0)
+    conv_f32_fwd(cat, ks[4], out, bias=bs[4], epi="resid", alpha=0.2, r=res_x, beta=0.2, r2=res, **last)
+
+
+def rdb_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
+            keep_hidden: bool = False):
+    """One RDB's f32 route (K1 in f32, ``rrdb_pallas`` with f32 weights):
+    five :func:`.conv_f32.conv_f32_fwd` launches over one NHWC buffer of
+    ``nf + 4 gc`` channels (x copied into the first nf). ``x`` (and
+    ``res``) f32 ``(N, nf, H, W)``, any layout; the output is channels-last.
+    With ``res`` conv5's epilogue adds the RRDB residual. With
+    ``keep_hidden`` returns ``(out, cat)``, cat the NHWC buffer (x and
+    x1..x4, K3's f32 route reads it). The kernels for a CUDA tensor, their
+    plain versions for a CPU one; launches count in ``rdb_f32.launches``."""
+    _check_f32(x, p, res)
+    n, nf, h, w = x.shape
+    cat = torch.empty((n, h, w, nf + 4 * p.kernels[0].shape[0]), dtype=x.dtype, device=x.device)
+    cat[..., :nf] = nhwc(x)
+    out = torch.empty_like(x, memory_format=torch.channels_last)
+    _rdb_convs_f32(cat, p, nhwc(out), cat[..., :nf], None if res is None else nhwc(res))
     if x.is_cuda:
-        return rdb_cuda(x, p, res)
+        rdb_f32.launches += RDB_CONVS
+    return (out, cat) if keep_hidden else out
+
+
+rdb_f32.launches = 0
+
+
+def rdb_banded_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
+                   band_rows: int = TRUNK_BAND_ROWS) -> torch.Tensor:
+    """One RDB's f32 route in row bands (K2 in f32,
+    ``rrdb_trunk_pallas_banded``): per band the frame rows
+    ``[r0 - 5, r1 + 5)`` of x copied into a band-sized dense-concat buffer
+    (made once, reused by every band), conv k computing the rows of
+    :func:`band_windows`, conv5 writing the band's own rows into the output
+    with x and ``res`` read in place from their frames. Equals
+    :func:`rdb_f32` (the same sums in the same order); launches count in
+    ``rdb_banded_f32.launches``."""
+    _check_f32(x, p, res)
+    n, nf, h, w = x.shape
+    out = torch.empty_like(x, memory_format=torch.channels_last)
+    xv, ov, rv = nhwc(x), nhwc(out), None if res is None else nhwc(res)
+    spans = bands(h, band_rows)
+    halo = [(max(r0 - BAND_HALO, 0), min(r1 + BAND_HALO, h)) for r0, r1 in spans]
+    cat = torch.empty((n, max(hi - lo for lo, hi in halo), w, nf + 4 * p.kernels[0].shape[0]),
+                      dtype=x.dtype, device=x.device)
+    for (r0, r1), (lo, hi) in zip(spans, halo):
+        band = cat[:, :hi - lo]
+        band[..., :nf] = xv[:, lo:hi]
+        _rdb_convs_f32(band, p, ov, xv, rv, band_windows(h, r0, r1), lo, h)
+        if x.is_cuda:
+            rdb_banded_f32.launches += RDB_CONVS
+    return out
+
+
+rdb_banded_f32.launches = 0
+
+
+def rdb(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernels for a CUDA tensor (the wgmma kernel in bf16, the f32
+    route in f32; :func:`.conv_f32.kernel_route`), the plain version for a
+    CPU tensor."""
+    if x.is_cuda:
+        return (rdb_f32 if kernel_route(x.dtype) == "f32" else rdb_cuda)(x, p, res)
     if x.device.type != "cpu":
         raise ValueError(f"no RDB implementation for device {x.device}")
     return rdb_plain(x, p, res)
@@ -370,11 +499,12 @@ def rrdb_trunk_banded(
     x: torch.Tensor, packed: Sequence[Sequence[PackedRDB]], band_rows: int = 0
 ) -> torch.Tensor:
     """The trunk with every RDB in row bands of ``band_rows`` rows
-    (:data:`TRUNK_BAND_ROWS` for 0): K2 for a CUDA tensor, the plain band
-    decomposition for a CPU tensor."""
+    (:data:`TRUNK_BAND_ROWS` for 0): K2 for a CUDA tensor (in bf16 or, on
+    its f32 route, f32), the plain band decomposition for a CPU tensor."""
     br = band_rows or TRUNK_BAND_ROWS
     if x.is_cuda:
-        return rrdb_trunk(x, packed, rdb_fn=functools.partial(rdb_banded_cuda, band_rows=br))
+        fn = rdb_banded_f32 if kernel_route(x.dtype) == "f32" else rdb_banded_cuda
+        return rrdb_trunk(x, packed, rdb_fn=functools.partial(fn, band_rows=br))
     if x.device.type != "cpu":
         raise ValueError(f"no RDB implementation for device {x.device}")
     return rrdb_trunk_banded_plain(x, packed, br)

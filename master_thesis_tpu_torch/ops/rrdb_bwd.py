@@ -25,11 +25,24 @@ backward (:data:`RRDB_BWD_KERNELS` launches; the design is in
 ``csrc/conv_bwd_wgmma.cuh``), channels-last. A CUDA tensor goes through
 the kernels, a CPU tensor through :func:`rrdb_bwd_plain`; nothing falls
 back.
+
+In f32 (:func:`rrdb_bwd_f32`) the forward keeps each RDB's dense-concat
+buffer (x and x1..x4, NHWC, :func:`.rrdb.rdb_f32`), and an RDB's backward
+is, in the pull form: v5 = 0.2 g_out, then for each source x4 .. x1 one
+:func:`.conv_f32.conv_f32_fwd` from the cotangents of every conv the
+source feeds (stored in conv order in one NHWC buffer) to the source's
+channels, with the leaky mask of the kept x_t in its epilogue (v_t); the
+same from all five into x's channels, plus g_out (and, in the RRDB's first
+RDB, g) in the epilogue (dx); then one :func:`.conv_f32.conv_f32_wgrad`
+per conv. Everything in f32. It holds to the JAX package run in f32 under
+``jax.default_matmul_precision("highest")``: the JAX kernel takes its two
+products at default precision even in f32 (ROADMAP C).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -37,6 +50,13 @@ import torch.nn.functional as F
 
 from master_thesis_tpu_torch import _build
 from master_thesis_tpu_torch.ops import conv_bwd
+from master_thesis_tpu_torch.ops.conv_f32 import (
+    WGRAD_KERNELS,
+    conv_f32_fwd,
+    conv_f32_wgrad,
+    kernel_route,
+    nhwc,
+)
 from master_thesis_tpu_torch.ops.rrdb import (
     _RDB_B_NUMEL,
     _RDB_W_NUMEL,
@@ -44,12 +64,14 @@ from master_thesis_tpu_torch.ops.rrdb import (
     KERNEL_NF,
     PackedRDB,
     _check_activation,
+    _gather,
     _sources,
     _widths,
     pack_rdb_pulls,
     pack_rdbs,
     rdb_flops,
     rdb_cuda,
+    rdb_f32,
     rdb_plain,
 )
 
@@ -62,11 +84,13 @@ def rdb_bwd_plain(
     """One RDB's backward, written out with ``F.conv2d`` and flipped
     kernels (the adjoint) and ``torch.nn.grad.conv2d_weight`` (the weight
     grads). ``x`` and ``hidden`` in the working dtype, ``g_out`` f32.
-    Returns the f32 input cotangent and the f32 grads."""
+    Returns the f32 input cotangent and the f32 grads (f64 for f64 inputs:
+    the sums are taken in ``promote_types(dtype, float32)``)."""
     dt = x.dtype
+    acc = torch.promote_types(dt, torch.float32)
     outs = [k.shape[0] for k in p.kernels]
     nf, gc = outs[4], outs[0]
-    src = torch.cat([x, *hidden], dim=1).float()
+    src = torch.cat([x, *hidden], dim=1).to(acc)
     dsrc = None
     dws: List[torch.Tensor] = [None] * 5
     dbs: List[torch.Tensor] = [None] * 5
@@ -77,11 +101,11 @@ def rdb_bwd_plain(
             v = 0.2 * g_out
         else:
             d = dsrc[:, nf + (t - 1) * gc: nf + t * gc]
-            v = torch.where(hidden[t - 1].float() >= 0, d, 0.2 * d)
+            v = torch.where(hidden[t - 1] >= 0, d, 0.2 * d)
         dbs[t - 1] = v.sum(dim=(0, 2, 3))
-        dp = v.to(dt).float()
+        dp = v.to(dt).to(acc)
         dws[t - 1] = torch.nn.grad.conv2d_weight(src[:, :cin], k.shape, dp, padding=1)
-        z = F.conv2d(dp, k.float().transpose(0, 1).flip(2, 3), padding=1)
+        z = F.conv2d(dp, k.to(acc).transpose(0, 1).flip(2, 3), padding=1)
         dsrc = z if t == 5 else torch.cat([dsrc[:, :cin] + z, dsrc[:, cin:]], dim=1)
     return g_out + dsrc[:, :nf], (dws, dbs)
 
@@ -103,7 +127,7 @@ def rrdb_bwd_plain(
         ins = kept[0]
         gc = rdbs[0].kernels[0].shape[0]
         hids = [list(h.split(gc, dim=1)) for h in kept[1]]
-    gf = g.float()
+    gf = g.to(torch.promote_types(g.dtype, torch.float32))
     d = 0.2 * gf
     grads: List[Grads] = [None] * 3
     for j in (2, 1, 0):
@@ -120,12 +144,13 @@ def flat_grads(grads: Sequence[Grads], out: Optional[torch.Tensor] = None) -> to
     return torch.cat(parts, out=out)
 
 
-def rdb_grads(flat: torch.Tensor) -> List[Grads]:
-    """Inverse of :func:`flat_grads`: views of ``flat`` per RDB."""
+def rdb_grads(flat: torch.Tensor, nf: int = KERNEL_NF, gc: int = KERNEL_GC) -> List[Grads]:
+    """Inverse of :func:`flat_grads`: views of ``flat`` per RDB (dW OIHW,
+    db) at widths nf, gc."""
     out, off = [], 0
     for _ in range(3):
         dws, dbs = [], []
-        for cin, cout in _widths(KERNEL_NF, KERNEL_GC):
+        for cin, cout in _widths(nf, gc):
             dws.append(flat[off: off + 9 * cin * cout].view(cout, cin, 3, 3))
             off += 9 * cin * cout
             dbs.append(flat[off: off + cout])
@@ -334,16 +359,99 @@ def rrdb_bwd(
     x: torch.Tensor, g: torch.Tensor, rdbs: Sequence[PackedRDB], pulls: Optional[torch.Tensor],
     kept=None, out: Optional[torch.Tensor] = None, scratch: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 for a CUDA tensor (``pulls``, ``kept``: see :func:`rrdb_bwd_cuda`),
-    the plain version for a CPU tensor (``rdbs``, ``kept`` optional).
+    """K3 for a CUDA tensor (``pulls``, ``kept``: see :func:`rrdb_bwd_cuda`;
+    in f32 its f32 route, :func:`rrdb_bwd_f32`), the plain version for a CPU
+    tensor (``rdbs``, ``kept`` optional).
     Returns ``(dx, grads)``, grads flat as :func:`flat_grads` (in ``out``
     if given)."""
     if x.is_cuda:
+        if kernel_route(x.dtype) == "f32":
+            return rrdb_bwd_f32(x, g, rdbs, pulls, kept, out)
         return rrdb_bwd_cuda(x, g, pulls, kept, out, scratch)
     if x.device.type != "cpu":
         raise ValueError(f"no RRDB backward for device {x.device}")
     dx, grads = rrdb_bwd_plain(x, g, rdbs, kept)
     return dx, flat_grads(grads, out)
+
+
+def pack_rdb_pulls_f32(convs_list: Sequence[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
+                       sources=None) -> torch.Tensor:
+    """Each RDB's five pull kernels of K3's f32 route (``rrdb._f32_index``:
+    sources x, x1..x4, each an HWIO kernel) in f32, with one gather for
+    all: row r is RDB r's. ``sources`` as for ``rrdb.pack_rdbs`` (f32)."""
+    src, shapes = _sources(convs_list, torch.float32) if sources is None else sources
+    return src[:, _gather("pull_f32", shapes, src.device)]
+
+
+def _pull_kernels(row: torch.Tensor, nf: int, gc: int) -> List[torch.Tensor]:
+    """One RDB's five pull kernels of :func:`pack_rdb_pulls_f32`, HWIO:
+    source s reads the cotangents of convs s+1..5 (channels ``[gc s, 4 gc
+    + nf)`` of the cotangent buffer) into its own nf or gc channels."""
+    shapes = [(3, 3, 4 * gc + nf - gc * s, nf if s == 0 else gc) for s in range(5)]
+    return [t.view(s) for t, s in zip(row.split([math.prod(s) for s in shapes]), shapes)]
+
+
+def rrdb_bwd_f32(
+    x: torch.Tensor, g: torch.Tensor, rdbs: Sequence[PackedRDB], pulls: torch.Tensor, kept,
+    out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One RRDB's backward on K3's f32 route (``rrdb_bwd_pallas`` with f32
+    weights): per RDB, 5 pull launches of :func:`.conv_f32.conv_f32_fwd`
+    and 5 :func:`.conv_f32.conv_f32_wgrad` calls (module docstring). ``x``
+    and ``g`` f32 (N, nf, H, W); ``rdbs`` the packed RDBs (their shapes),
+    ``pulls`` their rows of :func:`pack_rdb_pulls_f32`; ``kept`` = ``(ins,
+    cats)`` from :func:`rrdb_forward_kept_f32`. Returns ``(dx, grads)``:
+    dx channels-last f32, grads flat as :func:`flat_grads` (in ``out`` if
+    given). The kernels for CUDA tensors, their plain versions for CPU
+    ones; launches count in ``rrdb_bwd_f32.launches``."""
+    _, cats = kept
+    n, nf, h, w = x.shape
+    gc = rdbs[0].kernels[0].shape[0]
+    if g.shape != x.shape or g.dtype != torch.float32 or x.dtype != torch.float32:
+        raise ValueError("x and g must be f32 tensors of one shape")
+    if len(cats) != 3 or any(c.shape != (n, h, w, nf + 4 * gc) or c.dtype != torch.float32
+                             for c in cats):
+        raise ValueError(f"kept must hold three ({n}, {h}, {w}, {nf + 4 * gc}) f32 buffers")
+    size = sum(9 * ci * co + co for ci, co in _widths(nf, gc))
+    if out is None:
+        out = torch.empty(3 * size, dtype=torch.float32, device=x.device)
+    grads = rdb_grads(out, nf, gc)
+    gv = nhwc(g)
+    dp = torch.empty((n, h, w, 4 * gc + nf), dtype=torch.float32, device=x.device)
+    d = 0.2 * gv
+    launches = 0
+    for j in (2, 1, 0):
+        cat, pull = cats[j], _pull_kernels(pulls[j], nf, gc)
+        dp[..., 4 * gc:] = 0.2 * d
+        for s in (4, 3, 2, 1):
+            conv_f32_fwd(dp[..., gc * s:], pull[s], dp[..., gc * (s - 1): gc * s], epi="mask_leaky",
+                         m=cat[..., nf + gc * (s - 1): nf + gc * s])
+        dx = torch.empty((n, h, w, nf), dtype=torch.float32, device=x.device)
+        conv_f32_fwd(dp, pull[0], dx, epi="resid", r=d, r2=gv if j == 0 else None)
+        for u, (cin, cout) in enumerate(_widths(nf, gc)):
+            conv_f32_wgrad(cat[..., :cin], dp[..., gc * u: gc * u + cout], *(t[u] for t in grads[j]))
+        launches += 5 + 5 * WGRAD_KERNELS
+        d = dx
+    if x.is_cuda:
+        rrdb_bwd_f32.launches += launches
+    return d.permute(0, 3, 1, 2), out
+
+
+rrdb_bwd_f32.launches = 0
+# Kernel launches of one RRDB's backward on the f32 route.
+RRDB_BWD_F32_KERNELS = 3 * (5 + 5 * WGRAD_KERNELS)
+
+
+def rrdb_forward_kept_f32(x: torch.Tensor, rdbs: Sequence[PackedRDB]):
+    """One RRDB's forward on K1's f32 route, keeping what
+    :func:`rrdb_bwd_f32` reads: ``(y, (ins, cats))``, ins the three RDBs'
+    inputs, cats their dense-concat buffers (NHWC, x and x1..x4)."""
+    ins, cats, y = [], [], x
+    for j, p in enumerate(rdbs):
+        ins.append(y)
+        y, cat = rdb_f32(y, p, x if j == 2 else None, keep_hidden=True)
+        cats.append(cat)
+    return y, (ins, cats)
 
 
 def _rdb_keep(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor]):
@@ -362,7 +470,10 @@ def _rdb_keep(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor]):
 def rrdb_forward_kept(x: torch.Tensor, rdbs: Sequence[PackedRDB]):
     """One RRDB's forward, one RDB call at a time as ``rrdb_trunk`` runs
     it, keeping what its backward reads: returns ``(y, (ins, hids))``, ins
-    the three RDBs' inputs, hids their x1..x4 as (N, 4 gc, H, W)."""
+    the three RDBs' inputs, hids their x1..x4 as (N, 4 gc, H, W); for an f32
+    CUDA tensor :func:`rrdb_forward_kept_f32`'s."""
+    if x.is_cuda and kernel_route(x.dtype) == "f32":
+        return rrdb_forward_kept_f32(x, rdbs)
     ins, hids, y = [], [], x
     for j, p in enumerate(rdbs):
         ins.append(y)
@@ -383,7 +494,8 @@ class TrunkFunction(torch.autograd.Function):
     On the card the forward runs K1 on a channels-last copy of ``x`` (one
     conversion; the output is channels-last), and the backward takes the
     output cotangent channels-last (converted once if it is not) and runs
-    K3 once an RRDB into one grad buffer for the whole trunk."""
+    K3 once an RRDB into one grad buffer for the whole trunk; in f32 both
+    take their f32 routes (:func:`.rrdb.rdb_f32`, :func:`rrdb_bwd_f32`)."""
 
     @staticmethod
     def forward(ctx, x, dtype, *params):
@@ -408,7 +520,10 @@ class TrunkFunction(torch.autograd.Function):
         size = sum(p.numel() for p in ctx.params) // nb  # one RRDB's grads
         flat = torch.empty(nb * size, dtype=torch.float32, device=g.device)
         pulls = scratch = None
-        if g.is_cuda:
+        if g.is_cuda and kernel_route(g.dtype) == "f32":
+            g = g.contiguous(memory_format=torch.channels_last)
+            pulls = pack_rdb_pulls_f32(ctx.convs, ctx.sources)
+        elif g.is_cuda:
             g = g.contiguous(memory_format=torch.channels_last)
             pulls = pack_rdb_pulls(ctx.convs, ctx.dtype, ctx.sources)
             n, _, h, w = g.shape

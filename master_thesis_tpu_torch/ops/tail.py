@@ -25,6 +25,14 @@ the port calls: the card's checks time the new design against it. Its
 upsample-conv also recomputes h1 and h2 for the first design of the tail's
 backward (:func:`.tail_bwd.tail_bwd_first_cuda`); K6 recomputes with this
 module's stages.
+
+In f32 (:func:`tail_f32`, :func:`tail_banded_f32`) the tail is four
+:func:`.conv_f32.conv_f32_fwd` launches, NHWC: each upsample-conv at the
+high resolution reading its input through nearest x2 (the upsampled input
+is never formed), all in f32 as the TPU kernel takes it under
+``Precision.HIGHEST``; in bands, each conv computes the rows the next one
+reads, over band-sized buffers, and the first reads the frame in place.
+:func:`tail` and :func:`tail_banded` pick the route by the working dtype.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch.nn.functional as F
 from master_thesis_tpu_torch import _build
 from master_thesis_tpu_torch.ops import fragments
 from master_thesis_tpu_torch.ops import rrdb as rrdb_ops
+from master_thesis_tpu_torch.ops.conv_f32 import conv_f32_fwd, hwio, kernel_route, nhwc
 from master_thesis_tpu_torch.models.nn_ext import (
     fused_upsample_conv_kernel,
     leaky_relu,
@@ -75,6 +84,9 @@ def pack_tail(
     - ``last_oihw`` / ``last_wg`` / ``last_w``: conv_last likewise, its 3
       outputs zero-padded to the wgmma's 8 and to one 16-wide mma.sync tile.
 
+    - ``{up1,up2,hr,last}_hwio``: each conv's own kernel as the f32 route's
+      HWIO operand (f32 only).
+
     The wgmma operands (``*_wg``) are made where the widths are the
     kernel's multiples (C % 32 == 0, O % 8 == 0), as for the trunk.
     """
@@ -103,6 +115,9 @@ def pack_tail(
             p[f"{name}_wg"] = fragments.wgmma_conv_matrix(
                 F.pad(w.float(), (0, 0, 0, 0, 0, 0, 0, pad))).to(dtype).contiguous()
         p[f"{name}_b"] = b.detach().float().contiguous()
+    if dtype == torch.float32:
+        for name, (w, _) in zip(("up1", "up2", "hr", "last"), (upconv1, upconv2, hr_conv, conv_last)):
+            p[f"{name}_hwio"] = hwio(w)
     return p
 
 
@@ -374,10 +389,104 @@ def tail_banded_plain(
     return torch.cat(outs, dim=2)
 
 
-def tail(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The kernels for a CUDA tensor, the plain version for a CPU tensor."""
+# The f32 route's stages: (packed kernel, read through x2, epilogue).
+F32_STAGES = (("up1", True, "leaky"), ("up2", True, "leaky"), ("hr", False, "leaky"),
+              ("last", False, "none"))
+
+
+def _check_f32(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> None:
+    if x.dim() != 4 or x.dtype != torch.float32:
+        raise ValueError(f"x must be an f32 (N, nf, h, w) tensor, got {tuple(x.shape)} {x.dtype}")
+    for name, _, _ in F32_STAGES:
+        t = p.get(f"{name}_hwio")
+        if t is None or t.device != x.device or p[f"{name}_b"].device != x.device:
+            raise ValueError(f"{name}_hwio must be packed in float32 (pack_tail) on x's device")
+
+
+def tail_f32_stages(x: torch.Tensor, p: Dict[str, torch.Tensor], keep: int = 4):
+    """The first ``keep`` stages of :func:`tail_f32` on NHWC ``x``: their
+    NHWC outputs, in order (the backward's recompute keeps 3)."""
+    outs = []
+    for name, up, epi in F32_STAGES[:keep]:
+        n, h, w, _ = x.shape
+        s = 2 if up else 1
+        y = torch.empty((n, s * h, s * w, p[f"{name}_hwio"].shape[3]), dtype=x.dtype, device=x.device)
+        x = conv_f32_fwd(x, p[f"{name}_hwio"], y, bias=p[f"{name}_b"], up=up, epi=epi)
+        outs.append(x)
+    return outs
+
+
+def tail_f32(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The tail's f32 route (K4 in f32, ``rrdbnet_tail_pallas`` with f32
+    weights): four :func:`.conv_f32.conv_f32_fwd` launches, NHWC, the
+    upsample-convs reading through x2. ``x`` f32 ``(N, nf, h, w)``, any
+    layout; returns ``(N, 3, 4h, 4w)`` with channels-last strides, like
+    :func:`tail_cuda`. Launches count in ``tail_f32.launches``."""
+    _check_f32(x, p)
+    out = tail_f32_stages(nhwc(x), p)[-1]
     if x.is_cuda:
-        return tail_cuda(x, p)
+        tail_f32.launches += TAIL_KERNELS
+    return out.permute(0, 3, 1, 2)
+
+
+tail_f32.launches = 0
+
+
+def _reads(lo: int, hi: int, up: bool, h: int) -> Tuple[int, int]:
+    """The input rows ``[a, b)`` (of an ``h``-row input) a 3x3 conv's output
+    rows ``[lo, hi)`` read, through x2 with ``up``."""
+    a, b = lo - 1, hi
+    if up:
+        a, b = a >> 1, b >> 1
+    return max(a, 0), min(b + 1, h)
+
+
+def tail_banded_f32(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], band_rows: int = TAIL_BAND_ROWS
+) -> torch.Tensor:
+    """The tail's f32 route in row bands (K5 in f32, the banded branch of
+    ``rrdbnet_tail_pallas``): per band of low-resolution rows ``[r0, r1)``
+    four launches, conv_last computing the band's own output rows ``[4 r0,
+    4 r1)`` and each conv before it the rows the next one reads, into
+    band-sized buffers made once and reused by every band; upconv1 reads x
+    in place. Equals :func:`tail_f32` (the same sums in the same order);
+    launches count in ``tail_banded_f32.launches``."""
+    _check_f32(x, p)
+    n, _, h, w = x.shape
+    xv = nhwc(x)
+    plans = []
+    for r0, r1 in rrdb_ops.bands(h, band_rows):
+        win = [(4 * r0, 4 * r1)]  # conv_last, hr_conv, upconv2, upconv1, x
+        for (_, up, _), hh in zip(F32_STAGES[::-1], (4 * h, 4 * h, 2 * h, h)):
+            win.append(_reads(*win[-1], up, hh))
+        plans.append(win[::-1])  # x, upconv1, upconv2, hr_conv, conv_last
+    most = [max(pl[i][1] - pl[i][0] for pl in plans) for i in (1, 2, 3)]
+    bufs = [torch.empty((n, rows, s * w, p[f"{name}_hwio"].shape[3]), dtype=x.dtype, device=x.device)
+            for rows, s, name in zip(most, (2, 4, 4), ("up1", "up2", "hr"))]
+    out = torch.empty((n, 4 * h, 4 * w, 3), dtype=x.dtype, device=x.device)
+    for win in plans:
+        src, src_h = xv, h
+        for i, (name, up, epi) in enumerate(F32_STAGES):
+            dst = bufs[i] if i < 3 else out
+            rows_out = win[i + 1]
+            conv_f32_fwd(src, p[f"{name}_hwio"], dst, bias=p[f"{name}_b"], up=up, epi=epi, hin=src_h,
+                         rows=rows_out, x_row0=win[i][0] if i else 0,
+                         out_row0=rows_out[0] if i < 3 else 0)
+            src, src_h = dst, (2 if up else 1) * src_h
+        if x.is_cuda:
+            tail_banded_f32.launches += TAIL_KERNELS
+    return out.permute(0, 3, 1, 2)
+
+
+tail_banded_f32.launches = 0
+
+
+def tail(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The kernels for a CUDA tensor (the wgmma kernels in bf16, the f32
+    route in f32; :func:`.conv_f32.kernel_route`), the plain version for a
+    CPU tensor."""
+    if x.is_cuda:
+        return (tail_f32 if kernel_route(x.dtype) == "f32" else tail_cuda)(x, p)
     if x.device.type != "cpu":
         raise ValueError(f"no tail implementation for device {x.device}")
     return tail_plain(x, p)
@@ -389,7 +498,7 @@ def tail_banded(x: torch.Tensor, p: Dict[str, torch.Tensor], band_rows: int = 0)
     tensor."""
     br = band_rows or TAIL_BAND_ROWS
     if x.is_cuda:
-        return tail_banded_cuda(x, p, br)
+        return (tail_banded_f32 if kernel_route(x.dtype) == "f32" else tail_banded_cuda)(x, p, br)
     if x.device.type != "cpu":
         raise ValueError(f"no tail implementation for device {x.device}")
     return tail_banded_plain(x, p, br)

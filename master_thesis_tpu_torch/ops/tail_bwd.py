@@ -25,6 +25,15 @@ kernels, a CPU tensor through :func:`tail_bwd_plain`; nothing falls back.
 The first design (``csrc/conv_bwd.cuh``, 17 mma.sync launches, NCHW)
 stays as :func:`tail_bwd_first_cuda`, which no path of the port calls:
 the card's checks time the new design against it.
+
+In f32 (:func:`tail_bwd_f32`) the backward follows :func:`tail_bwd_plain`
+with the f32 route's two kernels: the recompute (:func:`..tail.tail_f32`'s
+first three launches), then per conv from conv_last down one
+:func:`.conv_f32.conv_f32_wgrad` (through x2 for the upsample-convs) and
+one :func:`.conv_f32.conv_f32_fwd` of the adjoint (flipped, transposed
+kernel) with the leaky mask of the kept activation in its epilogue, the
+upsample-convs' adjoints at the high resolution with their 2x2 sums
+(the adjoint of nearest x2) taken in the same launch. All in f32.
 """
 
 from __future__ import annotations
@@ -40,6 +49,14 @@ from master_thesis_tpu_torch import _build
 from master_thesis_tpu_torch.models.nn_ext import leaky_relu, pixel_shuffle_2x
 from master_thesis_tpu_torch.ops import conv_bwd, fragments
 from master_thesis_tpu_torch.ops import rrdb as rrdb_ops
+from master_thesis_tpu_torch.ops.conv_f32 import (
+    WGRAD_KERNELS,
+    adjoint_hwio,
+    conv_f32_fwd,
+    conv_f32_wgrad,
+    kernel_route,
+    nhwc,
+)
 from master_thesis_tpu_torch.ops.tail import (
     _FIRST_NUMEL,
     _WG_NUMEL,
@@ -47,7 +64,9 @@ from master_thesis_tpu_torch.ops.tail import (
     Conv,
     _check_packed,
     pack_tail,
+    _check_f32,
     tail,
+    tail_f32_stages,
     tail_flops,
 )
 
@@ -66,51 +85,59 @@ def _pool2x(t: torch.Tensor) -> torch.Tensor:
 
 
 def _mask(sign: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    return torch.where(sign.float() >= 0, d, 0.2 * d)
+    return torch.where(sign >= 0, d, 0.2 * d)
 
 
 def tail_bwd_plain(
-    x: torch.Tensor, g: torch.Tensor, p: Dict[str, torch.Tensor]
+    x: torch.Tensor, g: torch.Tensor, p: Dict[str, torch.Tensor], hidden=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The tail's backward written out with ``F.conv2d`` and flipped kernels
     (the adjoints) and ``torch.nn.grad.conv2d_weight`` (the weight grads):
     ``x`` the tail input ``(N, nf, h, w)``, ``g`` the output cotangent
     ``(N, 3, 4h, 4w)``, both in the working dtype; ``p`` from ``pack_tail``.
-    Returns ``dx`` and the f32 grads keyed by :data:`PARAM_NAMES`."""
+    Returns ``dx`` and the f32 grads keyed by :data:`PARAM_NAMES` (f64 for
+    f64 inputs: the sums are taken in ``promote_types(dtype, float32)``).
+    ``hidden``, if given, is ``(h1, h2, h3)`` (N, nf, ., .) to take the
+    masks from instead of the recompute (a check that shares a kernel's
+    recompute, whose masks then match)."""
     dt = x.dtype
+    acc = torch.promote_types(dt, torch.float32)
 
     def adjoint(dp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(dp, k.float().transpose(0, 1).flip(2, 3), padding=1)
+        return F.conv2d(dp, k.to(acc).transpose(0, 1).flip(2, 3), padding=1)
 
     def wgrad(src: torch.Tensor, k: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
-        return torch.nn.grad.conv2d_weight(src.float(), k.shape, dp, padding=1)
+        return torch.nn.grad.conv2d_weight(src.to(acc), k.shape, dp, padding=1)
 
     def up(inp, name):  # the recompute in the 4-phase form, as K6 runs it
-        y = F.conv2d(inp.float(), p[f"{name}_fused"].float(), padding=1)
-        return leaky_relu(pixel_shuffle_2x(y) + p[f"{name}_b"].view(1, -1, 1, 1)).to(dt)
+        y = F.conv2d(inp.to(acc), p[f"{name}_fused"].to(acc), padding=1)
+        return leaky_relu(pixel_shuffle_2x(y) + p[f"{name}_b"].to(acc).view(1, -1, 1, 1)).to(dt)
 
-    h1 = up(x, "up1")
-    h2 = up(h1, "up2")
-    h3 = leaky_relu(F.conv2d(h2.float(), p["hr_oihw"].float(), p["hr_b"], padding=1)).to(dt)
+    if hidden is not None:
+        h1, h2, h3 = (t.to(dt) for t in hidden)
+    else:
+        h1 = up(x, "up1")
+        h2 = up(h1, "up2")
+        h3 = leaky_relu(F.conv2d(h2.to(acc), p["hr_oihw"].to(acc), p["hr_b"].to(acc), padding=1)).to(dt)
     grads: Dict[str, torch.Tensor] = {}
 
-    dp = g.float()
+    dp = g.to(acc)
     grads["last_b"] = dp.sum(dim=(0, 2, 3))
     grads["last_w"] = wgrad(h3, p["last_oihw"], dp)
     d = adjoint(dp, p["last_oihw"])
 
     v = _mask(h3, d)
-    grads["hr_b"], dp = v.sum(dim=(0, 2, 3)), v.to(dt).float()
+    grads["hr_b"], dp = v.sum(dim=(0, 2, 3)), v.to(dt).to(acc)
     grads["hr_w"] = wgrad(h2, p["hr_oihw"], dp)
     d = adjoint(dp, p["hr_oihw"])
 
     v = _mask(h2, d)
-    grads["up2_b"], dp = v.sum(dim=(0, 2, 3)), v.to(dt).float()
+    grads["up2_b"], dp = v.sum(dim=(0, 2, 3)), v.to(dt).to(acc)
     grads["up2_w"] = wgrad(_up2x(h1), p["up2_oihw"], dp)
     d = _pool2x(adjoint(dp, p["up2_oihw"]))
 
     v = _mask(h1, d)
-    grads["up1_b"], dp = v.sum(dim=(0, 2, 3)), v.to(dt).float()
+    grads["up1_b"], dp = v.sum(dim=(0, 2, 3)), v.to(dt).to(acc)
     grads["up1_w"] = wgrad(_up2x(x), p["up1_oihw"], dp)
     dx = _pool2x(adjoint(dp, p["up1_oihw"])).to(dt)
     return dx, grads
@@ -329,12 +356,62 @@ def tail_bwd_first_cuda(
 tail_bwd_first_cuda.launches = 0
 
 
+def pack_tail_bwd_f32(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The HWIO kernels of K6's f32 route's adjoints (``conv_f32.adjoint_hwio``
+    of each conv's own kernel, from ``pack_tail``'s f32 ``p``)."""
+    return {f"{name}_adj": adjoint_hwio(p[f"{name}_oihw"]) for name in ("up1", "up2", "hr", "last")}
+
+
+def tail_bwd_f32(
+    x: torch.Tensor, g: torch.Tensor, p: Dict[str, torch.Tensor], adj: Dict[str, torch.Tensor]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The tail's backward on K6's f32 route (``tail_bwd_pallas`` with f32
+    weights): the recompute (3 launches), then for conv_last, hr_conv,
+    upconv2, upconv1 a weight grad and an adjoint (module docstring). ``x``
+    f32 ``(N, nf, h, w)`` and ``g`` ``(N, 3, 4h, 4w)``, any layout; ``p``
+    from ``pack_tail`` in f32, ``adj`` from :func:`pack_tail_bwd_f32`.
+    Returns a channels-last ``dx`` and the f32 grads keyed by
+    :data:`PARAM_NAMES`. The kernels for CUDA tensors, their plain versions
+    for CPU ones; launches count in ``tail_bwd_f32.launches``."""
+    _check_f32(x, p)
+    n, nf, h, w = x.shape
+    if g.shape != (n, 3, 4 * h, 4 * w) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must be an f32 ({n}, 3, {4 * h}, {4 * w}) tensor on x's device")
+    xv, gv = nhwc(x), nhwc(g)
+    h1, h2, h3 = tail_f32_stages(xv, p, keep=3)
+    grads = {k: torch.empty(p[f"{k[:-2]}_oihw"].shape if k.endswith("_w") else p[k].shape,
+                            dtype=torch.float32, device=x.device) for k in PARAM_NAMES}
+    f32 = dict(dtype=torch.float32, device=x.device)
+
+    def step(name, src, up, dy, sign, pool):
+        conv_f32_wgrad(src, dy, grads[f"{name}_w"], grads[f"{name}_b"], up=up)
+        out = torch.empty((n, sign.shape[1], sign.shape[2], nf), **f32)
+        return conv_f32_fwd(dy, adj[f"{name}_adj"], out, pool=pool, epi="mask_leaky", m=sign)
+
+    d = step("last", h3, False, gv, h3, False)
+    d = step("hr", h2, False, d, h2, False)
+    d = step("up2", h1, True, d, h1, True)
+    conv_f32_wgrad(xv, d, grads["up1_w"], grads["up1_b"], up=True)
+    dx = conv_f32_fwd(d, adj["up1_adj"], torch.empty((n, h, w, nf), **f32), pool=True)
+    if x.is_cuda:
+        tail_bwd_f32.launches += TAIL_BWD_F32_KERNELS
+    return dx.permute(0, 3, 1, 2), grads
+
+
+tail_bwd_f32.launches = 0
+# Kernel launches of one tail_bwd_f32 call: the recompute (3), four
+# adjoints, four weight grads.
+TAIL_BWD_F32_KERNELS = 3 + 4 + 4 * WGRAD_KERNELS
+
+
 def tail_bwd(
     x: torch.Tensor, g: torch.Tensor, p: Dict[str, torch.Tensor]
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """K6 for a CUDA tensor (channels-last ``x`` and ``g``), the plain
-    version for a CPU tensor."""
+    """K6 for a CUDA tensor (channels-last ``x`` and ``g``; in f32 its f32
+    route, :func:`tail_bwd_f32`), the plain version for a CPU tensor."""
     if x.is_cuda:
+        if kernel_route(x.dtype) == "f32":
+            return tail_bwd_f32(x, g, p, pack_tail_bwd_f32(p))
         return tail_bwd_cuda(x, g, p, pack_tail_bwd(p))
     if x.device.type != "cpu":
         raise ValueError(f"no tail backward for device {x.device}")

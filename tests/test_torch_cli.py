@@ -278,12 +278,58 @@ def test_cli_chn_train_on_two_gloo_ranks_equals_one_process(data_root, tmp_path)
         == [os.path.join("version_0", "checkpoints", "step_2.pt")]
 
 
-def _jax_first_losses(logdir):
+def _jax_first_losses(logdir, items=DFPN_ITEMS):
     from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
     acc = EventAccumulator(logdir)
     acc.Reload()
-    return {k: acc.Scalars(f"training/{k}")[0] for k in DFPN_ITEMS}
+    return {k: acc.Scalars(f"training/{k}")[0] for k in items}
+
+
+def _jax_env():
+    return dict(os.environ, PYTHONPATH=_REPO, JAX_PLATFORMS="cpu",
+                XLA_FLAGS="--xla_force_host_platform_device_count=1",
+                JAX_DEFAULT_MATMUL_PRECISION="highest")
+
+
+def test_chn_with_dfpn_aligner_first_losses_equal_jax_cli(data_root, tmp_path):
+    """``--chn --chn_aligner dfpn --chn_aligner_checkpoint <file>`` (the
+    reference's mode 3 with its DFPN aligner, as tests/test_cli.py:99 runs
+    the JAX CLI) at --compute_dtype float32 in both CLIs, from one
+    reference-key file each for the DFPN aligner, the CHN and VGG, on the
+    same tree and seed, so their loaders give the same batch: every CHN
+    loss item logged at step 1 agrees within 2e-5 relative (f32 sums in
+    another order through VGG, the DFPN aligner's correlation and flow
+    cascade, the warp and the CHN; they read 2.0e-6 at most, the
+    perceptual item)."""
+    from master_thesis_tpu_torch.models.chn import CHN
+
+    torch.save(build_dfpn(base_size=64, device="cpu", generator=torch.Generator().manual_seed(14)).state_dict(),
+               tmp_path / "dfpn.pth")
+    torch.save(VGGFeatures(device="cpu", generator=torch.Generator().manual_seed(15)).state_dict(),
+               tmp_path / "vgg.pth")
+    torch.save(CHN(nb=1, device="cpu", generator=torch.Generator().manual_seed(16)).state_dict(),
+               tmp_path / "chn.pth")
+    args = ["--data_path", data_root, "--compute_dtype", "float32", "--dfpn_base_size", "64",
+            "--num_workers", "1", "--train_max_iterations", "1", "--validation_max_iterations", "1",
+            "--max_epochs", "1", "--train_size", "64", "64", "--batch_size", "2", "--frames_n", "3",
+            "--seed", "4", "--chn", "--chn_nb", "1", "--chn_aligner", "dfpn",
+            "--chn_aligner_checkpoint", str(tmp_path / "dfpn.pth"), "--vgg_checkpoint",
+            str(tmp_path / "vgg.pth"), "--resume_from_checkpoint", str(tmp_path / "chn.pth")]
+    out = subprocess.run(
+        [sys.executable, "-m", "master_thesis_tpu", *args, "--data_ckpt_path",
+         str(tmp_path / "jax_data.ckpt"), "--default_root_dir", str(tmp_path / "jax")],
+        env=_jax_env(), capture_output=True, text=True, timeout=900, cwd=_REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+    rec = Recorder()
+    main(args + ["--device", "cpu", "--data_ckpt_path", str(tmp_path / "data.ckpt"),
+                 "--default_root_dir", str(tmp_path / "port")], logger=rec)
+    got = next(s for prefix, step, s in rec.scalars if prefix == "training/" and step == 1)
+    items = [k for k in got if k != "step_time_s"]
+    want = _jax_first_losses(str(tmp_path / "jax" / "version_0"), items)
+    assert "loss" in items and len(items) > 1
+    for k in items:
+        np.testing.assert_allclose(got[k], want[k].value, rtol=2e-5, err_msg=k)
 
 
 def test_dfpn_train_first_losses_equal_jax_cli(data_root, tmp_path):
@@ -302,9 +348,7 @@ def test_dfpn_train_first_losses_equal_jax_cli(data_root, tmp_path):
             "--max_epochs", "1", "--train_size", "64", "64", "--batch_size", "2", "--frames_n", "2",
             "--p_simulator_bgs", "1.0", "--seed", "4", "--vgg_checkpoint", str(tmp_path / "vgg.pth"),
             "--resume_from_checkpoint", str(tmp_path / "dfpn.pth")]
-    env = dict(os.environ, PYTHONPATH=_REPO, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=1",
-               JAX_DEFAULT_MATMUL_PRECISION="highest")
+    env = _jax_env()
     out = subprocess.run(
         [sys.executable, "-m", "master_thesis_tpu", *args, "--data_ckpt_path",
          str(tmp_path / "jax_data.ckpt"), "--default_root_dir", str(tmp_path / "jax")],

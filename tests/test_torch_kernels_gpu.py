@@ -787,3 +787,125 @@ def test_cli_trains_dfpn_and_chn_on_the_card(cuda, tmp_path):
     assert run(["--frames_n", "2"]) == dict.fromkeys(counters, 0)
     assert run(["--chn", "--frames_n", "3"]) == {
         "K1": 2 * 3, "K3": 2, "K4": tail.TAIL_KERNELS, "K6": tail_bwd.TAIL_BWD_KERNELS, "K7": 0, "K8": 0}
+
+
+# ---------------------------------------------------------------------------
+# The f32 route's kernels (csrc/conv_f32.cu) against their plain versions,
+# TF32 off (the fixture): max|kernel - plain| <= 1e-5 * max|plain| (f32
+# sums in another order).
+# ---------------------------------------------------------------------------
+
+F32_REL = 1e-5
+
+
+def _f32_close(got, want):
+    assert torch.isfinite(got).all()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    assert err <= F32_REL * scale, (err, scale)
+
+
+# (k, up, pool, epi, slices, band, n, h, w, cin, cout): the RDB's widths,
+# the tail's upconvs and adjoints, K7 / K8's thin and wide convs.
+@pytest.mark.parametrize("k,up,pool,epi,slices,band,n,h,w,cin,cout", [
+    (3, False, False, "leaky", True, None, 2, 37, 45, 160, 32),
+    (3, False, False, "resid", True, None, 2, 16, 64, 192, 64),
+    (3, True, False, "leaky", False, None, 1, 20, 24, 64, 64),
+    (3, False, True, "mask_leaky", False, None, 1, 40, 48, 64, 64),
+    (3, False, False, "mask_leaky", True, None, 2, 24, 20, 96, 32),
+    (3, False, False, "none", False, None, 2, 32, 32, 64, 3),
+    (5, False, False, "relu", False, None, 3, 29, 31, 10, 128),
+    (3, False, False, "relu", False, None, 64, 16, 16, 1, 128),
+    (3, False, False, "mask_relu", False, None, 2, 16, 16, 256, 256),
+    (3, False, False, "leaky", True, (5, (11, 23)), 2, 40, 36, 96, 32),
+    (3, True, False, "leaky", False, (3, (10, 18)), 1, 16, 24, 64, 64),
+])
+def test_conv_f32_fwd_kernel_matches_plain(cuda, k, up, pool, epi, slices, band, n, h, w, cin, cout):
+    from master_thesis_tpu_torch.ops import conv_f32
+
+    g = torch.Generator().manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(cuda)
+    frame = rnd(n, h, w, cin + 8)
+    x = frame[..., 8:] if slices else frame[..., :cin].contiguous()
+    wk, bias = rnd(k, k, cin, cout) / (k * k * cin) ** 0.5, rnd(cout)
+    s = 2 if up else 1
+    ho, wo = (s * h // 2, s * w // 2) if pool else (s * h, s * w)
+    extra = {}
+    if epi == "resid":
+        extra = dict(r=rnd(n, ho, wo, cout), r2=rnd(n, ho, wo, cout), alpha=0.2, beta=0.2)
+    elif epi.startswith("mask"):
+        extra = dict(m=rnd(n, ho, wo, cout))
+    kw = dict(bias=bias, k=k, up=up, pool=pool, epi=epi, **extra)
+    if band is not None:
+        x_row0, rows = band
+        x = x[:, x_row0:]
+        kw.update(hin=h, rows=rows, x_row0=x_row0)
+    bufs = [torch.zeros(n, ho, wo, cout + 4, device=cuda) for _ in range(2)]
+    outs = [b[..., 4:] if slices else b[..., :cout].contiguous() for b in bufs]
+    before = conv_f32.conv_f32_fwd_cuda.launches
+    conv_f32.conv_f32_fwd_cuda(x, wk, outs[0], **kw)
+    torch.cuda.synchronize()
+    assert conv_f32.conv_f32_fwd_cuda.launches == before + 1
+    conv_f32.conv_f32_fwd_plain(x, wk, outs[1], **kw)
+    _f32_close(outs[0], outs[1])
+    if slices:
+        assert torch.equal(bufs[0][..., :4], torch.zeros_like(bufs[0][..., :4]))
+
+
+@pytest.mark.parametrize("k,up,slices,n,h,w,cin,cout", [
+    (3, False, True, 8, 64, 64, 192, 64),
+    (3, False, False, 2, 33, 47, 64, 3),
+    (3, True, False, 2, 32, 32, 64, 64),
+    (5, False, False, 2, 20, 24, 10, 32),
+])
+def test_conv_f32_wgrad_kernel_matches_plain(cuda, k, up, slices, n, h, w, cin, cout):
+    """Weight and bias grads against the plain version's sums in f64
+    (cuDNN's f32 weight grads, TF32 off, read up to 3.5e-5 from f64 at
+    these sizes, the kernel's 3e-7: the limit holds the kernel, not cuDNN),
+    and the same bits on a second run (the partial sums are reduced in a
+    fixed order)."""
+    from master_thesis_tpu_torch.ops import conv_f32
+
+    g = torch.Generator().manual_seed(4)
+    frame = torch.randn(n, h, w, cin + 16, generator=g).to(cuda)
+    x = frame[..., 16:] if slices else frame[..., :cin].contiguous()
+    s = 2 if up else 1
+    dy = torch.randn(n, s * h, s * w, cout, generator=g).to(cuda)
+    got = [(torch.empty(cout, cin, k, k, device=cuda), torch.empty(cout, device=cuda)) for _ in range(2)]
+    for dw, db in got:
+        conv_f32.conv_f32_wgrad_cuda(x, dy, dw, db, k=k, up=up)
+    torch.cuda.synchronize()
+    xe = x.double().repeat_interleave(2, 1).repeat_interleave(2, 2) if up else x.double()
+    want = (torch.nn.grad.conv2d_weight(xe.permute(0, 3, 1, 2), got[0][0].shape,
+                                        dy.double().permute(0, 3, 1, 2), padding=k // 2),
+            dy.double().sum(dim=(0, 1, 2)))
+    for a, b in zip(got[0], want):
+        _f32_close(a.double(), b)
+    assert torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1])
+
+
+def test_f32_routes_take_f32_card_tensors(cuda):
+    """An RDB, the tail and a K8 stack in f32 through their dispatchers on
+    the card launch the f32 route, and agree with the plain versions."""
+    from master_thesis_tpu_torch.ops import conv_f32, conv_stack
+
+    rng = np.random.RandomState(5)
+    nf, gc = rrdb.KERNEL_NF, rrdb.KERNEL_GC
+    convs = [_conv(rng, nf + k * gc, gc if k < 4 else nf, (1.0 / (9 * (nf + k * gc))) ** 0.5) for k in range(5)]
+    p = rrdb.pack_rdb([(w.to(cuda), b.to(cuda)) for w, b in convs], torch.float32)
+    x = torch.from_numpy(rng.randn(2, nf, 20, 28).astype(np.float32)).to(cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    before = rrdb.rdb_f32.launches
+    _f32_close(rrdb.rdb(x, p), rrdb.rdb_plain(x, p))
+    assert rrdb.rdb_f32.launches == before + rrdb.RDB_CONVS
+    tp = tail.pack_tail(*[tuple(t.to(cuda) for t in _conv(rng, nf, o, 0.05)) for o in (nf, nf, nf, 3)],
+                        torch.float32)
+    _f32_close(tail.tail(x, tp), tail.tail_plain(x, tp))
+    _f32_close(tail.tail_banded(x, tp, 8), tail.tail_plain(x, tp))
+    sp = conv_stack.pack_stack([tuple(t.to(cuda) for t in _conv(rng, 64, 64, 0.05)),
+                                tuple(t.to(cuda) for t in _conv(rng, 64, 2, 0.05))], [True, False],
+                               torch.float32)
+    xs = torch.from_numpy(rng.randn(2, 24, 40, 64).astype(np.float32)).to(cuda)
+    _f32_close(conv_stack.conv_stack_banded(xs, sp), conv_stack.conv_stack_banded_plain(xs, sp))
+    with pytest.raises(ValueError, match="--use_pallas false"):
+        rrdb.rdb(x.half(), p)
+    assert conv_f32.conv_f32_fwd_cuda.launches > 0
