@@ -194,22 +194,36 @@ Phases, each fatal on failure:
    also with two planted faults, each denominator local to its rank and
    rank 1 keeping its own grads, which must be caught. Two ranks on one
    card check correctness, not scaling;
-14. f32 (run after phase 11, before the CLI; ``csrc/conv_f32.cu``, TF32
-   off): each site's f32 route at its main-path shapes (K1 / K4
+14. f32 (run after phase 11, before the CLI; ``csrc/conv_f32.cu``, and
+   for K7's and K8's 64-multiple convs the 3xTF32 frame kernel
+   ``csrc/conv_frame_tf32.cu``; TF32 off): first that kernel alone on every
+   shape the f32 CHN+DFPN step gives it (sep4d's four wide convs at 5 120
+   tiles, stage 1's last with the swap in its epilogue; the mixer's
+   256 -> 256 5x5 and 3x3; flow_256's and flow_64's 128-channel convs;
+   VGG's 64 -> 64 .. 512 -> 512 at 4 and 20 frames) against its plain f32
+   version (limit 1e-5), a rerun bit-identical, each fault compiled in with
+   ``-DTF32_PLANT`` (the two correction products dropped, the corner tap
+   left out, each tile's top halo row read as zeros where a frame has
+   several row tiles) caught, its time beside its floor (3 x FLOPs at 495
+   TFLOP/s), the f32 bound, the SIMT kernel and one cuDNN ``F.conv2d``;
+   then each site's f32 route at its main-path shapes (K1 / K4
    80x64x64, K3 / K6 8x64x64, K2 / K5 8x128x256 in bands, K7 sep4d's two
    stages and the mixer, K8 its three callers)
    against its plain f32 version by relative L2 (limit 1e-5; the backward
    checks' plain versions sum in f64 over the route's own activations),
    each check read on two faults compiled in with ``-DF32_PLANT`` (tap
-   (0, 0) dropped; the channel slice read one group of 8 off), which must
-   be caught; each route's device time with its launch count beside its
+   (0, 0) dropped; the channel slice read one group of 8 off), and K7's and
+   K8's also on the three ``-DTF32_PLANT`` faults, which must be caught;
+   each route's device time with its launch count beside its
    bound at 67 TFLOP/s, the 3 x TF32 figure, the plain version, the cuDNN
    route and the library yardstick (one ``F.conv2d`` / ``conv2d_weight``
-   a launch); the f32 CPN serving step (B=4, F=5, 256x256, nb 20) against
+   a launch); K7's and K8's beside their f32 first design (every conv on
+   the SIMT kernel), each fatal unless faster; the f32 CPN serving step (B=4, F=5, 256x256, nb 20) against
    its plain routes, profiled; the f32 CHN train step (B=8, frames_n 2),
    its grads against the plain backward versions from the same forward
    (limit 1e-4), 3 steps after 1; a CHN+DFPN step on every kernel route in
-   f32; each f32 route's launches.
+   f32 (the 3xTF32 kernel's launches held to the routed convs' count); each
+   f32 route's launches.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card or
@@ -475,7 +489,8 @@ def phase_build():
       + [("conv_stack_wgmma", (f"-DFRAME_PLANT={f}",)) for f in FRAME_FAULTS]
       + [(name, ("-DBAND_PLANT=1",)) for name in ("rrdb", "tail")]
       + [("rrdb", ("-DRDB_PLANT=1",)), ("tail", ("-DTAIL_PLANT=1",))]
-      + [("conv_f32", (f"-DF32_PLANT={f}",)) for f in F32_FAULTS])
+      + [("conv_f32", (f"-DF32_PLANT={f}",)) for f in F32_FAULTS]
+      + [("conv_frame_tf32", (f"-DTF32_PLANT={f}",)) for f in TF32_FAULTS])
     print(f"build: {len(report)} libraries in {time.perf_counter() - t0:.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})")
     for name, (secs, log) in sorted(report.items()):
@@ -3415,6 +3430,15 @@ F32_REPLACES = {
 KERNELS_F32 = r"\bcf::"
 # The faults compiled into csrc/conv_f32.cu with -DF32_PLANT=n.
 F32_FAULTS = {1: "tap (0, 0) dropped", 2: "channel slice read one group of 8 channels off"}
+# K7's and K8's f32 routes: the 3xTF32 frame kernel (csrc/conv_frame_tf32.cu)
+# for the 64-multiple convs, conv_f32.cu's SIMT kernel for the thin ones; the
+# faults compiled into the former with -DTF32_PLANT=n.
+KERNELS_F32_K78 = r"\b(cf|ft)::"
+TF32_SOURCES = ["master_thesis_tpu_torch/csrc/conv_frame_tf32.cu",
+                "master_thesis_tpu_torch/csrc/conv_frame_tf32_wgmma.cuh",
+                "master_thesis_tpu_torch/csrc/conv_f32.cu"]
+TF32_FAULTS = {1: "the two correction products dropped (1xTF32)", 2: "corner tap (-r, -r) left out",
+               3: "each tile's top halo row read as zeros"}
 
 
 def f32_counters():
@@ -3466,6 +3490,20 @@ def planted_f32(fault):
 
 
 @contextlib.contextmanager
+def planted_tf32(fault):
+    """Within: K7's and K8's f32 routes launch the 3xTF32 frame kernel from
+    the library built with ``-DTF32_PLANT=fault``."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    orig = conv_stack._tf32_lib
+    conv_stack._tf32_lib = lambda _=(): orig((f"-DTF32_PLANT={fault}",))
+    try:
+        yield
+    finally:
+        conv_stack._tf32_lib = orig
+
+
+@contextlib.contextmanager
 def f32_plain_backward():
     """Within: the trunk's and the tail's autograd Functions run the plain
     backward versions over the f32 routes' forward (the kept activations,
@@ -3502,10 +3540,11 @@ def f32_library_ms(fn):
     TF32 off, channels-last, timed alone and summed."""
     import torch.nn.functional as F
 
-    from master_thesis_tpu_torch.ops import conv_f32
+    from master_thesis_tpu_torch.ops import conv_f32, conv_stack
 
     shapes = {}
     orig = conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda
+    orig_tf32 = conv_stack.conv_frame_tf32_cuda
 
     def fwd(x, w, out, **kw):
         g = conv_f32.geometry(x, w, out, k=kw.get("k", 3), up=kw.get("up", False),
@@ -3521,15 +3560,25 @@ def f32_library_ms(fn):
         shapes[key] = shapes.get(key, 0) + 1
         return orig[1](x, dy, dw, db, k=k, up=up)
 
+    def tf32(x, p, i, swap=False):
+        k, _, co = p.specs[i]
+        key = ("fwd", x.shape[0], x.shape[3], co, x.shape[1], x.shape[2], k)
+        shapes[key] = shapes.get(key, 0) + 1
+        return orig_tf32(x, p, i, swap)
+
     # The wrapped kernels count their launches on the wrappers in their
     # place, and hand the counts back.
-    fwd.launches, wgrad.launches = orig[0].launches, orig[1].launches
+    fwd.launches, wgrad.launches, tf32.launches = (orig[0].launches, orig[1].launches,
+                                                   orig_tf32.launches)
     conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = fwd, wgrad
+    conv_stack.conv_frame_tf32_cuda = tf32
     try:
         fn()
     finally:
         conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = orig
-        orig[0].launches, orig[1].launches = fwd.launches, wgrad.launches
+        conv_stack.conv_frame_tf32_cuda = orig_tf32
+        orig[0].launches, orig[1].launches, orig_tf32.launches = (fwd.launches, wgrad.launches,
+                                                                  tf32.launches)
     total = 0.0
     for (kind, n, cin, cout, h, w, k), count in shapes.items():
         x = channels_last(torch.randn(n, cin, h, w, device="cuda"))
@@ -3560,40 +3609,170 @@ def tail_cudnn(y, p, leaves=None):
     return F.conv2d(y, *convs[3], padding=1)
 
 
-def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, check_fn):
+def routed_ops_s(routed):
+    """The least time of the operations of K7's or K8's f32 route: over
+    ``routed``, ``(packed stack, frames, h, w)`` of each stack it runs, each
+    conv that :func:`conv_stack.f32_plan` sends to the 3xTF32 kernel at three
+    tf32 products a FLOP on the tensor cores, each other conv at the f32
+    rate outside them."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    t = 0.0
+    for p, n, h, w in routed:
+        for (k, ci, co), kind in zip(p.specs, conv_stack.f32_plan(p)):
+            flops = 2 * n * h * w * ci * co * k * k
+            t += 3 * flops / PEAK_TF32_FLOPS if kind == "tf32" else flops / PEAK_F32_FLOPS
+    return t
+
+
+def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, check_fn, first=None,
+             routed=None, tf32_faults=()):
     """One site's f32 route: its check against the plain version (and on
-    both planted faults), then its device time with its launch count, the
-    bound, the 3 x TF32 figure, the plain version, the cuDNN route and the
-    library yardstick. Returns the route's output."""
+    both planted faults of conv_f32.cu, and on the faults ``tf32_faults`` of
+    the 3xTF32 frame kernel), then its device time with its launch count,
+    the bound, the 3 x TF32 figure, the plain version, the cuDNN route and the
+    library yardstick. ``first`` (K7, K8): the f32 first design, every conv
+    on conv_f32.cu, checked and timed beside the route, which must be faster;
+    ``routed`` (with it): the route's stacks for :func:`routed_ops_s`, whose
+    time sets the bound (the bound at 67 TFLOP/s kept as ``bound_f32_ms``).
+    Returns the route's output."""
     got, want = route(), plain()
     err = check_fn(f"{key} f32 {name}", got, want, None)
     for fault, label in F32_FAULTS.items():
         with planted_f32(fault):
             check_fn(f"{key} f32 {name}", route(), want, label)
+    for fault in tf32_faults:
+        with planted_tf32(fault):
+            check_fn(f"{key} f32 {name}", route(), want, f"3xTF32 kernel: {TF32_FAULTS[fault]}")
+    if first is not None:
+        check_fn(f"{key} f32 first design {name}", first(), want, None)
     # The time is CUDA events' over 3 calls (a route's launches each take
     # 0.05-5 ms, so the host's gaps between them are a few percent at
     # most); beside it the profiler's device time and its count of the
-    # conv_f32 kernels, which late in this process falls a few short of
-    # the launches (114 of 120 in three readings running on K2).
+    # f32 kernels, which late in this process falls a few short of the
+    # launches (114 of 120 in three readings running on K2).
     ms = cuda_ms(route, iters=3, warmup=1)
-    dev_ms, counted = device_ms(route, iters=1, kernels=KERNELS_F32)
+    dev_ms, counted = device_ms(route, iters=1, kernels=KERNELS_F32 if first is None else KERNELS_F32_K78)
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     cudnn_ms = cuda_ms(cudnn, iters=3, warmup=1)
     lib_ms = f32_library_ms(route)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes_ / PEAK_BYTES
+    first_ms = cuda_ms(first, iters=3, warmup=1) if first is not None else None
+    t_f32, t_bytes = flops / PEAK_F32_FLOPS, nbytes_ / PEAK_BYTES
+    t_ops = t_f32 if routed is None else routed_ops_s(routed)
     b_ms, b_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    f32_bound = 1e3 * max(t_f32, t_bytes)
     tf32 = 1e3 * 3 * flops / PEAK_TF32_FLOPS
+    kernels = "conv_f32" if first is None else "conv_f32 / 3xTF32"
+    bound = "bound" if routed is None else "bound of the routed convs (3xTF32 at 495, SIMT at 67 TFLOP/s)"
     print(f"kernel {key} f32 {name}: {ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms, {counted} of "
-          f"{launches} conv_f32 launches counted), bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it), "
-          f"3xTF32 {tf32:.4f} ms, plain "
+          f"{launches} {kernels} launches counted), {bound} {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it), "
+          + ("" if routed is None else f"bound at 67 TFLOP/s f32 {f32_bound:.4f} ms, ")
+          + f"3xTF32 {tf32:.4f} ms ({tf32 / ms:.1%} of it), plain "
           f"{plain_ms:.4f} ms, cuDNN f32 route {cudnn_ms:.4f} ms, library {lib_ms:.4f} ms "
-          f"({flops / ms / 1e9:.2f} TFLOP/s)")
+          f"({flops / ms / 1e9:.2f} TFLOP/s)"
+          + ("" if first is None else f", first design (conv_f32 alone) {first_ms:.4f} ms"))
     results[f"{key} f32"] = dict(
         name=f"{name}, f32 route (conv_f32_fwd / conv_f32_wgrad)", route="cuda",
         source="master_thesis_tpu_torch/csrc/conv_f32.cu", replaces=F32_REPLACES[key], launches=0,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         cudnn_ms=cudnn_ms, tf32x3_ms=tf32)
+    if first is not None:
+        results[f"{key} f32"].update(
+            name=f"{name}, f32 route (3xTF32 wgmma frame kernel + conv_f32_fwd)",
+            source=TF32_SOURCES[0], sources=TF32_SOURCES, first_design_ms=first_ms, bound_f32_ms=f32_bound)
+        print(f"kernel {key} f32 old vs new: first design (conv_f32 alone) {first_ms:.4f} ms, 3xTF32 route "
+              f"{ms:.4f} ms ({first_ms / ms:.3f}x)")
+        if ms >= first_ms:
+            raise RuntimeError(f"{key}'s f32 route on the 3xTF32 kernel is not faster than its first design")
     return got
+
+
+def tf32_conv_items(dfpn, vgg):
+    """Every conv that the f32 CHN+DFPN step on every kernel route sends to the
+    3xTF32 frame kernel, once a shape: ``{(n, h, w, k, cin, cout, swap): [label,
+    packed stack, conv index, count]}`` (sep4d's two stages at 5 120 tiles,
+    stage 1's last conv with the swap; the mixer at 20 tiles; K8's three
+    callers as ``k8_callers`` lists them)."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    cs = DFPN_BASE // 16
+    nt7 = DFPN_B * DFPN_F * cs * cs
+    p1, p2 = dfpn.corr.conv.packed()
+    stacks = [("sep4d stage 1", p1, (nt7, cs, cs), True), ("sep4d stage 2", p2, (nt7, cs, cs), False),
+              ("mixer", dfpn.corr_mixer.packed(), (DFPN_B * DFPN_F, cs, cs), False)]
+    meta = lambda *shape: torch.empty(*shape, device="meta")
+    for caller, lst in k8_callers(dfpn, vgg, meta, dtype=torch.float32).items():
+        stacks += [(f"{caller} {nm}", p, tuple(xx.shape[:3]), False) for nm, p, _, _, xx in lst]
+    items = {}
+    for label, p, (n, h, w), swap in stacks:
+        for i, kind in enumerate(conv_stack.f32_plan(p)):
+            if kind != "tf32":
+                continue
+            k, ci, co = p.specs[i]
+            key = (n, h, w, k, ci, co, swap and i == len(p.specs) - 1)
+            if key in items:
+                items[key][3] += 1
+            else:
+                items[key] = [f"{label} conv {i}", p, i, 1]
+    return items
+
+
+def phase_tf32_convs(dfpn, vgg):
+    """The 3xTF32 frame kernel alone on each shape the f32 CHN+DFPN step gives
+    it: held against its plain f32 version (TF32 off) by relative L2
+    (``L2_F32``), a rerun bit-identical, each planted fault (the halo-row one
+    where a frame has more than one row tile) caught; its time beside its
+    floor (the larger of 3 x FLOPs at 495 TFLOP/s and its input, hi and lo
+    weights and output at 3.35 TB/s), the f32 bound (67 TFLOP/s), the SIMT
+    kernel (``conv_f32_fwd``, the first design's) and one cuDNN ``F.conv2d``
+    (f32, TF32 off, channels-last). Returns ``{site: (sum of count x ms,
+    sum of count x floor)}``."""
+    import torch.nn.functional as F
+
+    from master_thesis_tpu_torch.ops import conv_f32, conv_stack
+
+    g = torch.Generator().manual_seed(SEED + 44)
+    sums = {"K7": [0.0, 0.0], "K8": [0.0, 0.0]}
+    for (n, h, w, k, ci, co, swap), (label, p, i, count) in tf32_conv_items(dfpn, vgg).items():
+        site = "K7" if label.startswith(("sep4d", "mixer")) else "K8"
+        x = torch.randn(n, h, w, ci, generator=g).cuda()
+        run = lambda: conv_stack.conv_frame_tf32_cuda(x, p, i, swap)
+        name = f"TF32 conv {label}, {k}x{k} {ci}->{co} at {n}x{h}x{w}" + (" with the swap" if swap else "")
+        got, want = run(), conv_stack.conv_frame_tf32_plain(x, p, i, swap)
+        f32_check(name, got, want, None)
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"{name}: a rerun is not bit-identical")
+        tile = conv_stack.frame_tile_tf32(n, h, w, k, co)
+        for fault, flabel in TF32_FAULTS.items():
+            if fault == 3 and tile[1] >= h:
+                print(f"planted {name}, {flabel}: not applicable (one row tile a frame)")
+                continue
+            with planted_tf32(fault):
+                f32_check(name, run(), want, flabel)
+        del got, want
+        ms = cuda_ms(run, iters=3, warmup=1)
+        out = torch.empty(n, h, w, co, device="cuda")
+        bias = p.biases[i].contiguous()
+        simt_ms = cuda_ms(lambda: conv_f32.conv_f32_fwd_cuda(x, p.hwio[i], out, bias=bias, k=k,
+                                                             epi="relu" if p.relus[i] else "none"),
+                          iters=2, warmup=1)
+        xc, wc = x.permute(0, 3, 1, 2), channels_last(p.kernels[i])
+        lib_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=k // 2), iters=3, warmup=1)
+        flops = 2 * n * h * w * ci * co * k * k
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
+        t_bytes = (nbytes(x) * (ci + co) // ci + nbytes(p.tf32[i])) / PEAK_BYTES
+        floor, by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+        f32_bound = 1e3 * max(flops / PEAK_F32_FLOPS, t_bytes)
+        print(f"kernel {name} (x{count} a step; tile {tile}): {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+              f"3xTF32 floor {floor:.4f} ms ({by}; {floor / ms:.1%} of it), f32 bound {f32_bound:.4f} ms, "
+              f"SIMT conv_f32_fwd {simt_ms:.4f} ms, cuDNN f32 F.conv2d {lib_ms:.4f} ms")
+        sums[site][0] += count * ms
+        sums[site][1] += count * floor
+        del x, out, xc
+    for site, (ms, floor) in sums.items():
+        print(f"kernel TF32 convs of {site} f32, a CHN+DFPN step: {ms:.4f} ms, floor {floor:.4f} ms "
+              f"({floor / ms:.1%} of it)")
+    return sums
 
 
 def f32_check(name, got, want, planted):
@@ -3604,6 +3783,22 @@ def f32_check(name, got, want, planted):
 def f32_check_groups(name, got, want, planted):
     worst = check_groups(name, got, want, L2_F32, planted=planted or None)
     return max((got[k] - want[k]).abs().max().item() for k in want) if not planted else worst
+
+
+def live_mixer(dfpn):
+    """The correlation mixer packed in f32 with the biases of conv 10 and the
+    three after it at 0, for K7's f32 check. At the seeded weights conv 10's 4
+    channels are below 0 before their ReLU for every input (biases -0.08 to
+    -0.25), so the mixer's output is its tail's biases alone and no fault
+    upstream can show in it; with these 4 biases at 0 the part of the output
+    that its input moves is ~25% of its norm, and the route's work is the
+    same."""
+    from master_thesis_tpu_torch.models.dfpn import _convs
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    convs, relus = _convs(dfpn.corr_mixer.mixer)
+    return conv_stack.pack_stack([(c.weight, torch.zeros_like(c.bias) if i >= 10 else c.bias)
+                                  for i, c in enumerate(convs)], relus, torch.float32)
 
 
 def phase_f32(results, device_line):
@@ -3715,6 +3910,7 @@ def phase_f32(results, device_line):
     dfpn = build_dfpn(base_size=DFPN_BASE, dtype=f32, generator=torch.Generator().manual_seed(SEED + 5))
     vgg = VGGFeatures(dtype=f32, generator=torch.Generator().manual_seed(SEED + 6))
     with torch.inference_mode():
+        tf32_sums = phase_tf32_convs(dfpn, vgg)
         # K7: sep4d's two stages (5 120 tiles) and the mixer (20 tiles).
         p1, p2 = dfpn.corr.conv.packed()
         cs = DFPN_BASE // 16
@@ -3722,7 +3918,7 @@ def phase_f32(results, device_line):
         x1 = rnd(nt7, 1, cs, cs).contiguous(memory_format=torch.channels_last)
         y1 = conv_stack.conv_stack_tiles_cl(x1, p1, swap=True)
         x2 = y1.detach()
-        mix = dfpn.corr_mixer.packed()
+        mix = live_mixer(dfpn)
         xm = rnd(DFPN_B * DFPN_F, cs * cs, cs, cs).contiguous(memory_format=torch.channels_last)
         stacks7 = ((x1, p1, True), (x2, p2, False), (xm, mix, False))
 
@@ -3737,10 +3933,15 @@ def phase_f32(results, device_line):
         def k7_cudnn():
             return [conv_stack.conv_stack_plain(xx, p) for xx, p, _ in stacks7]
 
+        def k7_first():
+            return {f"stage {i}": conv_stack.conv_stack_tiles_cl_f32_first(xx, p, swap=s)
+                    for i, (xx, p, s) in enumerate(stacks7)}
+
         f32_site(results, "K7", "sep4d's two stages and the mixer", k7, k7_plain, k7_cudnn,
                  sum(conv_stack.stack_flops(p, xx.shape[0], cs, cs) for xx, p, _ in stacks7),
                  sum(2 * nbytes(xx) for xx, _, _ in stacks7) + nbytes(y1),
-                 sum(len(p.specs) for _, p, _ in stacks7), f32_check_groups)
+                 sum(len(p.specs) for _, p, _ in stacks7), f32_check_groups, first=k7_first,
+                 routed=[(p, xx.shape[0], cs, cs) for xx, p, _ in stacks7], tf32_faults=tuple(TF32_FAULTS))
         del x1, y1, x2, xm
         # K8: flow_256's and flow_64's segments and VGG's pool-4 tower.
         items = [it for lst in k8_callers(dfpn, vgg, lambda *s: rnd(*s), dtype=f32).values() for it in lst]
@@ -3754,14 +3955,23 @@ def phase_f32(results, device_line):
         def k8_cudnn():
             return [module_stack(cv, rl, xx.permute(0, 3, 1, 2)) for _, _, cv, rl, xx in items]
 
+        def k8_first():
+            return {nm: conv_stack.conv_stack_banded_f32_first(xx, p) for nm, p, _, _, xx in items}
+
         outs8 = k8()
         f32_site(results, "K8", "flow_256 / flow_64 segments and VGG pool-4", k8, k8_plain, k8_cudnn,
                  sum(conv_stack.stack_flops(p, xx.shape[0], xx.shape[1], xx.shape[2]) for _, p, _, _, xx in items),
                  sum(nbytes(xx) + nbytes(outs8[nm]) for nm, _, _, _, xx in items),
-                 sum(len(p.specs) for _, p, _, _, _ in items), f32_check_groups)
+                 sum(len(p.specs) for _, p, _, _, _ in items), f32_check_groups, first=k8_first,
+                 routed=[(p, *xx.shape[:3]) for _, p, _, _, xx in items], tf32_faults=tuple(TF32_FAULTS))
         del items, outs8
+        for site, (ms, floor) in tf32_sums.items():
+            results[f"{site} f32"].update(tf32_convs_ms=ms, tf32_convs_floor_ms=floor)
+        tf32_want = sum(count for *_, count in tf32_conv_items(dfpn, vgg).values())
 
-    counters = f32_counters()
+    # Beside the sites' counters, the 3xTF32 frame kernel's (K7's and K8's
+    # routed convs).
+    counters = {**f32_counters(), "TF32": conv_stack.conv_frame_tf32_cuda}
 
     def counted(fn):
         for c in counters.values():
@@ -3868,9 +4078,13 @@ def phase_f32(results, device_line):
 
     with torch.inference_mode():
         (y_hat, _), counts = counted(lambda: dfpn_step(*inputs))
-        if not torch.isfinite(y_hat).all() or counts["K7"] == 0 or counts["K8"] == 0 or counts["K1"] == 0:
-            raise RuntimeError(f"f32 CHN+DFPN step: launches {counts}, finite {torch.isfinite(y_hat).all()}")
+        if (not torch.isfinite(y_hat).all() or counts["K7"] == 0 or counts["K8"] == 0 or counts["K1"] == 0
+                or counts["TF32"] != tf32_want):
+            raise RuntimeError(f"f32 CHN+DFPN step: launches {counts} (3xTF32 kernel: {tf32_want} expected), "
+                               f"finite {torch.isfinite(y_hat).all()}")
         results["K7 f32"]["launches"], results["K8 f32"]["launches"] = counts["K7"], counts["K8"]
+        for k in ("K7", "K8"):
+            results[f"{k} f32"]["launches_tf32_step"] = counts["TF32"]
         t0 = time.perf_counter()
         for _ in range(3):
             dfpn_step(*inputs)
@@ -3946,7 +4160,9 @@ def main() -> int:
     first = ("first_design_ms", "tiles_ms", "first_ms")
     kernels = [{**{k: r[k] for k in keys}, **{"first_design_ms": r[k] for k in first if k in r},
                 **{k: r[k] for k in ("sources", "launches_hybrid", "hybrid_ms", "launches_dfpn_train",
-                                     "launches_cli", "launches_dist", "cudnn_ms", "tf32x3_ms") if k in r}}
+                                     "launches_cli", "launches_dist", "cudnn_ms", "tf32x3_ms",
+                                     "launches_tf32_step", "tf32_convs_ms", "tf32_convs_floor_ms",
+                                     "bound_f32_ms") if k in r}}
                for _, r in sorted(results.items())]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -27,7 +27,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("rrdb", "tail", "rrdb_bwd", "tail_bwd", "conv_stack", "conv_stack_wgmma", "conv_f32")
+SOURCES = ("rrdb", "tail", "rrdb_bwd", "tail_bwd", "conv_stack", "conv_stack_wgmma", "conv_f32",
+           "conv_frame_tf32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -40,12 +40,18 @@ the fused groups alone. A CUDA tensor goes through the kernels, a CPU
 tensor through the plain version; nothing falls back.
 
 In f32 each entry takes its f32 route (:func:`conv_stack_tiles_f32`,
-:func:`conv_stack_tiles_cl_f32`, :func:`conv_stack_banded_f32`): one
-:func:`.conv_f32.conv_f32_fwd` launch a conv, NHWC, bias and ReLU in its
-epilogue, f32 throughout as the TPU kernel takes it under
-``Precision.HIGHEST``; K7's tiles are the launch's images (each tile's own
-border is its zero padding). :func:`.conv_f32.kernel_route` picks the route
-by the working dtype.
+:func:`conv_stack_tiles_cl_f32`, :func:`conv_stack_banded_f32`): one launch
+a conv, NHWC, bias and ReLU in its epilogue, with f32 accuracy as the TPU
+kernel takes it under ``Precision.HIGHEST``; K7's tiles are the launch's
+frames (each tile's own border is its zero padding). Each conv that
+:func:`is_frame` runs on ``csrc/conv_frame_tf32.cu`` (:func:`conv_frame_tf32_cuda`:
+3xTF32 on ``wgmma`` over whole NHWC frames, the tile of
+:func:`frame_tile_tf32`; sep4d's p <-> q swap in its epilogue), the thin
+convs on :func:`.conv_f32.conv_f32_fwd`. The f32 first design, every conv on
+``conv_f32_fwd``, stays as :func:`conv_stack_tiles_cl_f32_first` and
+:func:`conv_stack_banded_f32_first` for chip_smoke.py alone. On the CPU the
+f32 routes run :func:`.conv_f32.conv_f32_fwd_plain` for every conv.
+:func:`.conv_f32.kernel_route` picks the route by the working dtype.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ import torch.nn.functional as F
 
 from master_thesis_tpu_torch import _build
 from master_thesis_tpu_torch.ops import fragments
-from master_thesis_tpu_torch.ops.conv_f32 import conv_f32_fwd, hwio, kernel_route, nhwc
+from master_thesis_tpu_torch.ops.conv_f32 import conv_f32_fwd, conv_f32_fwd_plain, hwio, kernel_route, nhwc
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block can have on an H100
 MAX_STAGES = 16  # convs per launch (csrc/conv_stack.cu)
@@ -71,6 +77,9 @@ WIDE_SIDE = 16
 # The frame kernel's pixel columns a tile (csrc/conv_frame_wgmma.cuh: two
 # n144 halves) and its widest tile.
 FRAME_COLS, FRAME_TW = 288, 64
+# The 3xTF32 frame kernel's pixel columns a wgmma (csrc/conv_frame_tf32_wgmma.cuh:
+# one or two n144 halves a tile).
+TF32_HALF = 144
 # Tile candidates (rows, cols) of K8's fused groups, largest first.
 BAND_TILES = ((32, 32), (16, 32), (16, 16), (8, 16), (4, 16), (2, 16), (1, 16))
 # The planner's exchange rate: a byte of device memory costs about as much
@@ -100,6 +109,10 @@ class PackedStack(NamedTuple):
     wide: Tuple[Optional[torch.Tensor], ...]
     # Each conv's HWIO kernel for the f32 route (f32 stacks only, else empty).
     hwio: Tuple[torch.Tensor, ...] = ()
+    # The A operands of csrc/conv_frame_tf32.cu (fragments.wgmma_tf32_matrix:
+    # hi then lo) of each conv that :func:`is_frame`, None for the others
+    # (f32 stacks only, else empty).
+    tf32: Tuple[Optional[torch.Tensor], ...] = ()
 
     @property
     def specs(self) -> List[Tuple[int, int, int]]:
@@ -143,6 +156,58 @@ def frame_tile(n: int, h: int, w: int, k: int) -> Tuple[int, int, int]:
     return min(n, (fit - (h - 1)) // (h + k - 1) + 1), h, tw
 
 
+def tf32_smem(fr: int, rows: int, tw: int, k: int, nh: int) -> int:
+    """Shared memory of the 3xTF32 frame kernel at a tile
+    (``csrc/conv_frame_tf32_wgmma.cuh:smem_bytes``): two box stages of hi +
+    lo copies, the 64 KB weight ring, the barriers, and slack where the
+    dropped columns would read past them."""
+    bw, bh = tw + k - 1, rows + k - 1
+    a_tx = fr * bh * bw * 128
+    a_stage = -(-2 * a_tx // 1024) * 1024
+    reach = a_stage + a_tx + (nh * TF32_HALF + (k - 1) * (bw + 1)) * 128
+    return max(2 * a_stage + 2 * 2 * 128 * 128, reach) + 128
+
+
+def _tf32_fits(fr: int, rows: int, tw: int, k: int, nh: int) -> bool:
+    bw, bh = tw + k - 1, rows + k - 1
+    return (((fr - 1) * bh + rows - 1) * bw + tw <= nh * TF32_HALF and max(bw, bh, fr) <= 256
+            and tf32_smem(fr, rows, tw, k, nh) <= SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def frame_tile_tf32(n: int, h: int, w: int, k: int, cout: int) -> Tuple[int, int, int, int]:
+    """The 3xTF32 frame kernel's tile ``(frames, rows, cols, halves)`` for a
+    ``k x k`` conv to ``cout`` outputs over ``n`` frames of ``h x w`` (``128 /
+    halves`` outputs a CTA). Of the column widths 64, 32, 16, 8 (at most
+    ``w``) and one or two n144 halves (two where ``cout`` is not a multiple
+    of 128), each with as many rows as fit the halves' columns and
+    :data:`SMEM_LIMIT`, spread evenly over the frame (or, where a whole frame
+    fits, as many whole frames as fit): the one that computes the fewest
+    columns, each tile's weights counted as half a half more (ties: more
+    halves, then wider)."""
+    best = None
+    for tw in sorted({min(w, t) for t in (64, 32, 16, 8)}, reverse=True):
+        for nh in (1, 2) if cout % 128 == 0 else (2,):
+            rows = 0
+            while rows < h and _tf32_fits(1, rows + 1, tw, k, nh):
+                rows += 1
+            if rows == 0:
+                continue
+            fr = 1
+            if rows < h:
+                rows = -(-h // -(-h // rows))
+            else:
+                while fr < n and _tf32_fits(fr + 1, h, tw, k, nh):
+                    fr += 1
+            tiles = -(-n // fr) * -(-h // rows) * -(-w // tw)
+            key = (tiles * (nh * TF32_HALF + TF32_HALF // 2), -nh, -tw)
+            if best is None or key < best[0]:
+                best = (key, (fr, rows, tw, nh))
+    if best is None:
+        raise ValueError(f"no 3xTF32 frame tile fits a {k}x{k} conv over {h}x{w} frames")
+    return best[1]
+
+
 def conv_matrix(w: torch.Tensor) -> torch.Tensor:
     """OIHW kernel -> the kernel's packed ``(k * k * cin16, O)`` B matrix:
     rows ``(ky, kx, c)`` with each tap's channels zero-padded to a multiple
@@ -173,8 +238,10 @@ def pack_stack(
     b_offs = tuple(itertools.accumulate([b.numel() for b in padded[:-1]], initial=0))
     wide = tuple(fragments.wgmma_wide_matrix(k) if is_frame(_spec(k)) else None for k in kernels)
     f32 = tuple(hwio(k) for k in kernels) if dtype == torch.float32 else ()
+    tf32 = tuple(fragments.wgmma_tf32_matrix(k) if is_frame(_spec(k)) else None
+                 for k in kernels) if dtype == torch.float32 else ()
     return PackedStack(torch.cat(mats).contiguous(), torch.cat(padded).contiguous(), kernels,
-                       biases, tuple(bool(r) for r in relus), w_offs, b_offs, wide, f32)
+                       biases, tuple(bool(r) for r in relus), w_offs, b_offs, wide, f32, tf32)
 
 
 class StackCache:
@@ -653,26 +720,128 @@ def conv_stack_banded_plain(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
     return conv_stack_plain(x.permute(0, 3, 1, 2), p).permute(0, 2, 3, 1).contiguous()
 
 
-def _stack_f32(x: torch.Tensor, p: PackedStack, counter) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _tf32_lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The 3xTF32 frame kernel's library; ``defines`` selects a variant (a
+    planted fault, ``-DTF32_PLANT``, for the checks on the card)."""
+    lib = _build.load("conv_frame_tf32", defines)
+    lib.conv_frame_tf32_forward.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                                            + [ctypes.c_int] * 12 + [ctypes.c_longlong] * 4
+                                            + [ctypes.c_void_p])
+    lib.conv_frame_tf32_forward.restype = ctypes.c_int
+    return lib
+
+
+def _tf32_out(n: int, h: int, w: int, cout: int, swap: bool) -> Tuple[int, int, int, int]:
+    """The 3xTF32 kernel's output addressing ``(tg, sg, st, sp)`` (as
+    :func:`wide_out_strides`): NHWC, or with ``swap`` sep4d's regrouping of
+    square tiles (:func:`swap_tiles`): tile ``hw g + t``'s pixel q at tile
+    ``hw g + q``'s pixel t, ``hw = h * w``."""
+    if not swap:
+        return n, 0, h * w * cout, cout
+    hw = h * w
+    if h != w or n % hw:
+        raise ValueError(f"swap regroups square tiles by their pixel count; got {n} of {h}x{w}")
+    return hw, hw * hw * cout, cout, hw * cout
+
+
+def conv_frame_tf32_cuda(x: torch.Tensor, p: PackedStack, i: int, swap: bool = False) -> torch.Tensor:
+    """Conv ``i`` of the f32 stack ``p`` (one that :func:`is_frame`) on
+    contiguous NHWC ``(N, H, W, Cin)`` f32 frames, zero-padded at the frame's
+    border: one launch of ``csrc/conv_frame_tf32.cu`` (3xTF32 on ``wgmma``)
+    over the tiles of :func:`frame_tile_tf32`. Returns NHWC ``(N, H, W,
+    Cout)``; with ``swap`` (square frames, N a multiple of their pixel count)
+    regrouped as :func:`swap_tiles` regroups tiles, by the epilogue's store
+    addresses.
+    Other strides, dtypes and a conv without its packed operand are
+    refused."""
+    k, ci, co = p.specs[i]
+    if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous NHWC (N, H, W, C) float32 CUDA tensor")
+    if x.shape[3] != ci:
+        raise ValueError(f"x has {x.shape[3]} channels, conv {i} takes {ci}")
+    mat = p.tf32[i] if p.tf32 else None
+    if mat is None:
+        raise ValueError(f"conv {i} {p.specs[i]} is not a frame conv of a stack packed in float32")
+    if mat.device != x.device or p.b.device != x.device:
+        raise ValueError("the stack must be packed on x's device")
+    n, h, w, _ = x.shape
+    fr, rows, tw, nh = frame_tile_tf32(n, h, w, k, co)
+    tg, sg, st, sp = _tf32_out(n, h, w, co, swap)
+    out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
+    lib = _tf32_lib()
+    rc = lib.conv_frame_tf32_forward(x.data_ptr(), mat.data_ptr(), p.b.data_ptr() + 4 * p.b_offs[i],
+                                     out.data_ptr(), mat.numel() // 2, n, h, w, ci, co,
+                                     mat.numel() // (2 * k * k * ci), k, int(p.relus[i]), fr, rows,
+                                     tw, nh, tg, sg, st, sp,
+                                     torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "conv_frame_tf32_forward")
+    conv_frame_tf32_cuda.launches += 1
+    return out
+
+
+conv_frame_tf32_cuda.launches = 0
+
+
+def conv_frame_tf32_plain(x: torch.Tensor, p: PackedStack, i: int, swap: bool = False) -> torch.Tensor:
+    """The plain version of :func:`conv_frame_tf32_cuda` on any device: conv
+    ``i`` in f32 (:func:`.conv_f32.conv_f32_fwd_plain`), regrouped with
+    ``swap``."""
+    k, _, co = p.specs[i]
+    n, h, w, _ = x.shape
+    out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
+    y = conv_f32_fwd_plain(x, p.hwio[i], out, bias=p.biases[i].contiguous(), k=k,
+                           epi="relu" if p.relus[i] else "none")
+    if swap:
+        _tf32_out(n, h, w, co, True)
+        y = swap_tiles(y.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    return y
+
+
+def _stack_f32(x: torch.Tensor, p: PackedStack, counter, tf32: bool = True,
+               swap: bool = False) -> torch.Tensor:
     """The stack's f32 route on NHWC ``(N, H, W, Cin)`` f32 (any strides
-    with contiguous channels): one :func:`.conv_f32.conv_f32_fwd` a conv,
-    NHWC between them; launches count in ``counter.launches``."""
+    with contiguous channels): off the CPU each conv of :func:`f32_plan`'s
+    ``"tf32"`` one :func:`conv_frame_tf32_cuda` (with ``tf32``; the last one
+    regrouping with ``swap``), each other conv one
+    :func:`.conv_f32.conv_f32_fwd`, NHWC between them, the launches counted
+    in ``counter.launches``; on the CPU every conv
+    :func:`.conv_f32.conv_f32_fwd`'s plain version. Returns the NHWC result.
+    ``swap`` is refused on the CPU and where the last conv does not run on
+    the 3xTF32 kernel."""
     if x.dtype != torch.float32 or x.dim() != 4 or x.shape[3] != p.specs[0][1]:
         raise ValueError(f"x must be f32 NHWC with {p.specs[0][1]} channels, got {tuple(x.shape)} {x.dtype}")
     if not p.hwio or p.hwio[0].device != x.device:
         raise ValueError("the stack must be packed in float32 on x's device")
     n, h, w, _ = x.shape
-    for (k, _, co), wk, b, relu in zip(p.specs, p.hwio, p.biases, p.relus):
-        out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
-        x = conv_f32_fwd(x, wk, out, bias=b.contiguous(), k=k, epi="relu" if relu else "none")
-    if x.is_cuda:
+    kernels = x.device.type != "cpu"
+    kinds = f32_plan(p) if tf32 else ("simt",) * len(p.specs)
+    if swap and not (kernels and kinds[-1] == "tf32"):
+        raise ValueError(f"the swap is the 3xTF32 kernel's epilogue; conv {len(kinds) - 1} "
+                         f"{p.specs[-1]} on {x.device} does not run on it")
+    for i, kind in enumerate(kinds):
+        k, _, co = p.specs[i]
+        if kernels and kind == "tf32":
+            x = conv_frame_tf32_cuda(x.contiguous(), p, i, swap and i == len(p.specs) - 1)
+        else:
+            out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
+            x = conv_f32_fwd(x, p.hwio[i], out, bias=p.biases[i].contiguous(), k=k,
+                             epi="relu" if p.relus[i] else "none")
+    if kernels:
         counter.launches += len(p.specs)
     return x
 
 
+def f32_plan(p: PackedStack) -> Tuple[str, ...]:
+    """The kernel of each conv of the f32 stack ``p`` on the card:
+    ``"tf32"`` (:func:`conv_frame_tf32_cuda`) for a conv that :func:`is_frame`,
+    ``"simt"`` (:func:`.conv_f32.conv_f32_fwd`) for the others."""
+    return tuple("simt" if m is None else "tf32" for m in p.tf32)
+
+
 def conv_stack_tiles_f32(x: torch.Tensor, p: PackedStack, tile_side: int) -> torch.Tensor:
     """K7's f32 route on channel-major ``(NT, Cin, tile_side**2)``: the
-    tiles as NHWC images, one launch a conv (``conv_stack_tiles_f32.launches``,
+    tiles as NHWC frames, one launch a conv (``conv_stack_tiles_f32.launches``,
     which counts both K7 entries' f32 launches)."""
     nt, cin, hw = x.shape
     if hw != tile_side * tile_side:
@@ -687,10 +856,24 @@ conv_stack_tiles_f32.launches = 0
 
 def conv_stack_tiles_cl_f32(x: torch.Tensor, p: PackedStack, swap: bool = False) -> torch.Tensor:
     """K7's f32 route on ``(NT, Cin, side, side)`` tiles (channels-last, or
-    copied so once): channels-last output, regrouped by one permute with
-    ``swap`` (:func:`swap_tiles`)."""
-    y = _stack_f32(nhwc(x), p, conv_stack_tiles_f32).permute(0, 3, 1, 2)
+    copied so once): channels-last output, regrouped with ``swap`` on the card
+    by the last conv's epilogue (:func:`_tf32_out` refuses a shape it cannot
+    regroup), on the CPU by one permute (:func:`swap_tiles`)."""
+    if x.device.type == "cpu":
+        y = _stack_f32(nhwc(x), p, conv_stack_tiles_f32).permute(0, 3, 1, 2)
+        return swap_tiles(y) if swap else y
+    return _stack_f32(nhwc(x), p, conv_stack_tiles_f32, swap=swap).permute(0, 3, 1, 2)
+
+
+def conv_stack_tiles_cl_f32_first(x: torch.Tensor, p: PackedStack, swap: bool = False) -> torch.Tensor:
+    """K7's f32 first design: :func:`conv_stack_tiles_cl_f32` with every conv
+    on :func:`.conv_f32.conv_f32_fwd` and the swap by one permute (the
+    yardstick chip_smoke.py times the route against; no path calls it)."""
+    y = _stack_f32(nhwc(x), p, conv_stack_tiles_cl_f32_first, tf32=False).permute(0, 3, 1, 2)
     return swap_tiles(y) if swap else y
+
+
+conv_stack_tiles_cl_f32_first.launches = 0
 
 
 def conv_stack_banded_f32(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
@@ -700,6 +883,16 @@ def conv_stack_banded_f32(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
 
 
 conv_stack_banded_f32.launches = 0
+
+
+def conv_stack_banded_f32_first(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
+    """K8's f32 first design: every conv on :func:`.conv_f32.conv_f32_fwd`
+    (the yardstick chip_smoke.py times the route against; no path calls
+    it)."""
+    return _stack_f32(x, p, conv_stack_banded_f32_first, tf32=False)
+
+
+conv_stack_banded_f32_first.launches = 0
 
 
 def _f32(x: torch.Tensor) -> bool:

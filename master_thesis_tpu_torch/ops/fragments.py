@@ -5,7 +5,8 @@
 :func:`wgmma_phase_adjoint_matrix` for ``csrc/tail_bwd_wgmma.cuh``,
 :func:`wgmma_pull_matrix` for ``csrc/conv_bwd_wgmma.cuh``,
 :func:`wgmma_wide_matrix` for ``csrc/conv3x3_wide_wgmma.cuh`` and
-``csrc/conv_frame_wgmma.cuh``).
+``csrc/conv_frame_wgmma.cuh``, :func:`wgmma_tf32_matrix` for
+``csrc/conv_frame_tf32_wgmma.cuh``).
 
 A conv's weights form a row-major ``(K, N)`` matrix, rows ordered
 ``(tap, input channel)``. It is zero-padded to multiples of 16 and stored
@@ -112,6 +113,46 @@ def wgmma_wide_matrix(w: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(op, device=w.device).view(op, 1)
     pos = torch.arange(8, device=w.device).view(1, 8)
     return blocks[:, :, rows, pos ^ (rows % 8)].reshape(-1)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits; to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``), as f32 with the low 13 bits zero:
+    ``csrc/conv_frame_tf32_wgmma.cuh:tf32_rna``, bit for bit."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of the 3xTF32 product: ``hi = tf32(x)``, ``lo = tf32(x -
+    hi)`` (``x - hi`` is exact in f32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def wgmma_tf32_matrix(w: torch.Tensor) -> torch.Tensor:
+    """A 3x3 or 5x5 conv's OIHW kernel as the A operands of
+    ``csrc/conv_frame_tf32_wgmma.cuh`` (the swapped GEMM in 3xTF32: M =
+    outputs, K = (tap, input channel)): its hi matrix, then its lo matrix
+    (:func:`tf32_split`), each in the layout of :func:`wgmma_wide_matrix`
+    with 32 f32 channels a 128-byte row: outputs zero-padded to a multiple of
+    128, index order ``(c // 32, tap, o, 32 channels)``, 16-byte chunk ``j``
+    of row ``o`` at position ``j ^ o % 8``. The lo matrix starts at half the
+    length."""
+    o, c, k = w.shape[0], w.shape[1], w.shape[-1]
+    if c % 32 or o % 64 or k not in (3, 5) or w.shape[2] != k:
+        raise ValueError("the tf32 layout needs a 3x3 or 5x5 kernel with Cin % 32 == 0 and "
+                         f"Cout % 64 == 0, got {tuple(w.shape)}")
+    op = -(-o // 128) * 128
+    w = torch.nn.functional.pad(w.float(), (0, 0, 0, 0, 0, 0, 0, op - o))
+    rows = torch.arange(op, device=w.device).view(op, 1)
+    pos = torch.arange(8, device=w.device).view(1, 8)
+
+    def layout(m):
+        blocks = m.reshape(op, c // 32, 8, 4, k * k).permute(1, 4, 0, 2, 3)  # (chunk, tap, o, j, c % 4)
+        return blocks[:, :, rows, pos ^ (rows % 8)].reshape(-1)
+
+    return torch.cat([layout(part) for part in tf32_split(w)])
 
 
 def wgmma_phase_matrix(fused: torch.Tensor) -> torch.Tensor:

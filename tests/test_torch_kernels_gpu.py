@@ -909,3 +909,95 @@ def test_f32_routes_take_f32_card_tensors(cuda):
     with pytest.raises(ValueError, match="--use_pallas false"):
         rrdb.rdb(x.half(), p)
     assert conv_f32.conv_f32_fwd_cuda.launches > 0
+
+
+# K7's and K8's f32 convs on the 3xTF32 frame kernel (csrc/conv_frame_tf32.cu):
+# 3x3 and 5x5, ragged frames, whole frames stacked, Cout 64 (two halves of
+# 64 outputs a CTA) and 128+, sep4d's swap. Limit: chip_smoke.py's f32
+# relative L2 (one TF32 product alone reads ~3e-4).
+TF32_L2 = 1e-5
+
+
+def _tf32_stack(rng, cin, cout, k, relu, cuda):
+    w = torch.from_numpy((rng.randn(cout, cin, k, k) * (1.0 / (k * k * cin)) ** 0.5).astype(np.float32))
+    b = torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32))
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    return conv_stack.pack_stack([(w.to(cuda), b.to(cuda))], [relu], torch.float32)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k,relu,swap", [
+    (3, 40, 72, 64, 64, 3, True, False),  # ragged rows and columns, 64 outputs
+    (2, 64, 64, 128, 128, 5, True, False),  # 5x5 on one half, 128 outputs a CTA
+    (1, 37, 45, 64, 128, 5, False, False),  # ragged 5x5, two 32-channel chunks
+    (5, 8, 8, 128, 128, 3, True, False),  # three whole frames a tile, a ragged last group
+    (3, 8, 8, 64, 64, 5, False, False),  # two whole frames a tile
+    (2, 32, 32, 256, 512, 3, True, False),  # VGG block 4's widths
+    (512, 16, 16, 256, 256, 3, False, True),  # sep4d stage 1's last conv, the swap in the epilogue
+    (128, 8, 8, 256, 256, 3, False, True),  # the same at base 128's 8x8 tiles
+])
+def test_conv_frame_tf32_kernel_matches_plain(cuda, n, h, w, cin, cout, k, relu, swap):
+    """The 3xTF32 frame kernel, one launch, against the plain f32 conv (TF32
+    off), within TF32_L2; a rerun is bit-identical."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    rng = np.random.RandomState(21)
+    p = _tf32_stack(rng, cin, cout, k, relu, cuda)
+    x = torch.from_numpy(rng.randn(n, h, w, cin).astype(np.float32)).to(cuda)
+    before = conv_stack.conv_frame_tf32_cuda.launches
+    got = conv_stack.conv_frame_tf32_cuda(x, p, 0, swap)
+    again = conv_stack.conv_frame_tf32_cuda(x, p, 0, swap)
+    torch.cuda.synchronize()
+    assert conv_stack.conv_frame_tf32_cuda.launches == before + 2
+    want = conv_stack.conv_frame_tf32_plain(x, p, 0, swap)
+    assert got.shape == want.shape and _rel_l2(got, want) <= TF32_L2
+    assert torch.equal(got, again)
+
+
+def test_f32_stack_routes_the_frame_convs_to_the_tf32_kernel(cuda):
+    """A K8 stack in f32 on the card: its 64 -> 64 conv on the 3xTF32 kernel,
+    its 64 -> 2 on conv_f32_fwd, one launch each, within TF32_L2 of the plain
+    version; the first design (conv_f32_fwd alone) agrees."""
+    from master_thesis_tpu_torch.ops import conv_f32, conv_stack
+
+    rng = np.random.RandomState(22)
+    w1, b1 = _conv(rng, 64, 64, 0.05)
+    w2, b2 = _conv(rng, 64, 2, 0.05)
+    p = conv_stack.pack_stack([(w1.to(cuda), b1.to(cuda)), (w2.to(cuda), b2.to(cuda))], [True, False],
+                              torch.float32)
+    x = torch.from_numpy(rng.randn(2, 24, 40, 64).astype(np.float32)).to(cuda)
+    tf, simt = conv_stack.conv_frame_tf32_cuda.launches, conv_f32.conv_f32_fwd_cuda.launches
+    got = conv_stack.conv_stack_banded(x, p)
+    torch.cuda.synchronize()
+    assert conv_stack.conv_frame_tf32_cuda.launches == tf + 1
+    assert conv_f32.conv_f32_fwd_cuda.launches == simt + 1
+    want = conv_stack.conv_stack_banded_plain(x, p)
+    assert _rel_l2(got, want) <= TF32_L2
+    assert _rel_l2(conv_stack.conv_stack_banded_f32_first(x, p), want) <= TF32_L2
+
+
+def test_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """bf16 frames, NCHW strides, a thin conv, a stack packed in bf16, a
+    swap of anything but whole groups of square tiles and a swap whose last
+    conv is thin raise: nothing falls back."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    rng = np.random.RandomState(23)
+    w1, b1 = _conv(rng, 64, 64, 0.05)
+    w2, b2 = _conv(rng, 64, 8, 0.05)
+    convs = [(w1.to(cuda), b1.to(cuda)), (w2.to(cuda), b2.to(cuda))]
+    p = conv_stack.pack_stack(convs, [True, False], torch.float32)
+    x = torch.zeros(2, 16, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        conv_stack.conv_frame_tf32_cuda(x.bfloat16(), p, 0)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        conv_stack.conv_frame_tf32_cuda(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), p, 0)
+    with pytest.raises(ValueError, match="not a frame conv"):
+        conv_stack.conv_frame_tf32_cuda(x, p, 1)
+    with pytest.raises(ValueError, match="not a frame conv"):
+        conv_stack.conv_frame_tf32_cuda(x, conv_stack.pack_stack(convs, [True, False], torch.bfloat16), 0)
+    with pytest.raises(ValueError, match="regroups"):
+        conv_stack.conv_frame_tf32_cuda(x, p, 0, swap=True)
+    tiles = torch.zeros(256, 64, 16, 16, device=cuda).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="epilogue"):
+        conv_stack.conv_stack_tiles_cl_f32(tiles, p, swap=True)
