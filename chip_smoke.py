@@ -195,35 +195,43 @@ Phases, each fatal on failure:
    rank 1 keeping its own grads, which must be caught. Two ranks on one
    card check correctness, not scaling;
 14. f32 (run after phase 11, before the CLI; ``csrc/conv_f32.cu``, and
-   for K7's and K8's 64-multiple convs the 3xTF32 frame kernel
-   ``csrc/conv_frame_tf32.cu``; TF32 off): first that kernel alone on every
-   shape the f32 CHN+DFPN step gives it (sep4d's four wide convs at 5 120
-   tiles, stage 1's last with the swap in its epilogue; the mixer's
-   256 -> 256 5x5 and 3x3; flow_256's and flow_64's 128-channel convs;
-   VGG's 64 -> 64 .. 512 -> 512 at 4 and 20 frames) against its plain f32
-   version (limit 1e-5), a rerun bit-identical, each fault compiled in with
-   ``-DTF32_PLANT`` (the two correction products dropped, the corner tap
-   left out, each tile's top halo row read as zeros where a frame has
-   several row tiles) caught, its time beside its floor (3 x FLOPs at 495
-   TFLOP/s), the f32 bound, the SIMT kernel and one cuDNN ``F.conv2d``;
+   the 3xTF32 kernel ``csrc/conv_frame_tf32.cu`` for K7's and K8's
+   64-multiple convs and for K4's / K5's four tail stages; TF32 off): first
+   that kernel alone on every shape the f32 CHN+DFPN step gives it (sep4d's
+   four wide convs at 5 120 tiles, stage 1's last with the swap in its
+   epilogue; the mixer's 256 -> 256 5x5 and 3x3; flow_256's and flow_64's
+   128-channel convs; VGG's 64 -> 64 .. 512 -> 512 at 4 and 20 frames)
+   against its plain f32 version (limit 1e-5), a rerun bit-identical, each
+   fault compiled in with ``-DTF32_PLANT`` that applies (the two correction
+   products dropped, the corner tap left out, each tile's top halo row read
+   as zeros where a frame has several row tiles; a row window's first input
+   row read as zeros, K5's) caught, its time beside its floor (3 x FLOPs at
+   495 TFLOP/s), the f32 bound, the SIMT kernel and one cuDNN ``F.conv2d``;
    then each site's f32 route at its main-path shapes (K1 / K4
    80x64x64, K3 / K6 8x64x64, K2 / K5 8x128x256 in bands, K7 sep4d's two
    stages and the mixer, K8 its three callers)
    against its plain f32 version by relative L2 (limit 1e-5; the backward
    checks' plain versions sum in f64 over the route's own activations),
-   each check read on two faults compiled in with ``-DF32_PLANT`` (tap
-   (0, 0) dropped; the channel slice read one group of 8 off), and K7's and
-   K8's also on the three ``-DTF32_PLANT`` faults, which must be caught;
+   each check read on the faults that apply to its kernels: two compiled
+   into conv_f32.cu with ``-DF32_PLANT`` (tap (0, 0) dropped; the channel
+   slice read one group of 8 off) where a route launches it, the
+   ``-DTF32_PLANT`` ones where it launches the 3xTF32 kernel (K4, K6, K7, K8
+   1-3; K5 1-4), which must be caught;
    each route's device time with its launch count beside its
-   bound at 67 TFLOP/s, the 3 x TF32 figure, the plain version, the cuDNN
+   bound (at 67 TFLOP/s; K4, K5, K7, K8 from their routed convs, the bound at
+   67 TFLOP/s beside it), the 3 x TF32 figure, the plain version, the cuDNN
    route and the library yardstick (one ``F.conv2d`` / ``conv2d_weight``
-   a launch); K7's and K8's beside their f32 first design (every conv on
-   the SIMT kernel), each fatal unless faster; the f32 CPN serving step (B=4, F=5, 256x256, nb 20) against
-   its plain routes, profiled; the f32 CHN train step (B=8, frames_n 2),
-   its grads against the plain backward versions from the same forward
-   (limit 1e-4), 3 steps after 1; a CHN+DFPN step on every kernel route in
-   f32 (the 3xTF32 kernel's launches held to the routed convs' count); each
-   f32 route's launches.
+   a launch; an upsample-conv at the upsampled size); K4's, K5's, K7's and
+   K8's beside their f32 first design (every conv on the SIMT kernel), each
+   fatal unless faster; K5 equal to K4 bit for bit on one input; K4's four
+   stages alone at 80x64x64 and one K5 band's four launches against their
+   plain versions, rerun and faults, each beside its floor, the SIMT kernel
+   and one cuDNN ``F.conv2d``; the f32 CPN serving step (B=4, F=5,
+   256x256, nb 20) against its plain routes, profiled; the f32 CHN train
+   step (B=8, frames_n 2), its grads against the plain backward versions
+   from the same forward (limit 1e-4), 3 steps after 1; a CHN+DFPN step on
+   every kernel route in f32 (the 3xTF32 kernel's launches held to the
+   routed convs' count and the tail's four); each f32 route's launches.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card or
@@ -235,6 +243,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3427,18 +3436,41 @@ F32_REPLACES = {
     "K5": "master_thesis_tpu/ops/pallas_tail.py:292", "K6": "master_thesis_tpu/ops/pallas_tail.py:732",
     "K7": "master_thesis_tpu/ops/pallas_sep4d.py:192", "K8": "master_thesis_tpu/ops/pallas_sep4d.py:316",
 }
-KERNELS_F32 = r"\bcf::"
 # The faults compiled into csrc/conv_f32.cu with -DF32_PLANT=n.
 F32_FAULTS = {1: "tap (0, 0) dropped", 2: "channel slice read one group of 8 channels off"}
-# K7's and K8's f32 routes: the 3xTF32 frame kernel (csrc/conv_frame_tf32.cu)
-# for the 64-multiple convs, conv_f32.cu's SIMT kernel for the thin ones; the
-# faults compiled into the former with -DTF32_PLANT=n.
-KERNELS_F32_K78 = r"\b(cf|ft)::"
-TF32_SOURCES = ["master_thesis_tpu_torch/csrc/conv_frame_tf32.cu",
-                "master_thesis_tpu_torch/csrc/conv_frame_tf32_wgmma.cuh",
-                "master_thesis_tpu_torch/csrc/conv_f32.cu"]
-TF32_FAULTS = {1: "the two correction products dropped (1xTF32)", 2: "corner tap (-r, -r) left out",
-               3: "each tile's top halo row read as zeros"}
+# The faults compiled into the 3xTF32 kernel (csrc/conv_frame_tf32.cu) with
+# -DTF32_PLANT=n; a launch over whole frames can show the first three (the
+# fourth needs a row window with x_row0 > 0: K5's bands).
+TF32_FAULTS = {1: "the two correction products dropped (1xTF32)",
+               2: "corner tap (-r, -r) left out (phase mode: each phase's tap (0, 0))",
+               3: "each tile's top halo row read as zeros",
+               4: "a row window's first input row read as zeros (a band's halo row)"}
+TF32_FRAME_FAULTS = (1, 2, 3)
+F32_SOURCES = ["master_thesis_tpu_torch/csrc/conv_f32.cu"]
+TF32_TAIL_SOURCES = ["master_thesis_tpu_torch/csrc/conv_frame_tf32.cu",
+                     "master_thesis_tpu_torch/csrc/conv_frame_tf32_wgmma.cuh"]
+TF32_SOURCES = TF32_TAIL_SOURCES + F32_SOURCES
+# Each f32 route by the kernels it launches: the profiler's pattern for
+# their names, a label, their source files (the first is the row's
+# ``source``), whether conv_f32.cu's two faults can show on it, and the
+# 3xTF32 faults that can. The SIMT kernel alone (K1, K2, K3); the 3xTF32
+# kernel for K7's and K8's 64-multiple convs and the SIMT kernel for the thin
+# ones; the 3xTF32 kernel alone (K4, K5: the upconvs in phase mode, hr_conv
+# in conv mode, conv_last in last mode); K6, the SIMT kernel with the
+# recompute on the 3xTF32 kernel.
+F32_ROUTES = {
+    "simt": SimpleNamespace(kernels=r"\bcf::", label="conv_f32_fwd / conv_f32_wgrad", sources=F32_SOURCES,
+                            simt_faults=True, tf32_faults=()),
+    "tf32+simt": SimpleNamespace(kernels=r"\b(cf|ft)::", label="3xTF32 wgmma frame kernel + conv_f32_fwd",
+                                 sources=TF32_SOURCES, simt_faults=True, tf32_faults=TF32_FRAME_FAULTS),
+    "tail": SimpleNamespace(kernels=r"\bft::", label="3xTF32 wgmma kernel: upconvs in phase mode, hr_conv in "
+                            "conv mode, conv_last in last mode", sources=TF32_TAIL_SOURCES, simt_faults=False,
+                            tf32_faults=TF32_FRAME_FAULTS),
+    "simt+tail": SimpleNamespace(kernels=r"\b(cf|ft)::", label="conv_f32_fwd / conv_f32_wgrad, the recompute on "
+                                 "the 3xTF32 kernel", sources=F32_SOURCES + TF32_TAIL_SOURCES, simt_faults=True,
+                                 tf32_faults=TF32_FRAME_FAULTS),
+}
+F32_ROUTES["tail in bands"] = SimpleNamespace(**{**vars(F32_ROUTES["tail"]), "tf32_faults": tuple(TF32_FAULTS)})
 
 
 def f32_counters():
@@ -3462,17 +3494,18 @@ def tf32_off():
 
 @contextlib.contextmanager
 def f32_plain_convs():
-    """Within: the f32 routes' two kernels run their plain versions on card
-    tensors (the routes' own code around them stays): the plain routes."""
-    from master_thesis_tpu_torch.ops import conv_f32
+    """Within: the f32 routes' kernels (the SIMT kernels, the tail's 3xTF32
+    stages) run their plain versions on card tensors (the routes' own code
+    around them stays): the plain routes."""
+    from master_thesis_tpu_torch.ops import conv_f32, tail
 
-    orig = conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda
-    conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = (conv_f32.conv_f32_fwd_plain,
-                                                                conv_f32.conv_f32_wgrad_plain)
+    orig = conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda, tail.tail_stage_tf32_cuda
+    conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda, tail.tail_stage_tf32_cuda = (
+        conv_f32.conv_f32_fwd_plain, conv_f32.conv_f32_wgrad_plain, tail.tail_stage_tf32_plain)
     try:
         yield
     finally:
-        conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = orig
+        conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda, tail.tail_stage_tf32_cuda = orig
 
 
 @contextlib.contextmanager
@@ -3540,11 +3573,11 @@ def f32_library_ms(fn):
     TF32 off, channels-last, timed alone and summed."""
     import torch.nn.functional as F
 
-    from master_thesis_tpu_torch.ops import conv_f32, conv_stack
+    from master_thesis_tpu_torch.ops import conv_f32, conv_stack, tail
 
     shapes = {}
     orig = conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda
-    orig_tf32 = conv_stack.conv_frame_tf32_cuda
+    orig_tf32, orig_tail = conv_stack.conv_frame_tf32_cuda, tail.tail_stage_tf32_cuda
 
     def fwd(x, w, out, **kw):
         g = conv_f32.geometry(x, w, out, k=kw.get("k", 3), up=kw.get("up", False),
@@ -3566,17 +3599,24 @@ def f32_library_ms(fn):
         shapes[key] = shapes.get(key, 0) + 1
         return orig_tf32(x, p, i, swap)
 
+    def tail_stage(k, x, p, out, **window):  # an upsample-conv: the conv at the upsampled size
+        s = 2 if k < 2 else 1
+        r0, r1 = window.get("rows") or (0, s * (window.get("hin") or x.shape[1]))
+        key = ("fwd", x.shape[0], x.shape[3], out.shape[3], r1 - r0, out.shape[2], 3)
+        shapes[key] = shapes.get(key, 0) + 1
+        return orig_tail(k, x, p, out, **window)
+
     # The wrapped kernels count their launches on the wrappers in their
     # place, and hand the counts back.
     fwd.launches, wgrad.launches, tf32.launches = (orig[0].launches, orig[1].launches,
                                                    orig_tf32.launches)
     conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = fwd, wgrad
-    conv_stack.conv_frame_tf32_cuda = tf32
+    conv_stack.conv_frame_tf32_cuda, tail.tail_stage_tf32_cuda = tf32, tail_stage
     try:
         fn()
     finally:
         conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = orig
-        conv_stack.conv_frame_tf32_cuda = orig_tf32
+        conv_stack.conv_frame_tf32_cuda, tail.tail_stage_tf32_cuda = orig_tf32, orig_tail
         orig[0].launches, orig[1].launches, orig_tf32.launches = (fwd.launches, wgrad.launches,
                                                                   tf32.launches)
     total = 0.0
@@ -3609,39 +3649,66 @@ def tail_cudnn(y, p, leaves=None):
     return F.conv2d(y, *convs[3], padding=1)
 
 
-def routed_ops_s(routed):
-    """The least time of the operations of K7's or K8's f32 route: over
-    ``routed``, ``(packed stack, frames, h, w)`` of each stack it runs, each
-    conv that :func:`conv_stack.f32_plan` sends to the 3xTF32 kernel at three
-    tf32 products a FLOP on the tensor cores, each other conv at the f32
-    rate outside them."""
+def routed_bound(routed, nbytes_):
+    """K7's or K8's routed bound, ``(seconds, bound_by)``: the larger of
+    ``nbytes_`` at 3.35 TB/s and the least time of the route's operations,
+    over ``routed``, ``(packed stack, frames, h, w)`` of each stack it runs,
+    each conv that :func:`conv_stack.f32_plan` sends to the 3xTF32 kernel at
+    three tf32 products a FLOP on the tensor cores, each other conv at the
+    f32 rate outside them."""
     from master_thesis_tpu_torch.ops import conv_stack
 
-    t = 0.0
+    t_ops = 0.0
     for p, n, h, w in routed:
         for (k, ci, co), kind in zip(p.specs, conv_stack.f32_plan(p)):
             flops = 2 * n * h * w * ci * co * k * k
-            t += 3 * flops / PEAK_TF32_FLOPS if kind == "tf32" else flops / PEAK_F32_FLOPS
-    return t
+            t_ops += 3 * flops / PEAK_TF32_FLOPS if kind == "tf32" else flops / PEAK_F32_FLOPS
+    t_bytes = nbytes_ / PEAK_BYTES
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, check_fn, first=None,
-             routed=None, tf32_faults=()):
-    """One site's f32 route: its check against the plain version (and on
-    both planted faults of conv_f32.cu, and on the faults ``tf32_faults`` of
-    the 3xTF32 frame kernel), then its device time with its launch count,
-    the bound, the 3 x TF32 figure, the plain version, the cuDNN route and the
-    library yardstick. ``first`` (K7, K8): the f32 first design, every conv
-    on conv_f32.cu, checked and timed beside the route, which must be faster;
-    ``routed`` (with it): the route's stacks for :func:`routed_ops_s`, whose
-    time sets the bound (the bound at 67 TFLOP/s kept as ``bound_f32_ms``).
-    Returns the route's output."""
+def tail_stage_floor(k, n, h, w):
+    """Stage ``k``'s floor on the 3xTF32 kernel, for a tail of an ``(n, 64,
+    h, w)`` f32 input: ``(seconds, bound_by, FLOPs)``, the larger of 3 x its
+    FLOPs (the upsample-convs in their 4-phase form) at 495 TFLOP/s and its
+    input and output at 3.35 TB/s (``tail.tail_stage_cost``)."""
+    from master_thesis_tpu_torch.ops import tail
+
+    flops, nbytes_ = tail.tail_stage_cost(k, n, h, w, itemsize=4)
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes_ / PEAK_BYTES
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def tail_bound(n, h, w):
+    """K4's or K5's routed bound, ``(seconds, bound_by)``: the sum of the four
+    stages' floors (:func:`tail_stage_floor`), which run one after another;
+    bound by what bounds the stages that make up most of it."""
+    by_limit = {"operations": 0.0, "bytes": 0.0}
+    for k in range(4):
+        t, by, _ = tail_stage_floor(k, n, h, w)
+        by_limit[by] += t
+    return sum(by_limit.values()), max(by_limit, key=by_limit.get)
+
+
+def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, check_fn, kind="simt",
+             first=None, routed=None):
+    """One site's f32 route, whose kernels are ``F32_ROUTES[kind]``: its check
+    against the plain version and on each planted fault that can show on
+    those kernels, then its device time with its launch count (the kernels
+    whose names match the route's pattern), the bound, the 3 x TF32 figure,
+    the plain version, the cuDNN route and the library yardstick. ``first``
+    (K4, K5, K7, K8): the f32 first design, every conv on conv_f32.cu,
+    checked and timed beside the route, which must be faster; ``routed``
+    (with it): the route's bound, ``(seconds, bound_by)`` from
+    :func:`routed_bound` or :func:`tail_bound` (the bound at 67 TFLOP/s kept
+    as ``bound_f32_ms``). Returns the route's output."""
+    kind = F32_ROUTES[kind]
     got, want = route(), plain()
     err = check_fn(f"{key} f32 {name}", got, want, None)
-    for fault, label in F32_FAULTS.items():
+    for fault, flabel in F32_FAULTS.items() if kind.simt_faults else ():
         with planted_f32(fault):
-            check_fn(f"{key} f32 {name}", route(), want, label)
-    for fault in tf32_faults:
+            check_fn(f"{key} f32 {name}", route(), want, flabel)
+    for fault in kind.tf32_faults:
         with planted_tf32(fault):
             check_fn(f"{key} f32 {name}", route(), want, f"3xTF32 kernel: {TF32_FAULTS[fault]}")
     if first is not None:
@@ -3652,34 +3719,33 @@ def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, 
     # f32 kernels, which late in this process falls a few short of the
     # launches (114 of 120 in three readings running on K2).
     ms = cuda_ms(route, iters=3, warmup=1)
-    dev_ms, counted = device_ms(route, iters=1, kernels=KERNELS_F32 if first is None else KERNELS_F32_K78)
+    dev_ms, counted = device_ms(route, iters=1, kernels=kind.kernels)
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     cudnn_ms = cuda_ms(cudnn, iters=3, warmup=1)
     lib_ms = f32_library_ms(route)
     first_ms = cuda_ms(first, iters=3, warmup=1) if first is not None else None
     t_f32, t_bytes = flops / PEAK_F32_FLOPS, nbytes_ / PEAK_BYTES
-    t_ops = t_f32 if routed is None else routed_ops_s(routed)
-    b_ms, b_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
     f32_bound = 1e3 * max(t_f32, t_bytes)
+    if routed is None:
+        b_ms, b_by = f32_bound, ("operations" if t_f32 >= t_bytes else "bytes")
+    else:
+        b_ms, b_by = 1e3 * routed[0], routed[1]
     tf32 = 1e3 * 3 * flops / PEAK_TF32_FLOPS
-    kernels = "conv_f32" if first is None else "conv_f32 / 3xTF32"
     bound = "bound" if routed is None else "bound of the routed convs (3xTF32 at 495, SIMT at 67 TFLOP/s)"
     print(f"kernel {key} f32 {name}: {ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms, {counted} of "
-          f"{launches} {kernels} launches counted), {bound} {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it), "
+          f"{launches} {kind.label} launches counted), {bound} {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it), "
           + ("" if routed is None else f"bound at 67 TFLOP/s f32 {f32_bound:.4f} ms, ")
           + f"3xTF32 {tf32:.4f} ms ({tf32 / ms:.1%} of it), plain "
           f"{plain_ms:.4f} ms, cuDNN f32 route {cudnn_ms:.4f} ms, library {lib_ms:.4f} ms "
           f"({flops / ms / 1e9:.2f} TFLOP/s)"
           + ("" if first is None else f", first design (conv_f32 alone) {first_ms:.4f} ms"))
     results[f"{key} f32"] = dict(
-        name=f"{name}, f32 route (conv_f32_fwd / conv_f32_wgrad)", route="cuda",
-        source="master_thesis_tpu_torch/csrc/conv_f32.cu", replaces=F32_REPLACES[key], launches=0,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        cudnn_ms=cudnn_ms, tf32x3_ms=tf32)
+        name=f"{name}, f32 route ({kind.label})", route="cuda", source=kind.sources[0],
+        replaces=F32_REPLACES[key], launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, cudnn_ms=cudnn_ms, tf32x3_ms=tf32,
+        **({"sources": kind.sources} if len(kind.sources) > 1 else {}))
     if first is not None:
-        results[f"{key} f32"].update(
-            name=f"{name}, f32 route (3xTF32 wgmma frame kernel + conv_f32_fwd)",
-            source=TF32_SOURCES[0], sources=TF32_SOURCES, first_design_ms=first_ms, bound_f32_ms=f32_bound)
+        results[f"{key} f32"].update(first_design_ms=first_ms, bound_f32_ms=f32_bound)
         print(f"kernel {key} f32 old vs new: first design (conv_f32 alone) {first_ms:.4f} ms, 3xTF32 route "
               f"{ms:.4f} ms ({first_ms / ms:.3f}x)")
         if ms >= first_ms:
@@ -3744,8 +3810,9 @@ def phase_tf32_convs(dfpn, vgg):
             raise RuntimeError(f"{name}: a rerun is not bit-identical")
         tile = conv_stack.frame_tile_tf32(n, h, w, k, co)
         for fault, flabel in TF32_FAULTS.items():
-            if fault == 3 and tile[1] >= h:
-                print(f"planted {name}, {flabel}: not applicable (one row tile a frame)")
+            if (fault == 3 and tile[1] >= h) or fault == 4:
+                print(f"planted {name}, {flabel}: not applicable "
+                      + ("(one row tile a frame)" if fault == 3 else "(no row window)"))
                 continue
             with planted_tf32(fault):
                 f32_check(name, run(), want, flabel)
@@ -3773,6 +3840,119 @@ def phase_tf32_convs(dfpn, vgg):
         print(f"kernel TF32 convs of {site} f32, a CHN+DFPN step: {ms:.4f} ms, floor {floor:.4f} ms "
               f"({floor / ms:.1%} of it)")
     return sums
+
+
+def tail_stage_input(k, n, h, w, g):
+    """Stage ``k``'s NHWC f32 input on the card for a tail of an ``(n, 64, h,
+    w)`` input: (n, h, w, 64), (n, 2h, 2w, 64) or (n, 4h, 4w, 64)."""
+    s = (1, 2, 4, 4)[k]
+    return torch.randn(n, s * h, s * w, 64, generator=g).cuda()
+
+
+def tail_stage_yardsticks(tail_w, k, x, h, w):
+    """Stage ``k`` of the f32 tail on ``x`` (its NHWC input; the tail's input
+    is ``h x w``) on its yardsticks: ``conv_f32_fwd`` (the SIMT kernel, the
+    first design's launch), one cuDNN ``F.conv2d`` (f32, TF32 off,
+    channels-last; an upsample-conv at the upsampled size), and its floor
+    (:func:`tail_stage_floor`). Returns ``(simt_ms, cudnn_ms, floor_ms,
+    bound_by, flops)``."""
+    import torch.nn.functional as F
+
+    from master_thesis_tpu_torch.ops import conv_f32, tail
+
+    name, up, epi = tail.F32_STAGES[k]
+    n, hh, ww, _ = x.shape
+    s = 2 if up else 1
+    out = torch.empty(n, s * hh, s * ww, tail_w[f"{name}_hwio"].shape[3], device="cuda")
+    simt_ms = cuda_ms(lambda: conv_f32.conv_f32_fwd_cuda(x, tail_w[f"{name}_hwio"], out,
+                                                         bias=tail_w[f"{name}_b"], up=up, epi=epi),
+                      iters=3, warmup=1)
+    del out
+    xc = channels_last(torch.randn(n, 64, s * hh, s * ww, device="cuda"))
+    wc = channels_last(tail_w[f"{name}_oihw"])
+    cudnn_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), iters=3, warmup=1)
+    del xc
+    floor, by, flops = tail_stage_floor(k, n, h, w)
+    return simt_ms, cudnn_ms, 1e3 * floor, by, flops
+
+
+def phase_tail_stages_tf32(tail_w):
+    """K4's four f32 stages alone on the 3xTF32 kernel at 80 x 64^2, then the
+    four launches of one K5 band (the second of 8 x 128x256 in 32-row bands:
+    upconv1 reads the frame in place, each later stage a band buffer whose
+    row 0 is the frame's x_row0 > 0): each held against its plain f32
+    version (TF32 off) by relative L2 (``L2_F32``), a rerun bit-identical,
+    each planted fault that applies caught (the halo-row one where a launch
+    has more than one row tile, the band one where x_row0 > 0); its time
+    beside its floor (the larger of 3 x its FLOPs at 495 TFLOP/s, the
+    upsample-convs in their 4-phase form, and its input and output at 3.35
+    TB/s), ``conv_f32_fwd`` (the first design's launch) and one cuDNN
+    ``F.conv2d`` (f32, TF32 off; an upsample-conv at the upsampled size).
+    K4's four floors sum to its routed bound (:func:`tail_bound`)."""
+    from torch.nn import functional as nnf
+
+    from master_thesis_tpu_torch.ops import conv_f32, conv_stack, tail
+
+    g = torch.Generator().manual_seed(SEED + 45)
+    n, h, w = B * F, H // 4, W // 4
+    plans = tail.f32_band_plans(BAND_H, tail.TAIL_BAND_ROWS)[1]
+    xb = torch.randn(BAND_N, BAND_H, BAND_WS[1], 64, generator=g).cuda()
+    launches = [(f"K4 f32 stage {TAIL_STAGES[k]} at {n}x{h}x{w}", k, tail_stage_input(k, n, h, w, g), {})
+                for k in range(4)]
+    for k in range(4):  # the band's launches: the windows of tail_banded_f32
+        (lo, hi), rows = plans[k], plans[k + 1]
+        x = xb if k == 0 else torch.randn(BAND_N, hi - lo, BAND_WS[1] * (1, 2, 4, 4)[k], 64, generator=g).cuda()
+        window = dict(hin=BAND_H * (1, 2, 4, 4)[k], rows=rows, x_row0=0 if k == 0 else lo, out_row0=rows[0])
+        launches.append((f"K5 f32 band 2 stage {TAIL_STAGES[k]} at {BAND_N}x{BAND_H}x{BAND_WS[1]}, rows "
+                         f"{rows[0]}-{rows[1]} from x_row0 {window['x_row0']}", k, x, window))
+    floors = 0.0
+    for label, k, x, window in launches:
+        name, up, epi = tail.F32_STAGES[k]
+        mode = tail.TF32_MODES[k]
+        s = 2 if up else 1
+        co = 3 if k == 3 else 64
+        hin = window.get("hin", x.shape[1])
+        r0, r1 = window.get("rows", (0, s * hin))
+        out_shape = (x.shape[0], r1 - r0, s * x.shape[2], co)
+        run = lambda: tail.tail_stage_tf32_cuda(k, x, tail_w, torch.empty(out_shape, device="cuda"), **window)
+        got = run()
+        want = tail.tail_stage_tf32_plain(k, x, tail_w, torch.empty(out_shape, device="cuda"), **window)
+        label = f"{label} ({mode} mode)"
+        f32_check(label, got, want, None)
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"{label}: a rerun is not bit-identical")
+        cy0, cy1 = (r0 // 2, (r1 + 1) // 2) if up else (r0, r1)
+        x_row0 = window.get("x_row0", 0)
+        tile = conv_stack.tf32_tile(mode, x.shape[0], hin, x.shape[2], 3, 256 if up else co, cy0, cy1, x_row0)
+        for fault, flabel in TF32_FAULTS.items():
+            if (fault == 3 and tile[1] >= cy1 - cy0) or (fault == 4 and x_row0 == 0):
+                print(f"planted {label}, {flabel}: not applicable "
+                      + ("(one row tile)" if fault == 3 else "(x_row0 0)"))
+                continue
+            with planted_tf32(fault):
+                f32_check(label, run(), want, flabel)
+        del got, want
+        ms = cuda_ms(run, iters=3, warmup=1)
+        if not window:
+            simt_ms, cudnn_ms, floor, by, flops = tail_stage_yardsticks(tail_w, k, x, h, w)
+            floors += floor
+        else:
+            out = torch.empty(out_shape, device="cuda")
+            simt_ms = cuda_ms(lambda: conv_f32.conv_f32_fwd_cuda(x, tail_w[f"{name}_hwio"], out,
+                                                                 bias=tail_w[f"{name}_b"], up=up, epi=epi,
+                                                                 **window), iters=3, warmup=1)
+            xc = channels_last(torch.randn(x.shape[0], 64, r1 - r0, s * x.shape[2], device="cuda"))
+            wc = channels_last(tail_w[f"{name}_oihw"])
+            cudnn_ms = cuda_ms(lambda: nnf.conv2d(xc, wc, padding=1), iters=3, warmup=1)
+            flops = 2 * x.shape[0] * (r1 - r0) * s * x.shape[2] * (4 if up else 9) * 64 * co
+            t_ops = 3 * flops / PEAK_TF32_FLOPS
+            t_bytes = (nbytes(x[:, max(cy0 - 1 - x_row0, 0):]) + 4 * math.prod(out_shape)) / PEAK_BYTES
+            floor, by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+            del out, xc
+        print(f"kernel {label} (tile {tile}): {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), floor {floor:.4f} ms "
+              f"({by}; {floor / ms:.1%} of it), SIMT conv_f32_fwd {simt_ms:.4f} ms ({simt_ms / ms:.2f}x), "
+              f"cuDNN f32 F.conv2d {cudnn_ms:.4f} ms")
+    print(f"kernel K4 f32 stages: floors summed {floors:.4f} ms")
 
 
 def f32_check(name, got, want, planted):
@@ -3834,7 +4014,7 @@ def phase_f32(results, device_line):
         f32_site(results, "K4", "tail (4 convs)", lambda: tail.tail(x, tail_w),
                  lambda: tail.tail_plain(x, tail_w), lambda: tail_cudnn(x, tail_w),
                  tail.tail_flops(n, h, w), nbytes(x) + n * 3 * 16 * h * w * 4, tail.TAIL_KERNELS,
-                 f32_check)
+                 f32_check, kind="tail", first=lambda: tail.tail_f32_first(x, tail_w), routed=tail_bound(n, h, w))
         del x
         xb = channels_last(rnd(BAND_N, 64, BAND_H, BAND_WS[1]))
         bands_k2 = len(rrdb.bands(BAND_H, rrdb.TRUNK_BAND_ROWS))
@@ -3844,12 +4024,21 @@ def phase_f32(results, device_line):
                  3 * rrdb.rdb_flops(BAND_N, BAND_H, BAND_WS[1]), 2 * nbytes(xb),
                  3 * rrdb.RDB_CONVS * bands_k2, f32_check)
         bands_k5 = len(rrdb.bands(BAND_H, tail.TAIL_BAND_ROWS))
-        f32_site(results, "K5", f"tail in {tail.TAIL_BAND_ROWS}-row bands",
-                 lambda: tail.tail_banded(xb, tail_w), lambda: tail.tail_banded_plain(xb, tail_w),
-                 lambda: tail_cudnn(xb, tail_w), tail.tail_flops(BAND_N, BAND_H, BAND_WS[1]),
-                 nbytes(xb) + BAND_N * 3 * 16 * BAND_H * BAND_WS[1] * 4, tail.TAIL_KERNELS * bands_k5,
-                 f32_check)
-        del xb
+        k5 = f32_site(results, "K5", f"tail in {tail.TAIL_BAND_ROWS}-row bands",
+                      lambda: tail.tail_banded(xb, tail_w), lambda: tail.tail_banded_plain(xb, tail_w),
+                      lambda: tail_cudnn(xb, tail_w), tail.tail_flops(BAND_N, BAND_H, BAND_WS[1]),
+                      nbytes(xb) + BAND_N * 3 * 16 * BAND_H * BAND_WS[1] * 4, tail.TAIL_KERNELS * bands_k5,
+                      f32_check, kind="tail in bands", first=lambda: tail.tail_banded_f32_first(xb, tail_w),
+                      routed=tail_bound(BAND_N, BAND_H, BAND_WS[1]))
+        # K5 sums each output's products in K4's order: the two agree bit for
+        # bit on an input both take.
+        k4 = tail.tail(xb, tail_w)
+        print(f"check K5 f32 == K4 f32 at {BAND_N}x64x{BAND_H}x{BAND_WS[1]}, bit for bit: "
+              + ("ok" if torch.equal(k5, k4) else f"FAIL (max|diff| {(k5 - k4).abs().max().item():.3g})"))
+        if not torch.equal(k5, k4):
+            raise RuntimeError("K5's f32 route does not equal K4's bit for bit")
+        del xb, k4, k5
+        phase_tail_stages_tf32(tail_w)
     with torch.no_grad():
         # K3 / K6 at the train step's 8 x 64^2.
         nt = TRAIN_B
@@ -3904,7 +4093,7 @@ def phase_f32(results, device_line):
         f32_site(results, "K6", "tail backward", k6, k6_plain,
                  lambda: torch.autograd.grad(yt, flat_leaves, gt, retain_graph=True),
                  tail_bwd.tail_bwd_flops(nt, h, w), 2 * nbytes(x) + nbytes(gt),
-                 tail_bwd.TAIL_BWD_F32_KERNELS, f32_check_groups)
+                 tail_bwd.TAIL_BWD_F32_KERNELS, f32_check_groups, kind="simt+tail")
         del x, gy, gt, yt, leaves, xs, kept6
 
     dfpn = build_dfpn(base_size=DFPN_BASE, dtype=f32, generator=torch.Generator().manual_seed(SEED + 5))
@@ -3937,11 +4126,12 @@ def phase_f32(results, device_line):
             return {f"stage {i}": conv_stack.conv_stack_tiles_cl_f32_first(xx, p, swap=s)
                     for i, (xx, p, s) in enumerate(stacks7)}
 
+        k7_bytes = sum(2 * nbytes(xx) for xx, _, _ in stacks7) + nbytes(y1)
         f32_site(results, "K7", "sep4d's two stages and the mixer", k7, k7_plain, k7_cudnn,
                  sum(conv_stack.stack_flops(p, xx.shape[0], cs, cs) for xx, p, _ in stacks7),
-                 sum(2 * nbytes(xx) for xx, _, _ in stacks7) + nbytes(y1),
-                 sum(len(p.specs) for _, p, _ in stacks7), f32_check_groups, first=k7_first,
-                 routed=[(p, xx.shape[0], cs, cs) for xx, p, _ in stacks7], tf32_faults=tuple(TF32_FAULTS))
+                 k7_bytes, sum(len(p.specs) for _, p, _ in stacks7), f32_check_groups, kind="tf32+simt",
+                 first=k7_first,
+                 routed=routed_bound([(p, xx.shape[0], cs, cs) for xx, p, _ in stacks7], k7_bytes))
         del x1, y1, x2, xm
         # K8: flow_256's and flow_64's segments and VGG's pool-4 tower.
         items = [it for lst in k8_callers(dfpn, vgg, lambda *s: rnd(*s), dtype=f32).values() for it in lst]
@@ -3959,18 +4149,18 @@ def phase_f32(results, device_line):
             return {nm: conv_stack.conv_stack_banded_f32_first(xx, p) for nm, p, _, _, xx in items}
 
         outs8 = k8()
+        k8_bytes = sum(nbytes(xx) + nbytes(outs8[nm]) for nm, _, _, _, xx in items)
         f32_site(results, "K8", "flow_256 / flow_64 segments and VGG pool-4", k8, k8_plain, k8_cudnn,
                  sum(conv_stack.stack_flops(p, xx.shape[0], xx.shape[1], xx.shape[2]) for _, p, _, _, xx in items),
-                 sum(nbytes(xx) + nbytes(outs8[nm]) for nm, _, _, _, xx in items),
-                 sum(len(p.specs) for _, p, _, _, _ in items), f32_check_groups, first=k8_first,
-                 routed=[(p, *xx.shape[:3]) for _, p, _, _, xx in items], tf32_faults=tuple(TF32_FAULTS))
+                 k8_bytes, sum(len(p.specs) for _, p, _, _, _ in items), f32_check_groups, kind="tf32+simt",
+                 first=k8_first, routed=routed_bound([(p, *xx.shape[:3]) for _, p, _, _, xx in items], k8_bytes))
         del items, outs8
         for site, (ms, floor) in tf32_sums.items():
             results[f"{site} f32"].update(tf32_convs_ms=ms, tf32_convs_floor_ms=floor)
-        tf32_want = sum(count for *_, count in tf32_conv_items(dfpn, vgg).values())
+        tf32_want = sum(count for *_, count in tf32_conv_items(dfpn, vgg).values()) + tail.TAIL_KERNELS
 
-    # Beside the sites' counters, the 3xTF32 frame kernel's (K7's and K8's
-    # routed convs).
+    # Beside the sites' counters, the 3xTF32 kernel's (K7's and K8's routed
+    # convs, the tail's stages).
     counters = {**f32_counters(), "TF32": conv_stack.conv_frame_tf32_cuda}
 
     def counted(fn):
@@ -3990,7 +4180,8 @@ def phase_f32(results, device_line):
 
     with torch.inference_mode():
         (y_hat, y_comp), counts = counted(lambda: serve(*inputs))
-        want = {**dict.fromkeys(counters, 0), "K1": 3 * NB * rrdb.RDB_CONVS, "K4": tail.TAIL_KERNELS}
+        want = {**dict.fromkeys(counters, 0), "K1": 3 * NB * rrdb.RDB_CONVS, "K4": tail.TAIL_KERNELS,
+                "TF32": tail.TAIL_KERNELS}
         print(f"f32 serving step launches: {counts} (expected {want})")
         if counts != want:
             raise RuntimeError("the f32 serving step did not launch each f32 route as expected")
@@ -4042,8 +4233,9 @@ def phase_f32(results, device_line):
         want_g = grads()
     check_groups("f32 CHN train step grads, backward routes vs plain versions from the same forward",
                  got, want_g, L2_F32_STEP)
+    # The 3xTF32 kernel: the tail's four launches and K6's recompute (three).
     want = {**dict.fromkeys(counters, 0), "K1": 3 * NB * rrdb.RDB_CONVS, "K3": NB * rrdb_bwd.RRDB_BWD_F32_KERNELS,
-            "K4": tail.TAIL_KERNELS, "K6": tail_bwd.TAIL_BWD_F32_KERNELS}
+            "K4": tail.TAIL_KERNELS, "K6": tail_bwd.TAIL_BWD_F32_KERNELS, "TF32": tail.TAIL_KERNELS + 3}
     print(f"f32 train step launches: {counts} (expected {want})")
     if counts != want:
         raise RuntimeError("the f32 train step did not launch each f32 route as expected")
@@ -4080,7 +4272,8 @@ def phase_f32(results, device_line):
         (y_hat, _), counts = counted(lambda: dfpn_step(*inputs))
         if (not torch.isfinite(y_hat).all() or counts["K7"] == 0 or counts["K8"] == 0 or counts["K1"] == 0
                 or counts["TF32"] != tf32_want):
-            raise RuntimeError(f"f32 CHN+DFPN step: launches {counts} (3xTF32 kernel: {tf32_want} expected), "
+            raise RuntimeError(f"f32 CHN+DFPN step: launches {counts} (3xTF32 kernel: {tf32_want} expected: "
+                               "K7's and K8's routed convs and the tail's four), "
                                f"finite {torch.isfinite(y_hat).all()}")
         results["K7 f32"]["launches"], results["K8 f32"]["launches"] = counts["K7"], counts["K8"]
         for k in ("K7", "K8"):

@@ -1,43 +1,60 @@
-// K7's and K8's f32 convs with 64-multiple widths on Hopper's tensor cores
-// in 3xTF32 (conv_frame_tf32_wgmma.cuh holds the design note and the
-// bound): one k x k conv (k = 3 or 5) over NHWC f32 frames, K7's tiles being
-// frames of 16x16. ops/conv_stack.py routes those convs of an f32 stack here
-// and the rest to conv_f32.cu.
+// The 3xTF32 wgmma conv kernel (conv_frame_tf32_wgmma.cuh holds the design
+// note and the bound): K7's and K8's f32 convs with 64-multiple widths (conv
+// mode, one k x k conv over NHWC f32 frames, K7's tiles being frames of
+// 16x16; ops/conv_stack.py routes those convs of an f32 stack here and the
+// rest to conv_f32.cu), and K4's / K5's f32 tail, four launches: upconv1 and
+// upconv2 in phase mode, hr_conv in conv mode, conv_last in last mode
+// (ops/tail.py).
 #include "conv_tile.cuh"
 #include "conv_frame_tf32_wgmma.cuh"
 
-// x: (n, h, wd, cin) f32 NHWC, contiguous; w: ops/fragments.py:
-// wgmma_tf32_matrix of the OIHW kernel, the hi matrix (cin / 32, k * k,
-// cout_pad, 32) with the lo matrix lo_off floats further; b: cout f32
-// biases; out: frame f's pixel q, channel o at (f / tg) * sg + (f % tg) * st
-// + q * sp + o floats (NHWC: tg = n, sg = 0, st = h wd cout, sp = cout).
-// The tile is fr frames x rows x tw output pixels on nh n144 halves
-// (ops/conv_stack.py:frame_tile_tf32), 128 / nh outputs a CTA. ReLU after
-// the bias when relu != 0.
+// One launch, field for field ops/conv_stack.py:_TF32Call. x: (n, x_rows,
+// wd, cin) f32 NHWC, contiguous, frame rows from x_row0 of frames of h rows;
+// w: the packed hi matrix (ops/fragments.py: wgmma_tf32_matrix,
+// wgmma_tf32_phase_matrix, or wgmma_tf32_matrix padded to 8 outputs for last
+// mode) with the lo matrix lo_off floats further; b: the biases (phase mode:
+// cout / 4 of them); out: frame f's row y, column x, channel o at (f / tg) *
+// sg + (f % tg) * st + (y - out_row0) * sr + x * sp + o floats, for the
+// output rows [r0, r1). The tile is fr frames x rows x tw pixels of x's
+// resolution on nh n144 halves (ops/conv_stack.py:frame_tile_tf32,
+// last_tile_tf32). mode: 0 conv (k = 3 or 5), 1 phase (cout = 4 phases x
+// 64), 2 last (cout <= 8, cout_pad 8); epi: 0 none, 1 ReLU, 2 leaky ReLU
+// (0.2), after the bias.
+struct TF32Call {
+  const void* x;
+  const void* w;
+  const void* b;
+  void* out;
+  long long lo_off, tg, sg, st, sr, sp;
+  int n, h, wd, cin, cout, cout_pad, k, mode, epi, fr, rows, tw, nh, x_row0, x_rows, r0, r1, out_row0;
+};
+
 // One launch on `stream`; returns the CUDA error code.
-extern "C" int conv_frame_tf32_forward(const void* x, const void* w, const void* b, void* out,
-                                       long long lo_off, int n, int h, int wd, int cin, int cout,
-                                       int cout_pad, int k, int relu, int fr, int rows, int tw,
-                                       int nh, long long tg, long long sg, long long st,
-                                       long long sp, void* stream) {
+extern "C" int conv_frame_tf32_forward(const TF32Call* c, void* stream) {
   ft::Args a = {};
-  a.wt = static_cast<const float*>(w);
-  a.bias = static_cast<const float*>(b);
-  a.out = static_cast<float*>(out);
-  a.lo_off = lo_off;
-  a.tg = tg;
-  a.sg = sg;
-  a.st = st;
-  a.sp = sp;
-  a.n = n;
-  a.h = h;
-  a.w = wd;
-  a.cin = cin;
-  a.cout = cout;
-  a.cout_pad = cout_pad;
-  a.relu = relu;
-  a.fr = fr;
-  a.rows = rows;
-  a.tw = tw;
-  return ft::launch(static_cast<const float*>(x), a, k, nh, static_cast<cudaStream_t>(stream));
+  a.wt = static_cast<const float*>(c->w);
+  a.bias = static_cast<const float*>(c->b);
+  a.out = static_cast<float*>(c->out);
+  a.lo_off = c->lo_off;
+  a.tg = c->tg;
+  a.sg = c->sg;
+  a.st = c->st;
+  a.sr = c->sr;
+  a.sp = c->sp;
+  a.n = c->n;
+  a.h = c->h;
+  a.w = c->wd;
+  a.cin = c->cin;
+  a.cout = c->cout;
+  a.cout_pad = c->cout_pad;
+  a.epi = c->epi;
+  a.fr = c->fr;
+  a.rows = c->rows;
+  a.tw = c->tw;
+  a.x_row0 = c->x_row0;
+  a.r0 = c->r0;
+  a.r1 = c->r1;
+  a.out_row0 = c->out_row0;
+  return ft::launch(static_cast<const float*>(c->x), a, c->k, c->nh, c->mode, c->x_rows,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -1,34 +1,54 @@
-// K7 / K8 in f32: one k x k conv (k = 3 or 5; same padding, zeros only at
-// the frame's border; f32 bias, then ReLU where asked) over N whole NHWC
-// f32 frames, Cin a multiple of 32 and Cout of 64, on Hopper's tensor
-// cores in 3xTF32: each product a * b is a_hi b_hi + a_hi b_lo + a_lo b_hi,
-// a = a_hi + a_lo with a_hi = tf32(a) and a_lo = tf32(a - a_hi) (round to
-// nearest, ties away), three wgmma products summed in f32.
-// K7's tiles are frames of 16x16. The thin convs of a stack (sep4d's 1 ->
-// 128 and 128 -> 1, the mixer's tail, the flow estimators' c0 and c17,
-// VGG's 3 -> 64) stay on conv_f32.cu's SIMT kernel.
+// K7 / K8 in f32, and K4 / K5 (the RRDBNet tail) in f32: one conv over N
+// whole NHWC f32 frames (or a window of their rows) on Hopper's tensor cores
+// in 3xTF32: each product a * b is a_hi b_hi + a_hi b_lo + a_lo b_hi, a =
+// a_hi + a_lo with a_hi = tf32(a) and a_lo = tf32(a - a_hi) (round to
+// nearest, ties away), three wgmma products summed in f32. Three modes:
 //
-// Replaces, in f32, for those convs: master_thesis_tpu/ops/pallas_sep4d.py:
-// conv_stack_tiles (K7, body _conv_stack_kernel: sep4d's two stages and the
-// mixer) and conv_stack_banded (K8, body _conv_stack_band_kernel: flow_256's
-// and flow_64's segments, VGG's pool-4 tower), which run their dots in f32
-// under Precision.HIGHEST: a multi-pass split product on the TPU's
+// - conv: a k x k conv (k = 3 or 5; same padding, zeros only at the frame's
+//   border; f32 bias, then ReLU or leaky ReLU (0.2) where asked), Cin a
+//   multiple of 32 and Cout of 64. K7's tiles are frames of 16x16. The thin
+//   convs of a stack (sep4d's 1 -> 128 and 128 -> 1, the mixer's tail, the
+//   flow estimators' c0 and c17, VGG's 3 -> 64) stay on conv_f32.cu's SIMT
+//   kernel. The tail's hr_conv (3x3, 64 -> 64, leaky) is one launch of it.
+// - phase: a nearest-2x upsample then 3x3 conv (the tail's upconv1 and
+//   upconv2, leaky) in its 4-phase form at the low resolution: output phase
+//   (a, b) of low-resolution pixel (y, x) is high-resolution pixel (2y + a,
+//   2x + b), and reads the four taps (ti, tj) at input offsets (a - 1 + ti,
+//   b - 1 + tj) (models/nn_ext.py:fused_upsample_conv_kernel): 4/9 of the
+//   products of the 3x3 at the high resolution that the SIMT route runs.
+// - last: the tail's conv_last (3x3, 64 -> 3, no activation) as the
+//   unswapped product (below), so that its 3 outputs cost an n8 a tap, not
+//   an m64.
+//
+// Replaces, in f32: master_thesis_tpu/ops/pallas_sep4d.py: conv_stack_tiles
+// (K7, body _conv_stack_kernel: sep4d's two stages and the mixer) and
+// conv_stack_banded (K8, body _conv_stack_band_kernel: flow_256's and
+// flow_64's segments, VGG's pool-4 tower), for their 64-multiple convs; and
+// master_thesis_tpu/ops/pallas_tail.py: rrdbnet_tail_pallas (K4, body
+// _tail_kernel, and K5, its banded branch, body _tail_band_kernel: each
+// upsample-conv as _phase_conv), all four stages. Those run their dots in
+// f32 under Precision.HIGHEST: a multi-pass split product on the TPU's
 // low-precision matrix unit, as here. One TF32 product alone reads ~3e-4
 // relative L2 against f64 on the card.
 //
 // Bound on an H100 SXM (495 TFLOP/s TF32 dense, 67 TFLOP/s f32 outside the
-// tensor cores, 3.35 TB/s): three products make the tensor-core bound 3 x
-// FLOPs / 495 TFLOP/s, 0.41x the f32 one (FLOPs / 67 TFLOP/s). At the CHN+DFPN
-// step's shapes sep4d's four wide convs (4.63 TFLOP) have a 28.1 ms
-// tensor-core bound (69.1 ms at 67 TFLOP/s). Every routed conv does at
-// least ~450 TF32 operations (3 x FLOPs) a byte of its input, hi and lo
-// weights and output (the least: flow_64's 3x3 at 8x8), past the card's
-// ~148, so all are bound by operations (chip_smoke.py:phase_tf32_convs
-// computes each floor).
+// tensor cores, 3.35 TB/s): three products make the tensor-core bound 3 x FLOPs
+// / 495 TFLOP/s, 0.41x the f32 one (FLOPs / 67 TFLOP/s). At the CHN+DFPN step's
+// shapes sep4d's four wide convs (4.63 TFLOP) have a 28.1 ms tensor-core bound
+// (69.1 ms at 67 TFLOP/s). Every routed conv of K7 / K8 does at least ~450 TF32
+// operations (3 x FLOPs) a byte of its input, hi and lo weights and output (the
+// least: flow_64's 3x3 at 8x8), past the card's ~148, so all are bound by
+// operations (chip_smoke.py:phase_tf32_convs computes each floor). The tail at
+// 80 x 64^2 (its four launches, 619.3 GFLOP with the upsample-convs in the
+// 4-phase form): upconv1 0.260 ms and upconv2 1.041 ms (phase mode,
+// operations), hr_conv 2.342 ms (conv mode, operations), conv_last 0.419 ms
+// (last mode, bytes: its 1.34 GB input; its products, 8 outputs a tap, 0.293
+// ms); the whole tail 3.754 ms by operations, its input and output 0.044 ms
+// (chip_smoke.py:phase_tail_stages_tf32 prints each).
 //
 // Design: conv_frame_wgmma.cuh's swapped implicit GEMM, D = W^T X: M = output
 // channels (one m64 tile a consumer warpgroup), N = the box's wrapped pixel
-// columns, K = k² taps x Cin. tf32 wgmma reads both operands K-major from
+// columns, K = taps x Cin. tf32 wgmma reads both operands K-major from
 // shared memory, as the swapped GEMM has them: the weights K-major, the
 // pixels with their channels contiguous. A K-chunk is 32 input channels,
 // one 128-byte row a pixel (32 tf32); a tap moves the B descriptor by whole
@@ -40,63 +60,115 @@
 // r, y0 - r, f0): the zero fill is the frame's zero padding, and a tile's
 // halo rows are its neighbours' rows in device memory.
 //
+// Phase mode is conv mode over a 3x3 halo box at the low resolution with
+// the 4 phases x Cout as its outputs (ops/fragments.py:
+// wgmma_tf32_phase_matrix: M = 4 x 64, phase-major), 4 taps: the warpgroup
+// that holds phase (a, b) shifts its B descriptor by (a + ti) bw + b + tj
+// pixels for tap (ti, tj), and its epilogue stores low-resolution pixel (y,
+// x) at (2y + a, 2x + b) of the 2h x 2w output, which needs the tile's (y,
+// x) and not the linear q sp address of conv mode.
+//
+// Last mode is the unswapped product D = X W: M = 64 wrapped pixel rows of
+// the same boxes (a warpgroup takes every other m64 block of the tile's
+// 2 LAST_MB = 4), N = 24: a row of taps' 3 taps dx x 8 outputs (3 stored),
+// K = 32-channel chunks, one wgmma group a (chunk, row of taps dy). Column
+// 8 dx + o of row m then sums tap (dy, dx) over pixel m + dy bw, and the
+// epilogue adds rows n, n + 1, n + 2's dx columns for output column n
+// through shared memory (so a tile's columns end 2 short of its 256). Both
+// operands are K-major as tf32 wgmma wants them: the box has a pixel's 32
+// channels in one 128-byte row, so a row of taps moves the A descriptor by
+// whole pixels; the weights (fragments.wgmma_tf32_last_matrix) have each
+// (dx, output)'s channels contiguous, one 3 KB block a (chunk, dy), 18 KB hi
+// + 18 KB lo at Cin 64, loaded once a CTA. An n8 product a tap, tried
+// first, was bound by issuing its three times as many small wgmmas; padding
+// Cout to an m64 of the swapped form instead would cost 21x its products (a
+// 2.3 ms floor at K4's shape against this form's 0.42 ms).
+//
+// Row windows (K5's bands, as conv_f32.cu's): the input buffer holds the
+// frame's rows from x_row0 (its TMA map has the frame's rows that it holds,
+// so the zero fill is the frame's border and never a band's edge), the
+// launch computes the rows [cy0, cy1) of its resolution and stores the
+// output rows [r0, r1) at buffer row r - out_row0 (phase mode: cy0 = r0 / 2,
+// cy1 = (r1 + 1) / 2, each phase's row masked to the window). An output
+// sums the same products in the same order whatever the tile, the window or
+// the halves, so a banded tail equals the full-frame one bit for bit.
+//
 // The split. The weights are split once when packed (ops/fragments.py:
-// wgmma_tf32_matrix: the hi and the lo matrix, each (Cin / 32, k², Cout padded
-// to 128, 32), each output's 16-byte chunks in the 128-byte swizzle), so a
-// (tap, chunk) stage is two bulk copies. The activations are split in
-// shared memory: three producer warps that issue no load wait for each box,
-// round it in place to its hi half and write its lo half right behind it
-// (the box's bytes further on, swizzled by their own address bits), fence
-// the async proxy and arrive on the box's split barrier, on which the
-// consumers wait. So the split overlaps the consumers' products on the
-// previous chunk and costs no device memory. The hi half is rounded in shared
-// memory rather than left for the tensor core to truncate: the kernel's
+// wgmma_tf32_matrix: the hi and the lo matrix, each (Cin / 32, taps, Cout
+// padded to 128 (last mode: rows of taps, 24 rows), 32), each output's 16-byte
+// chunks in the 128-byte swizzle), so a (tap, chunk) stage is two bulk copies.
+// The activations are split in shared memory: three producer warps that issue
+// no load wait for each box, round it in place to its hi half and write its lo
+// half right behind it (the box's bytes further on, swizzled by their own
+// address bits), fence the async proxy and arrive on the box's split barrier,
+// on which the consumers wait. So the split overlaps the consumers' products on
+// the previous chunk and costs no device memory. The hi half is rounded in
+// shared memory rather than left for the tensor core to truncate: the kernel's
 // arithmetic is then the same whatever the tensor core does with the low 13
 // bits, and the CPU tests emulate the split bit for bit.
 //
 // Roles, from conv_frame_wgmma.cuh: lane 0 of the producer warpgroup issues
 // every load (setmaxnreg hands the warpgroup's registers to the consumers),
 // keeping the box ring (2 stages of hi + lo) and the weight ring ((tap,
-// chunk) blocks, hi + lo: 2 stages of 128 outputs or 4 of 64) full; the next
-// box is issued early in the current chunk's taps. Two consumer warpgroups,
-// each one m64 x n144 product: on one half (NH = 1) warpgroup w owns outputs
-// [64 w, 64 w + 64) of the CTA's 128, on two halves (NH = 2) half w of its
-// 64. Each (chunk, tap) is one wgmma group of 4 k8 steps x 3 products, the
-// two correction products first. A CTA walks its work units (tile, 128 / NH
-// outputs), outputs fastest.
+// chunk) blocks, hi + lo: 2 stages of 128 outputs or 4 of 64; in last mode
+// the whole weights once) full; the next box is issued early in the current
+// chunk's taps. Two consumer warpgroups, each one m64 x n144 product: on one
+// half (NH = 1) warpgroup w owns outputs [64 w, 64 w + 64) of the CTA's 128,
+// on two halves (NH = 2) half w of its 64. Each (chunk, tap) is one wgmma
+// group of 4 k8 steps x 3 products, the two correction products first. A
+// CTA walks its work units (tile, 128 / NH outputs; a tile in last mode),
+// outputs fastest.
 //
-// The sums. The tensor cores add each product group into the accumulator
-// with the sum truncated (round toward zero), so the error grows with the
-// number of groups added into one accumulator: a model of those adds
-// (tests/test_torch_tf32x3.py:_truncated_sums) reads 5.9e-5 relative L2
-// against f64 for one accumulator over 25 x 256 inputs, past chip_smoke.py's
-// f32 limit of 1e-5, and a version of this kernel with one accumulator a
-// unit failed that limit on the card at the 256-channel and 5x5 shapes. So
-// the groups of each row of taps (12 or 20 wgmmas) go into a partial
-// accumulator started afresh (scale-d 0), which is then added to the unit's
-// sum in f32 with round to nearest (the model: 1.5e-6): 72 more registers a
-// thread, which is why a warpgroup holds one m64 x n144 product and not
-// two, and a wait for the row's last group before the add.
+// The sums. The tensor cores add each product group into the accumulator with
+// the sum truncated (round toward zero), so the error grows with the number of
+// groups added into one accumulator: a model of those adds
+// (tests/test_torch_tf32x3.py:_truncated_sums) reads 5.9e-5 relative L2 against
+// f64 for one accumulator over 25 x 256 inputs, past chip_smoke.py's f32 limit
+// of 1e-5, and a version of this kernel with one accumulator a unit failed that
+// limit on the card at the 256-channel and 5x5 shapes. So the groups of each
+// row of taps (k taps; 2 in phase mode; one group in last mode) go into a
+// partial accumulator started afresh (scale-d 0), which is then added to the
+// unit's sum in f32 with round to nearest (the model: 1.5e-6; 1.1e-6 at the
+// phase mode's 4 x 64 inputs): 72 more registers a thread, which is why a
+// warpgroup holds one m64 x n144 product and not two, and a wait for the row's
+// last group before the add.
 //
-// The epilogue adds the bias, applies ReLU and stores f32 straight from the
-// accumulators (8 consecutive outputs of 4 pixels a warp store: whole
-// 32-byte sectors), masked at the frame's edges, to tile t's pixel q,
-// channel o at (f / tg) sg + (f % tg) st + q sp + o: NHWC, or sep4d's p <-> q
-// swap (stage 1's last conv), so the swap costs no permute.
+// The epilogue adds the bias, applies the activation (branch-free) and
+// stores f32 straight from the accumulators (8 consecutive outputs of 4
+// pixels a warp store: whole 32-byte sectors), masked at the frame's edges
+// and the window, to frame f's row y, column x, channel o at (f / tg) sg +
+// (f % tg) st + (y - out_row0) sr + x sp + o: NHWC, or sep4d's p <-> q swap
+// (stage 1's last conv), so the swap costs no permute. It is the kernel's
+// cost a unit that no product hides (both warpgroups work on one unit), so
+// each column's pixel comes from multiply-high divisions by host-computed
+// magic numbers, each column on its own, and its address is a 32-bit
+// offset from a base computed once a unit: a division per column, or
+// columns stepped from one another into one dependency chain, cost more
+// than a phase-mode unit's products. Last mode's 3 outputs of a pixel are
+// stored by one thread, consecutive pixels by consecutive threads.
 //
-// Shared memory: a stage of the box ring is its hi and lo copies, 2 x fr x bh
-// x bw x 128 bytes rounded up to 1024; the weight ring 64 KB. A box has at
-// most 324 pixels (K7's 18 x 18, and K8's 3x3 tiles of 16 x 16; its 5x5
-// tiles of 4 rows x 32 on one n144 half, a 36 x 8 box): 231 552 bytes at
-// K7's tile, of the 232 448. Columns past the box read the next bytes of
-// shared memory (the lo copy, the next stage, the weight ring) and are
-// dropped: a column's sums depend on its own pixels only. The launcher
-// refuses a tile whose reads would pass the end.
+// Shared memory: a stage of the box ring is its hi and lo copies, 2 x fr x bh x
+// bw x 128 bytes rounded up to 1024; the weight region 64 KB in every mode (the
+// ring; last mode's 36 KB of weights and its 2 x 9.3 KB exchange). A box has at
+// most 324 pixels (K7's 18 x 18, and K8's 3x3 tiles of 16 x 16; its 5x5 tiles
+// of 4 rows x 32 on one n144 half, a 36 x 8 box): 231 552 bytes at K7's tile,
+// of the 232 448. The tail's stages take the same budget: phase mode at 64^2
+// and 128^2 tiles of 16 x 16 on two halves (an 18 x 18 box, 231 552 bytes),
+// hr_conv 16 x 16 tiles on two halves (64 outputs a CTA), last mode tiles of 7
+// rows x 32 (a 34 x 9 box, 4 m64 blocks: 222 336 bytes) (ops/conv_stack.py:
+// tf32_smem, last_tile_tf32). Columns past the box read the next bytes of
+// shared memory (the lo copy, the next stage, the weights) and are dropped: a
+// column's sums depend on its own pixels only. The launcher refuses a tile
+// whose reads would pass the end.
 //
 // Planted faults for the checks on the card, -DTF32_PLANT=n: 1 drops the two
-// correction products (plain 1xTF32); 2 leaves out the corner tap (-r, -r);
-// 3 reads the top halo row of every tile below a frame's first row tile as
-// zeros (that row is the tile above's, across the tile boundary).
+// correction products (plain 1xTF32); 2 leaves out the corner tap (-r, -r),
+// in phase mode tap (0, 0) of each phase, in last mode by zeroing its weights
+// in shared memory; 3 reads the top halo row of every
+// tile below a frame's first row tile as zeros (that row is the tile above's,
+// across the tile boundary); 4 reads a window's first input row (frame row
+// x_row0) as zeros where x_row0 > 0: a band's halo row, which only K5's
+// bands read (as tail.cu's BAND_PLANT in bf16).
 #pragma once
 
 #include "conv3x3_wgmma.cuh"
@@ -110,7 +182,7 @@ namespace {
 
 constexpr int HALF = 144;                // pixel columns a wgmma
 constexpr int CHUNK = 32;                // f32 input channels a K-chunk (one 128-byte pixel row)
-constexpr int COUT_PAD = 128;            // the packed weights' output padding
+constexpr int COUT_PAD = 128;            // the packed weights' output padding (conv, phase)
 constexpr int SA = 2;                    // box stages
 constexpr int W_RING = 2 * 128 * 128;    // weight-ring bytes of one of hi / lo: 2 stages of 128
                                          // outputs, or 4 of 64
@@ -120,26 +192,43 @@ constexpr int PROD_REGS = 40, CONS_REGS = 232;
 static_assert(PROD_REGS * 128 + CONS_REGS * NCONS <= 65536, "register file");
 constexpr int SMEM_MAX = 232448;
 constexpr int BARS = 128;  // (afull, asplit, aempty) x SA + (wfull, wempty) x (2 or 4)
+constexpr int CONV = 0, PHASE = 1, LAST = 2;            // modes
+constexpr int EPI_NONE = 0, EPI_RELU = 1, EPI_LEAKY = 2;  // epilogues
+// Last mode: a row of taps' 3 taps x outputs padded to 8 (an n24 product;
+// one (chunk, row) block of LAST_W floats, hi or lo), 2 m64 pixel blocks a
+// warpgroup (256 wrapped columns a tile, the last 2 read by their left
+// neighbours), the epilogue's exchange rows.
+constexpr int LAST_N = 8, LAST_W = 3 * LAST_N * CHUNK, LAST_MB = 2, EX_ROWS = 2 * LAST_MB * 64 + 8;
 
 struct Args {
   const float* wt;    // packed hi matrix, the lo matrix lo_off floats further
-  const float* bias;  // cout
+  const float* bias;  // cout (phase mode: cout / 4)
   float* out;
   long long lo_off;
-  long long tg, sg, st, sp;  // output addressing (see the note)
-  int n, h, w, cin, cout, cout_pad, relu;
-  int fr, rows, tw;              // a tile: fr frames x rows x tw output pixels
+  long long tg, sg, st, sr, sp;  // output addressing (see the note)
+  int n, h, w, cin, cout, cout_pad, epi;
+  int fr, rows, tw;              // a tile: fr frames x rows x tw pixels of the input's resolution
+  int x_row0;                    // frame row of the input buffer's row 0
+  int cy0, cy1;                  // rows computed (the input's resolution)
+  int r0, r1, out_row0;          // output rows stored, and the output buffer's row 0
   int tiles_x, tiles_y, groups;  // column tiles, row tiles, frame groups
   int a_tx, a_stage;             // one box copy's bytes, and a stage's (hi + lo, 1024-aligned)
+  unsigned mbw, mbh, mtg;        // the epilogue's divisors bw, bh and tg as magic numbers (div_by)
 };
 
+// ceil(2^32 / d): with it n / d is umulhi(n, m) for every n, d < 2^16
+// (d > 1), one instruction where the epilogue divides a column index.
+inline unsigned magic(int d) {
+  return d > 1 ? (unsigned)((((unsigned long long)1 << 32) + d - 1) / d) : 0u;
+}
+
 // The kernel's shared memory for a box copy of a_tx bytes: the rings, the
-// barriers, and slack where the last half's dropped columns (up to the
-// largest tap shift past column NH * 144) would read past them.
-inline int smem_bytes(int a_tx, int nh, int k, int bw) {
+// barriers, and slack where the last columns read (cols: NH x 144, or last
+// mode's blocks x 64, plus the largest tap shift) would pass them.
+inline int smem_bytes(int a_tx, int cols, int k, int bw) {
   const int a_stage = (2 * a_tx + 1023) / 1024 * 1024;
   const int rings = SA * a_stage + 2 * W_RING;
-  const int reach = (SA - 1) * a_stage + a_tx + (nh * HALF + (k - 1) * (bw + 1)) * 128;
+  const int reach = (SA - 1) * a_stage + a_tx + (cols + (k - 1) * (bw + 1)) * 128;
   return (reach > rings ? reach : rings) + BARS;
 }
 
@@ -148,7 +237,7 @@ struct Tile {
 };
 __device__ __forceinline__ Tile tile_of(const Args& a, int s) {
   const int tx = s % a.tiles_x, rest = s / a.tiles_x;
-  return {rest / a.tiles_y * a.fr, rest % a.tiles_y * a.rows, tx * a.tw};
+  return {rest / a.tiles_y * a.fr, a.cy0 + rest % a.tiles_y * a.rows, tx * a.tw};
 }
 
 // D (64 x 144 f32, 72 registers a thread) = A (64 x 8) B (8 x 144) + (acc ?
@@ -181,6 +270,19 @@ __device__ __forceinline__ void mma144(float (&d)[72], uint64_t a, uint64_t b, i
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// D (64 x 24 f32, 12 registers a thread) = A (64 x 8) B (8 x 24) + (acc ?
+// D : 0), tf32, both K-major from shared memory: for each n8 block j, d[4 j
+// + 2 i + e] = D[16 w + l / 4 + 8 i][8 j + 2 (l % 4) + e].
+__device__ __forceinline__ void mma24(float (&d)[12], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 // The K-major 128-byte-swizzled descriptor at `addr` (SBO 1024 bytes: 8
 // rows of 128), base offset 0: each address is swizzled by its own bits.
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
@@ -194,15 +296,42 @@ __device__ __forceinline__ float tf32_rna(float v) {
   return __int_as_float((__float_as_int(v) + 0x1000) & (int)0xFFFFE000);
 }
 
-template <int K, int NH>
+// n / d for n, d < 2^16, m = magic(d).
+__device__ __forceinline__ int div_by(int n, int d, unsigned m) {
+  return d == 1 ? n : (int)__umulhi((unsigned)n, m);
+}
+
+// Frame f's offset in the output: (f / tg) sg + (f % tg) st.
+__device__ __forceinline__ long long frame_base(const Args& a, int f) {
+  const int tg = (int)a.tg, fg = div_by(f, tg, a.mtg);
+  return (long long)fg * a.sg + (long long)(f - fg * tg) * a.st;
+}
+
+// The epilogue's activation without a branch: max(max(v, slope v), floor)
+// with (slope, floor) (1, -inf) for none, (1, 0) for ReLU, (0.2, -inf) for
+// leaky ReLU (max(v, 0.2 v) is v >= 0 ? v : 0.2 v).
+struct Act {
+  float slope, floor;
+};
+__device__ __forceinline__ Act act_of(int epi) {
+  return {epi == EPI_LEAKY ? 0.2f : 1.0f, epi == EPI_RELU ? 0.0f : -INFINITY};
+}
+__device__ __forceinline__ float activate(float v, Act f) {
+  return fmaxf(fmaxf(v, f.slope * v), f.floor);
+}
+
+template <int K, int NH, int MODE>
 __global__ void __launch_bounds__(NTHREAD, 1)
 tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
-  constexpr int R = K / 2, KK = K * K;
-  constexpr int COUT_T = 128 / NH;                // outputs a CTA: a warpgroup's m64 x n144 each
-  constexpr int SW = W_RING / (COUT_T * 128);     // weight stages: 2 of 128 outputs, 4 of 64
+  constexpr int R = K / 2;
+  constexpr int KK = MODE == PHASE ? 4 : MODE == LAST ? K : K * K;  // taps (last mode: rows of taps)
+  constexpr int TPR = MODE == PHASE ? 2 : K;      // taps a row: one partial sum
+  constexpr int COUT_T = MODE == LAST ? LAST_N : 128 / NH;  // outputs a work unit
+  constexpr int SW = MODE == LAST ? 1 : W_RING / (COUT_T * 128);  // weight stages: 2 of 128, 4 of 64
   constexpr uint32_t W_BYTES = COUT_T * 128;      // one (tap, chunk) block, hi or lo
   constexpr int JB = SW + 1 < KK - 1 ? SW + 1 : KK - 1;  // the tap before which the next box goes
   static_assert(NH == 1 || NH == 2, "one or two n144 halves");
+  static_assert(MODE == CONV || K == 3, "phase and last modes are 3x3");
   extern __shared__ __align__(1024) unsigned char ft_smem[];
   unsigned char* smem = ft_smem;
   const int w_off = SA * a.a_stage;
@@ -211,7 +340,7 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
   const uint32_t wfull0 = aempty0 + 8 * SA, wempty0 = wfull0 + 8 * SW;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bw = a.tw + K - 1, bh = a.rows + K - 1;
-  const int nct = a.cout / COUT_T, nch = a.cin / CHUNK;
+  const int nct = MODE == LAST ? 1 : a.cout / COUT_T, nch = a.cin / CHUNK;
   const int units = a.groups * a.tiles_y * a.tiles_x * nct;  // (tile, COUT_T outputs), outputs fastest
 
   if (threadIdx.x == 0) {
@@ -241,14 +370,22 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
         const int sa = qa % SA;
         if (qa >= SA) cw::mbar_wait(aempty0 + 8 * sa, (qa / SA - 1) & 1);
         cw::mbar_expect_tx(afull0 + 8 * sa, (uint32_t)a.a_tx);
-        cw::tma_load_4d(cw::smem_u32(smem + sa * a.a_stage), &xmap, CHUNK * bc, t.x0 - R, t.y0 - R,
-                        t.f0, afull0 + 8 * sa);
+        cw::tma_load_4d(cw::smem_u32(smem + sa * a.a_stage), &xmap, CHUNK * bc, t.x0 - R,
+                        t.y0 - R - a.x_row0, t.f0, afull0 + 8 * sa);
         ++qa;
         if (++bc == nch) {
           bc = 0;
           bu += gridDim.x;
         }
       };
+      if (MODE == LAST) {  // the whole weights once, then the boxes as the ring frees
+        const uint32_t wb = (uint32_t)a.lo_off * 4;
+        cw::mbar_expect_tx(wfull0, 2 * wb);
+        cw::bulk_load(cw::smem_u32(smem + w_off), a.wt, wb, wfull0);
+        cw::bulk_load(cw::smem_u32(smem + w_off) + wb, a.wt + a.lo_off, wb, wfull0);
+        while (bu < units) next_box();
+        return;
+      }
       next_box();
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
         const int n0 = (u % nct) * COUT_T;
@@ -285,6 +422,8 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
           float4 lo = make_float4(tf32_rna(v.x - hi.x), tf32_rna(v.y - hi.y), tf32_rna(v.z - hi.z),
                                   tf32_rna(v.w - hi.w));
           if (TF32_PLANT == 3 && t.y0 > 0 && p < bw) hi = lo = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (TF32_PLANT == 4 && a.x_row0 > 0 && t.y0 - R + (p / bw) % bh == a.x_row0)
+            hi = lo = make_float4(0.f, 0.f, 0.f, 0.f);
           *reinterpret_cast<float4*>(box + 16 * i) = hi;
           const uint32_t row = lo_row0 + p;
           *reinterpret_cast<float4*>(box + 128 * row + 16 * (j ^ (row & 7))) = lo;
@@ -300,109 +439,233 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONS_REGS));
   const int wgi = warp >> 2, wl = warp & 3;
   const int g = lane >> 2, q4 = lane & 3;
-  const int mt = NH == 1 ? wgi : 0, h = NH == 2 ? wgi : 0;  // warpgroup wgi's outputs and half
   // A stage is released by one lane a consumer warp, after its wgmmas that
   // read it retired.
   auto release = [&](uint32_t bar) {
     __syncwarp();
     if (lane == 0) cw::mbar_arrive(bar);
   };
-  int qa = 0, qw = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const Tile t = tile_of(a, u / nct);
-    const int n0 = (u % nct) * COUT_T;
-    // The tensor cores add each product group into part with its sum
-    // truncated; part is summed into acc (round to nearest) after each row
-    // of taps, before the truncation drifts.
-    float acc[72], part[72];
+
+  if constexpr (MODE == LAST) {
+    // Warpgroup wgi: m64 pixel blocks wgi, wgi + 2 of the tile's 2 LAST_MB
+    // (columns past the tile's are computed and dropped). A (chunk, row of
+    // taps dy) is one wgmma group of m64 n24 products: column 8 dx + o of
+    // pixel row m sums tap (dy, dx) for output o over its row m + dy bw.
+    cw::mbar_wait(wfull0, 0);
+    const uint32_t wbase = cw::smem_u32(smem + w_off), wlo = (uint32_t)a.lo_off * 4;
+    if (TF32_PLANT == 2) {  // the corner tap's weights (dy, dx) = (0, 0) zeroed in shared memory
+      for (int i = threadIdx.x; i < 2 * nch * LAST_N * 32; i += NCONS) {
+        const int half = i / (nch * LAST_N * 32), c = i / (LAST_N * 32) % nch;
+        float* w = reinterpret_cast<float*>(smem + w_off) + half * a.lo_off + c * KK * LAST_W;
+        w[i % (LAST_N * 32)] = 0.0f;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      cw::named_sync(1, NCONS);
+    }
+    const uint64_t dwh = desc(wbase), dwl = desc(wbase + wlo);
+    float* const ex = reinterpret_cast<float*>(smem + w_off + 2 * wlo);  // 2 x EX_ROWS x 9 floats
+    float bl[3];  // the biases
 #pragma unroll
-    for (int i = 0; i < 72; ++i) acc[i] = part[i] = 0.0f;
-    int fresh = 1;                 // the next product starts part afresh
-    int prev_w = -1, prev_a = -1;  // stages to release once the next group is issued
-    for (int c = 0; c < nch; ++c, ++qa) {
-      const int sa = qa % SA;
-      cw::mbar_wait(asplit0 + 8 * sa, (qa / SA) & 1);
-      const uint32_t hi = cw::smem_u32(smem + sa * a.a_stage), lo = hi + a.a_tx;
+    for (int o = 0; o < 3; ++o) bl[o] = o < a.cout ? a.bias[o] : 0.0f;
+    const Act act = act_of(a.epi);
+    int qa = 0, par = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Tile t = tile_of(a, u);
+      float acc[LAST_MB][12], part[LAST_MB][12];
+#pragma unroll
+      for (int j = 0; j < LAST_MB; ++j)
+#pragma unroll
+        for (int i = 0; i < 12; ++i) acc[j][i] = part[j][i] = 0.0f;
+      int prev_a = -1;
+      for (int c = 0; c < nch; ++c, ++qa) {
+        const int sa = qa % SA;
+        cw::mbar_wait(asplit0 + 8 * sa, (qa / SA) & 1);
+        const uint64_t dah = desc(cw::smem_u32(smem + sa * a.a_stage)), dal = dah + (a.a_tx >> 4);
 #pragma unroll 1
-      for (int tap = 0; tap < KK; ++tap, ++qw) {
-        const int sw = qw % SW;
-        cw::mbar_wait(wfull0 + 8 * sw, (qw / SW) & 1);
-        const uint32_t wh = cw::smem_u32(smem + w_off + sw * 2 * W_BYTES) + mt * 64 * 128;
-        const uint32_t wlo = wh + W_BYTES;
-        cw::fence_acc(part);
-        cw::wgmma_fence();
-        if (!(TF32_PLANT == 2 && tap == 0)) {
-          const uint32_t col = (HALF * h + (tap / K) * bw + tap % K) * 128;
+        for (int dy = 0; dy < KK; ++dy) {
+#pragma unroll
+          for (int j = 0; j < LAST_MB; ++j) cw::fence_acc(part[j]);
+          cw::wgmma_fence();
+          // Descriptor units (16 bytes): a (chunk, dy) weight block, dy rows of pixels.
+          const uint32_t wrow = (c * KK + dy) * (LAST_W * 4 / 16), arow = dy * bw * 8;
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
-            const uint64_t ah = desc(wh + 32 * kk), bh_ = desc(hi + col + 32 * kk);
-            if (TF32_PLANT != 1) {
-              mma144(part, desc(wlo + 32 * kk), bh_, !fresh);
-              mma144(part, ah, desc(lo + col + 32 * kk), 1);
-              fresh = 0;
+            const uint64_t b_hi = dwh + wrow + 2 * kk, b_lo = dwl + wrow + 2 * kk;
+#pragma unroll
+            for (int j = 0; j < LAST_MB; ++j) {
+              const uint32_t col = (wgi + 2 * j) * 64 * 8 + arow + 2 * kk;
+              if (TF32_PLANT != 1) {
+                mma24(part[j], dal + col, b_hi, kk > 0);
+                mma24(part[j], dah + col, b_lo, 1);
+              }
+              mma24(part[j], dah + col, b_hi, TF32_PLANT != 1 || kk > 0);
             }
-            mma144(part, ah, bh_, !fresh);
-            fresh = 0;
+          }
+          cw::wgmma_commit();
+          cw::wgmma_wait<0>();  // each row of taps a partial sum, added in f32
+#pragma unroll
+          for (int j = 0; j < LAST_MB; ++j) {
+            cw::fence_acc(part[j]);
+#pragma unroll
+            for (int i = 0; i < 12; ++i) acc[j][i] += part[j][i];
+          }
+          if (prev_a >= 0) {
+            release(aempty0 + 8 * prev_a);
+            prev_a = -1;
           }
         }
-        cw::wgmma_commit();
-        if (tap % K == K - 1) {  // the row's last tap: part into acc
-          cw::wgmma_wait<0>();
-          cw::fence_acc(part);
-#pragma unroll
-          for (int i = 0; i < 72; ++i) acc[i] += part[i];
-          fresh = 1;
-        } else {
-          cw::wgmma_wait<1>();
-          cw::fence_acc(part);
-        }
-        if (prev_w >= 0) release(wempty0 + 8 * prev_w);
-        if (prev_a >= 0) {
-          release(aempty0 + 8 * prev_a);
-          prev_a = -1;
-        }
-        prev_w = sw;
+        prev_a = sa;
       }
-      prev_a = sa;
-    }
-    cw::wgmma_wait<0>();
-    cw::fence_acc(part);
-    release(wempty0 + 8 * prev_w);
-    release(aempty0 + 8 * prev_a);
+      release(aempty0 + 8 * prev_a);
 
-    // Epilogue: output o = obase + 8 i of column 8 j + 2 q4 + e.
-    const int obase = n0 + mt * 64 + 16 * wl + g;
-    const float b0 = a.bias[obase], b1 = a.bias[obase + 8];
+      // Epilogue: the sums of the three dx columns of each pixel row to
+      // shared memory (row m, dx, o at 9 m + 3 dx + o), then consumer
+      // thread n adds pixel column n's taps: rows n, n + 1, n + 2 (two
+      // exchange buffers, so one barrier a unit suffices).
+      float* const e = ex + par * (EX_ROWS * 9);
+      par ^= 1;
 #pragma unroll
-    for (int j = 0; j < 18; ++j)
+      for (int j = 0; j < LAST_MB; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = HALF * h + 8 * j + 2 * q4 + e;
-        const int q = n / bw, x = n - q * bw, fl = q / bh, y = q - fl * bh;
-        const int f = t.f0 + fl, yy = t.y0 + y, xx = t.x0 + x;
-        if (x >= a.tw || y >= a.rows || fl >= a.fr || f >= a.n || yy >= a.h || xx >= a.w) continue;
-        float* o = a.out + (f / a.tg) * a.sg + (f % a.tg) * a.st + ((long long)yy * a.w + xx) * a.sp +
-                   obase;
-        float v0 = acc[4 * j + e] + b0, v1 = acc[4 * j + 2 + e] + b1;
-        if (a.relu) {
-          v0 = fmaxf(v0, 0.0f);
-          v1 = fmaxf(v1, 0.0f);
+        for (int i = 0; i < 2; ++i) {
+          const int m = (wgi + 2 * j) * 64 + 16 * wl + g + 8 * i;
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              if (2 * q4 + q < 3) e[9 * m + 3 * dx + 2 * q4 + q] = acc[j][4 * dx + 2 * i + q];
         }
-        o[0] = v0;
-        o[8] = v1;
+      cw::named_sync(1, NCONS);
+      const int n = threadIdx.x, y = div_by(n, bw, a.mbw), x = n - y * bw;
+      if (x < min(a.tw, a.w - t.x0) && y < min(a.rows, a.cy1 - t.y0) && t.f0 < a.n) {
+        float* o = a.out + frame_base(a, t.f0) + (long long)(t.y0 + y - a.out_row0) * a.sr +
+                   (long long)(t.x0 + x) * a.sp;
+#pragma unroll
+        for (int oc = 0; oc < 3; ++oc)
+          if (oc < a.cout)
+            o[oc] = activate(e[9 * n + oc] + e[9 * n + 12 + oc] + e[9 * n + 24 + oc] + bl[oc], act);
       }
+    }
+    return;
+  } else {
+    const int mt = NH == 1 ? wgi : 0, h = NH == 2 ? wgi : 0;  // warpgroup wgi's outputs and half
+    int qa = 0, qw = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Tile t = tile_of(a, u / nct);
+      const int n0 = (u % nct) * COUT_T;
+      const int ph = (n0 + mt * 64) >> 6, pa = ph >> 1 & 1, pb = ph & 1;  // phase mode: (a, b)
+      // This thread's outputs oc and oc + 8 (phase mode: channels of phase
+      // ph); their biases are loaded now, their latency under the products.
+      const int oc = (MODE == PHASE ? 0 : n0 + mt * 64) + 16 * wl + g;
+      const float b0 = a.bias[oc], b1 = a.bias[oc + 8];
+      // The tensor cores add each product group into part with its sum
+      // truncated; part is summed into acc (round to nearest) after each row
+      // of taps, before the truncation drifts.
+      float acc[72], part[72];
+#pragma unroll
+      for (int i = 0; i < 72; ++i) acc[i] = part[i] = 0.0f;
+      int fresh = 1;                 // the next product starts part afresh
+      int prev_w = -1, prev_a = -1;  // stages to release once the next group is issued
+      for (int c = 0; c < nch; ++c, ++qa) {
+        const int sa = qa % SA;
+        cw::mbar_wait(asplit0 + 8 * sa, (qa / SA) & 1);
+        const uint32_t hi = cw::smem_u32(smem + sa * a.a_stage), lo = hi + a.a_tx;
+#pragma unroll 1
+        for (int tap = 0; tap < KK; ++tap, ++qw) {
+          const int sw = qw % SW;
+          cw::mbar_wait(wfull0 + 8 * sw, (qw / SW) & 1);
+          const uint32_t wh = cw::smem_u32(smem + w_off + sw * 2 * W_BYTES) + mt * 64 * 128;
+          const uint32_t wlo = wh + W_BYTES;
+          cw::fence_acc(part);
+          cw::wgmma_fence();
+          if (!(TF32_PLANT == 2 && tap == 0)) {
+            const int dy = MODE == PHASE ? pa + tap / 2 : tap / K;
+            const int dx = MODE == PHASE ? pb + tap % 2 : tap % K;
+            const uint32_t col = (HALF * h + dy * bw + dx) * 128;
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint64_t ah = desc(wh + 32 * kk), bh_ = desc(hi + col + 32 * kk);
+              if (TF32_PLANT != 1) {
+                mma144(part, desc(wlo + 32 * kk), bh_, !fresh);
+                mma144(part, ah, desc(lo + col + 32 * kk), 1);
+                fresh = 0;
+              }
+              mma144(part, ah, bh_, !fresh);
+              fresh = 0;
+            }
+          }
+          cw::wgmma_commit();
+          if (tap % TPR == TPR - 1) {  // the row's last tap: part into acc
+            cw::wgmma_wait<0>();
+            cw::fence_acc(part);
+#pragma unroll
+            for (int i = 0; i < 72; ++i) acc[i] += part[i];
+            fresh = 1;
+          } else {
+            cw::wgmma_wait<1>();
+            cw::fence_acc(part);
+          }
+          if (prev_w >= 0) release(wempty0 + 8 * prev_w);
+          if (prev_a >= 0) {
+            release(aempty0 + 8 * prev_a);
+            prev_a = -1;
+          }
+          prev_w = sw;
+        }
+        prev_a = sa;
+      }
+      cw::wgmma_wait<0>();
+      cw::fence_acc(part);
+      release(wempty0 + 8 * prev_w);
+      release(aempty0 + 8 * prev_a);
+
+      // Epilogue: outputs oc and oc + 8 of column n = 144 h + 8 j + 2 q4 + e,
+      // its tile pixel (fl, y, x) by multiply-high divisions, each column on
+      // its own; the tile's bounds and its base address once a unit, a
+      // column's offset from the base in 32 bits (phase mode: pixel (y, x)
+      // at (2y + a, 2x + b), its rows within [r0, r1)).
+      const int xlim = min(a.tw, a.w - t.x0), flim = min(a.fr, a.n - t.f0);
+      int ylo = 0, ylim = min(a.rows, a.cy1 - t.y0);
+      if (MODE == PHASE) {
+        ylo = max(0, (a.r0 - pa + 1) / 2 - t.y0);
+        ylim = min(ylim, (a.r1 - pa + 1) / 2 - t.y0);
+      }
+      const int sy = (MODE == PHASE ? 2 : 1) * (int)a.sr, sx = (MODE == PHASE ? 2 : 1) * (int)a.sp;
+      const long long fb0 = frame_base(a, t.f0);
+      float* const o0 = a.out + fb0 +
+                        (long long)((MODE == PHASE ? 2 * t.y0 + pa : t.y0) - a.out_row0) * a.sr +
+                        (long long)(MODE == PHASE ? 2 * t.x0 + pb : t.x0) * a.sp + oc;
+      const Act act = act_of(a.epi);
+#pragma unroll
+      for (int j = 0; j < 18; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = HALF * h + 8 * j + 2 * q4 + e;
+          const int q = div_by(n, bw, a.mbw), x = n - q * bw;
+          int fl = 0, y = q;
+          if (a.fr > 1) {
+            fl = div_by(q, bh, a.mbh);
+            y = q - fl * bh;
+          }
+          if (x >= xlim || y < ylo || y >= ylim || fl >= flim) continue;
+          float* o = o0 + (y * sy + x * sx);
+          if (a.fr > 1) o += frame_base(a, t.f0 + fl) - fb0;
+          o[0] = activate(acc[4 * j + e] + b0, act);
+          o[8] = activate(acc[4 * j + 2 + e] + b1, act);
+        }
+    }
   }
 }
 
-// NHWC f32 frames (n, h, w, c) read in boxes of 32 channels x bw x bh x fr
-// pixels, 128-byte swizzled.
-inline int make_map(CUtensorMap* m, const void* base, int c, int w, int h, int n, int bw, int bh,
-                    int fr) {
+// NHWC f32 frames (n, rows, w, c), rows_stride rows apart, read in boxes of
+// 32 channels x bw x bh x fr pixels, 128-byte swizzled.
+inline int make_map(CUtensorMap* m, const void* base, int c, int w, int rows, int rows_stride, int n,
+                    int bw, int bh, int fr) {
   PFN_cuTensorMapEncodeTiled_v12000 fn = cw::encode_fn();
   if (fn == nullptr) return cw::TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)rows, (cuuint64_t)n};
   const cuuint64_t strides[3] = {(cuuint64_t)c * 4, (cuuint64_t)w * c * 4,
-                                 (cuuint64_t)h * w * c * 4};
+                                 (cuuint64_t)rows_stride * w * c * 4};
   const cuuint32_t box[4] = {CHUNK, (cuuint32_t)bw, (cuuint32_t)bh, (cuuint32_t)fr};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims,
@@ -413,10 +676,10 @@ inline int make_map(CUtensorMap* m, const void* base, int c, int w, int h, int n
 }
 
 // CTAs that can run at once: one an SM.
-template <int K, int NH>
+template <int K, int NH, int MODE>
 int resident_ctas() {
   static const int n = [] {
-    return cudaFuncSetAttribute(tf32_kernel<K, NH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    return cudaFuncSetAttribute(tf32_kernel<K, NH, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 SMEM_MAX) == cudaSuccess
                ? cw::sm_count()
                : 0;
@@ -424,40 +687,77 @@ int resident_ctas() {
   return n;
 }
 
-template <int K, int NH>
+template <int K, int NH, int MODE>
 int launch_t(const CUtensorMap& xm, const Args& a, int smem, cudaStream_t stream) {
-  const int cap = resident_ctas<K, NH>();
+  const int cap = resident_ctas<K, NH, MODE>();
   if (cap <= 0) return (int)cudaErrorInvalidConfiguration;
-  const long long units = (long long)a.groups * a.tiles_y * a.tiles_x * (a.cout / (128 / NH));
+  const long long units =
+      (long long)a.groups * a.tiles_y * a.tiles_x * (MODE == LAST ? 1 : a.cout / (128 / NH));
   const long long grid = units < cap ? units : cap;
-  tf32_kernel<K, NH><<<(int)grid, NTHREAD, smem, stream>>>(xm, a);
+  tf32_kernel<K, NH, MODE><<<(int)grid, NTHREAD, smem, stream>>>(xm, a);
   return (int)cudaGetLastError();
 }
 
-// One conv over x (a.n, a.h, a.w, a.cin) NHWC f32 into a.out, k = 3 or 5,
-// with a tile of a.fr x a.rows x a.tw on nh n144 halves (128 / nh outputs a
-// CTA). Returns the CUDA error code (or cw::TENSOR_MAP_ERROR + a CUresult).
-inline int launch(const float* x, Args a, int k, int nh, cudaStream_t stream) {
-  if ((k != 3 && k != 5) || (nh != 1 && nh != 2) || a.n < 1 || a.h < 1 || a.w < 1 ||
-      a.cin < CHUNK || a.cin % CHUNK || a.cout < 64 || a.cout % (128 / nh) ||
-      a.cout_pad % COUT_PAD || a.cout_pad < a.cout || a.fr < 1 || a.rows < 1 || a.tw < 1 ||
-      a.tw > a.w || a.rows > a.h || (a.fr > 1 && a.rows != a.h) || a.tg < 1)
+// One launch over x (a.n frames of x_rows rows from frame row a.x_row0, a.w,
+// a.cin) NHWC f32 into a.out, in mode `mode` with a k x k kernel (3 or 5 in
+// conv mode, 3 otherwise) on a tile of a.fr x a.rows x a.tw, on nh n144
+// halves (conv, phase) or 2 LAST_MB m64 blocks (last); the output rows
+// [a.r0, a.r1) stored. Returns the CUDA error code (or
+// cw::TENSOR_MAP_ERROR + a CUresult).
+inline int launch(const float* x, Args a, int k, int nh, int mode, int x_rows, cudaStream_t stream) {
+  const int ho = mode == PHASE ? 2 * a.h : a.h;  // the output frame's rows
+  if ((mode != CONV && mode != PHASE && mode != LAST) || (k != 3 && (k != 5 || mode != CONV)) ||
+      (nh != 1 && nh != 2) || a.n < 1 || a.h < 1 || a.w < 1 || a.cin < CHUNK || a.cin % CHUNK ||
+      a.fr < 1 || a.rows < 1 || a.tw < 1 || a.tw > a.w || a.tg < 1 || a.x_row0 < 0 || x_rows < 1 ||
+      a.x_row0 >= a.h || a.r0 < 0 || a.r1 > ho || a.r0 >= a.r1 || a.out_row0 > a.r0 ||
+      (a.epi != EPI_NONE && a.epi != EPI_RELU && a.epi != EPI_LEAKY))
+    return (int)cudaErrorInvalidValue;
+  if (mode == LAST) {  // the weights and the exchange fill the 64 KB weight region at Cin 64
+    if (a.cout < 1 || a.cout > 3 || a.cout_pad != 3 * LAST_N || a.cin > 2 * CHUNK || a.fr != 1 ||
+        2 * (a.cin / CHUNK) * 3 * LAST_W * 4 + 2 * EX_ROWS * 9 * 4 > 2 * W_RING)
+      return (int)cudaErrorInvalidValue;
+  } else if (a.cout < 64 || a.cout % (128 / nh) || a.cout_pad % COUT_PAD || a.cout_pad < a.cout ||
+             (mode == PHASE && (a.cout != 256 || a.cout_pad != 256))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.cy0 = mode == PHASE ? a.r0 / 2 : a.r0;
+  a.cy1 = mode == PHASE ? (a.r1 + 1) / 2 : a.r1;
+  if (a.rows > a.cy1 - a.cy0 || (a.fr > 1 && (a.rows != a.h || a.cy0 != 0 || a.x_row0 != 0)))
     return (int)cudaErrorInvalidValue;
   const int bw = a.tw + k - 1, bh = a.rows + k - 1;
-  if (((a.fr - 1) * bh + a.rows - 1) * bw + a.tw > nh * HALF || bw > 256 || bh > 256 || a.fr > 256)
-    return (int)cudaErrorInvalidValue;  // an output column past the halves
+  const int cols = ((a.fr - 1) * bh + a.rows - 1) * bw + a.tw;  // the tile's last output column + 1
+  const int read = mode == LAST ? 2 * LAST_MB * 64 : nh * HALF;  // the columns the products read
+  if (cols + (mode == LAST ? 2 : 0) > read || bw > 256 || bh > 256 || a.fr > 256)
+    return (int)cudaErrorInvalidValue;  // an output column past the halves or blocks
   a.a_tx = a.fr * bh * bw * 128;
   a.a_stage = (2 * a.a_tx + 1023) / 1024 * 1024;
-  const int smem = smem_bytes(a.a_tx, nh, k, bw);
+  const int smem = smem_bytes(a.a_tx, read, k, bw);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidConfiguration;
+  if (a.n >= 65536 || a.tg >= 65536 || 2 * (a.rows * a.sr + a.tw * a.sp) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;  // div_by's range, and a column's 32-bit offset in a tile
+  a.mbw = magic(bw);
+  a.mbh = magic(bh);
+  a.mtg = magic((int)a.tg);
   a.tiles_x = (a.w + a.tw - 1) / a.tw;
-  a.tiles_y = (a.h + a.rows - 1) / a.rows;
+  a.tiles_y = (a.cy1 - a.cy0 + a.rows - 1) / a.rows;
   a.groups = (a.n + a.fr - 1) / a.fr;
+  const int valid = x_rows < a.h - a.x_row0 ? x_rows : a.h - a.x_row0;  // frame rows x holds
+  // The input rows the stored outputs read (phase mode: (r0 - 1) / 2 to r1 / 2).
+  int need0 = mode == PHASE ? (a.r0 - 1) >> 1 : a.r0 - k / 2;
+  int need1 = mode == PHASE ? (a.r1 >> 1) + 1 : a.r1 + k / 2;
+  need0 = need0 > 0 ? need0 : 0;
+  need1 = need1 < a.h ? need1 : a.h;
+  if (a.x_row0 > need0 || a.x_row0 + valid < need1) return (int)cudaErrorInvalidValue;  // rows x lacks
   CUtensorMap xm;
-  const int e = make_map(&xm, x, a.cin, a.w, a.h, a.n, bw, bh, a.fr);
+  const int e = make_map(&xm, x, a.cin, a.w, valid, x_rows, a.n, bw, bh, a.fr);
   if (e != 0) return e;
-  if (k == 3) return nh == 2 ? launch_t<3, 2>(xm, a, smem, stream) : launch_t<3, 1>(xm, a, smem, stream);
-  return nh == 2 ? launch_t<5, 2>(xm, a, smem, stream) : launch_t<5, 1>(xm, a, smem, stream);
+  if (mode == PHASE)
+    return nh == 2 ? launch_t<3, 2, PHASE>(xm, a, smem, stream)
+                   : launch_t<3, 1, PHASE>(xm, a, smem, stream);
+  if (mode == LAST) return launch_t<3, 1, LAST>(xm, a, smem, stream);
+  if (k == 3)
+    return nh == 2 ? launch_t<3, 2, CONV>(xm, a, smem, stream) : launch_t<3, 1, CONV>(xm, a, smem, stream);
+  return nh == 2 ? launch_t<5, 2, CONV>(xm, a, smem, stream) : launch_t<5, 1, CONV>(xm, a, smem, stream);
 }
 
 }  // namespace

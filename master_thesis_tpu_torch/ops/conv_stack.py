@@ -80,6 +80,11 @@ FRAME_COLS, FRAME_TW = 288, 64
 # The 3xTF32 frame kernel's pixel columns a wgmma (csrc/conv_frame_tf32_wgmma.cuh:
 # one or two n144 halves a tile).
 TF32_HALF = 144
+# Its modes and epilogues (csrc/conv_frame_tf32_wgmma.cuh), and last mode's
+# m64 pixel blocks a tile (2 LAST_MB).
+TF32_MODES = {"conv": 0, "phase": 1, "last": 2}
+TF32_EPILOGUES = {"none": 0, "relu": 1, "leaky": 2}
+TF32_LAST_BLOCKS = 4
 # Tile candidates (rows, cols) of K8's fused groups, largest first.
 BAND_TILES = ((32, 32), (16, 32), (16, 16), (8, 16), (4, 16), (2, 16), (1, 16))
 # The planner's exchange rate: a byte of device memory costs about as much
@@ -156,15 +161,16 @@ def frame_tile(n: int, h: int, w: int, k: int) -> Tuple[int, int, int]:
     return min(n, (fit - (h - 1)) // (h + k - 1) + 1), h, tw
 
 
-def tf32_smem(fr: int, rows: int, tw: int, k: int, nh: int) -> int:
+def tf32_smem(fr: int, rows: int, tw: int, k: int, nh: int, cols: Optional[int] = None) -> int:
     """Shared memory of the 3xTF32 frame kernel at a tile
     (``csrc/conv_frame_tf32_wgmma.cuh:smem_bytes``): two box stages of hi +
-    lo copies, the 64 KB weight ring, the barriers, and slack where the
-    dropped columns would read past them."""
+    lo copies, the 64 KB weight region, the barriers, and slack where the
+    dropped columns would read past them (``cols``: the columns the
+    products read, ``nh`` n144 halves by default; last mode's m64 blocks)."""
     bw, bh = tw + k - 1, rows + k - 1
     a_tx = fr * bh * bw * 128
     a_stage = -(-2 * a_tx // 1024) * 1024
-    reach = a_stage + a_tx + (nh * TF32_HALF + (k - 1) * (bw + 1)) * 128
+    reach = a_stage + a_tx + ((nh * TF32_HALF if cols is None else cols) + (k - 1) * (bw + 1)) * 128
     return max(2 * a_stage + 2 * 2 * 128 * 128, reach) + 128
 
 
@@ -205,6 +211,36 @@ def frame_tile_tf32(n: int, h: int, w: int, k: int, cout: int) -> Tuple[int, int
                 best = (key, (fr, rows, tw, nh))
     if best is None:
         raise ValueError(f"no 3xTF32 frame tile fits a {k}x{k} conv over {h}x{w} frames")
+    return best[1]
+
+
+def _last_fits(rows: int, tw: int) -> bool:
+    read = 64 * TF32_LAST_BLOCKS  # a column's sum reads the pixel rows two further on
+    return ((rows - 1) * (tw + 2) + tw + 2 <= read and rows + 2 <= 256
+            and tf32_smem(1, rows, tw, 3, 1, cols=read) <= SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def last_tile_tf32(h: int, w: int) -> Tuple[int, int]:
+    """The 3xTF32 kernel's last-mode tile ``(rows, cols)`` for a 3x3 conv to
+    at most 3 outputs over ``h x w`` rows of a frame (one frame a tile, its
+    wrapped columns computed in :data:`TF32_LAST_BLOCKS` m64 blocks): of the
+    column widths 64, 32, 16, 8 (at most ``w``), as many rows as fit those
+    blocks and :data:`SMEM_LIMIT`, spread evenly over the rows; the one with
+    the fewest tiles (ties: wider)."""
+    best = None
+    for tw in sorted({min(w, t) for t in (64, 32, 16, 8)}, reverse=True):
+        rows = 0
+        while rows < h and _last_fits(rows + 1, tw):
+            rows += 1
+        if rows == 0:
+            continue
+        rows = -(-h // -(-h // rows))
+        key = (-(-h // rows) * -(-w // tw), -tw)
+        if best is None or key < best[0]:
+            best = (key, (rows, tw))
+    if best is None:
+        raise ValueError(f"no 3xTF32 last-mode tile fits {h}x{w} rows")
     return best[1]
 
 
@@ -722,39 +758,106 @@ def conv_stack_banded_plain(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _tf32_lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The 3xTF32 frame kernel's library; ``defines`` selects a variant (a
+    """The 3xTF32 kernel's library; ``defines`` selects a variant (a
     planted fault, ``-DTF32_PLANT``, for the checks on the card)."""
     lib = _build.load("conv_frame_tf32", defines)
-    lib.conv_frame_tf32_forward.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                                            + [ctypes.c_int] * 12 + [ctypes.c_longlong] * 4
-                                            + [ctypes.c_void_p])
+    lib.conv_frame_tf32_forward.argtypes = [ctypes.POINTER(_TF32Call), ctypes.c_void_p]
     lib.conv_frame_tf32_forward.restype = ctypes.c_int
     return lib
 
 
-def _tf32_out(n: int, h: int, w: int, cout: int, swap: bool) -> Tuple[int, int, int, int]:
-    """The 3xTF32 kernel's output addressing ``(tg, sg, st, sp)`` (as
-    :func:`wide_out_strides`): NHWC, or with ``swap`` sep4d's regrouping of
-    square tiles (:func:`swap_tiles`): tile ``hw g + t``'s pixel q at tile
-    ``hw g + q``'s pixel t, ``hw = h * w``."""
+class _TF32Call(ctypes.Structure):
+    """``TF32Call`` of csrc/conv_frame_tf32.cu, field for field."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("x", "w", "b", "out")]
+                + [(f, ctypes.c_longlong) for f in ("lo_off", "tg", "sg", "st", "sr", "sp")]
+                + [(f, ctypes.c_int) for f in ("n", "h", "wd", "cin", "cout", "cout_pad", "k", "mode", "epi",
+                                               "fr", "rows", "tw", "nh", "x_row0", "x_rows", "r0", "r1",
+                                               "out_row0")])
+
+
+def tf32_tile(mode: str, n: int, h: int, w: int, k: int, cout: int, cy0: int, cy1: int,
+              x_row0: int) -> Tuple[int, int, int, int]:
+    """The tile ``(frames, rows, cols, halves)`` of one launch of the 3xTF32
+    kernel computing the rows ``[cy0, cy1)`` of ``n`` frames of ``h x w``
+    (the input's resolution): :func:`frame_tile_tf32` (whole frames only
+    where the launch covers them), or in last mode :func:`last_tile_tf32`
+    with one half."""
+    if mode == "last":
+        return (1, *last_tile_tf32(cy1 - cy0, w), 1)
+    whole = cy0 == 0 and cy1 == h and x_row0 == 0
+    return frame_tile_tf32(n if whole else 1, cy1 - cy0, w, k, cout)
+
+
+def tf32_launch(x: torch.Tensor, mat: torch.Tensor, bias: torch.Tensor, out: torch.Tensor, *, mode: str,
+                k: int, cout: int, epi: str, hin: Optional[int] = None, rows: Optional[Tuple[int, int]] = None,
+                x_row0: int = 0, out_row0: int = 0,
+                addr: Optional[Tuple[int, int, int, int, int]] = None) -> None:
+    """One launch of ``csrc/conv_frame_tf32.cu`` (3xTF32 on ``wgmma``), the one
+    place the kernel is launched; counted in ``conv_frame_tf32_cuda.launches``.
+    ``x`` contiguous NHWC f32 ``(N, rows held, W, Cin)`` on the card, its row 0
+    the frame's row ``x_row0`` of ``hin`` (all of x's rows by default);
+    ``mat`` the packed hi then lo matrix of ``mode`` (``"conv"``: a ``k x k``
+    conv to ``cout`` outputs, :func:`.fragments.wgmma_tf32_matrix`;
+    ``"phase"``: an upsample-conv's 4 phases, ``cout = 256``,
+    :func:`.fragments.wgmma_tf32_phase_matrix`; ``"last"``: a 3x3 conv to at
+    most 3 outputs, :func:`.fragments.wgmma_tf32_last_matrix`); ``bias``
+    f32; ``epi`` ``"none"``, ``"relu"`` or ``"leaky"``. Writes the output
+    rows ``rows = (r0, r1)`` (the
+    output's resolution: 2x in phase mode; all by default) at row ``r -
+    out_row0`` of ``out``, addressed ``addr = (tg, sg, st, sr, sp)``
+    (frame f's row r, column x, channel o at ``(f // tg) sg + (f % tg) st +
+    (r - out_row0) sr + x sp + o``; ``out``'s own NHWC strides by default)."""
+    n, x_rows, w, cin = x.shape
+    hin = x_row0 + x_rows if hin is None else hin
+    scale = 2 if mode == "phase" else 1
+    r0, r1 = (0, scale * hin) if rows is None else rows
+    if (not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous() or out.dtype != torch.float32
+            or mat.dtype != torch.float32 or bias.dtype != torch.float32
+            or {t.device for t in (x, mat, bias, out)} != {x.device}):
+        raise ValueError("the 3xTF32 kernel takes contiguous NHWC float32 CUDA tensors, its operands on x's device")
+    if mode not in TF32_MODES or epi not in TF32_EPILOGUES:
+        raise ValueError(f"mode {mode!r} / epilogue {epi!r}: not the 3xTF32 kernel's")
+    cy0, cy1 = (r0 // 2, (r1 + 1) // 2) if mode == "phase" else (r0, r1)
+    fr, trows, tw, nh = tf32_tile(mode, n, hin, w, k, cout, cy0, cy1, x_row0)
+    taps = {"phase": 4, "last": 3}.get(mode, k * k)  # last mode: rows of taps
+    cout_pad = mat.numel() // (2 * taps * cin)
+    tg, sg, st, sr, sp = addr or (n, 0, out.stride(0), out.stride(1), out.stride(2))
+    call = _TF32Call(x.data_ptr(), mat.data_ptr(), bias.data_ptr(), out.data_ptr(), mat.numel() // 2, tg, sg, st,
+                     sr, sp, n, hin, w, cin, cout, cout_pad, k, TF32_MODES[mode], TF32_EPILOGUES[epi], fr, trows,
+                     tw, nh, x_row0, x_rows, r0, r1, out_row0)
+    lib = _tf32_lib()
+    _build.check(lib, lib.conv_frame_tf32_forward(ctypes.byref(call),
+                                                  torch.cuda.current_stream(x.device).cuda_stream),
+                 "conv_frame_tf32_forward")
+    conv_frame_tf32_cuda.launches += 1
+
+
+def _tf32_out(n: int, h: int, w: int, cout: int, swap: bool) -> Tuple[int, int, int, int, int]:
+    """The 3xTF32 kernel's output addressing ``(tg, sg, st, sr, sp)`` (as
+    :func:`wide_out_strides`, with the row stride ``sr = w sp``): NHWC, or
+    with ``swap`` sep4d's regrouping of square tiles (:func:`swap_tiles`):
+    tile ``hw g + t``'s pixel q at tile ``hw g + q``'s pixel t, ``hw = h *
+    w``."""
     if not swap:
-        return n, 0, h * w * cout, cout
+        return n, 0, h * w * cout, w * cout, cout
     hw = h * w
     if h != w or n % hw:
         raise ValueError(f"swap regroups square tiles by their pixel count; got {n} of {h}x{w}")
-    return hw, hw * hw * cout, cout, hw * cout
+    return hw, hw * hw * cout, cout, w * hw * cout, hw * cout
 
 
 def conv_frame_tf32_cuda(x: torch.Tensor, p: PackedStack, i: int, swap: bool = False) -> torch.Tensor:
     """Conv ``i`` of the f32 stack ``p`` (one that :func:`is_frame`) on
     contiguous NHWC ``(N, H, W, Cin)`` f32 frames, zero-padded at the frame's
-    border: one launch of ``csrc/conv_frame_tf32.cu`` (3xTF32 on ``wgmma``)
-    over the tiles of :func:`frame_tile_tf32`. Returns NHWC ``(N, H, W,
-    Cout)``; with ``swap`` (square frames, N a multiple of their pixel count)
-    regrouped as :func:`swap_tiles` regroups tiles, by the epilogue's store
-    addresses.
+    border: one launch of ``csrc/conv_frame_tf32.cu`` (3xTF32 on ``wgmma``,
+    :func:`tf32_launch`) over the tiles of :func:`frame_tile_tf32`. Returns
+    NHWC ``(N, H, W, Cout)``; with ``swap`` (square frames, N a multiple of
+    their pixel count) regrouped as :func:`swap_tiles` regroups tiles, by the
+    epilogue's store addresses.
     Other strides, dtypes and a conv without its packed operand are
-    refused."""
+    refused. ``conv_frame_tf32_cuda.launches`` counts every launch of the
+    kernel (the tail's too, :func:`.tail.tail_stage_tf32_cuda`)."""
     k, ci, co = p.specs[i]
     if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC (N, H, W, C) float32 CUDA tensor")
@@ -766,17 +869,10 @@ def conv_frame_tf32_cuda(x: torch.Tensor, p: PackedStack, i: int, swap: bool = F
     if mat.device != x.device or p.b.device != x.device:
         raise ValueError("the stack must be packed on x's device")
     n, h, w, _ = x.shape
-    fr, rows, tw, nh = frame_tile_tf32(n, h, w, k, co)
-    tg, sg, st, sp = _tf32_out(n, h, w, co, swap)
     out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
-    lib = _tf32_lib()
-    rc = lib.conv_frame_tf32_forward(x.data_ptr(), mat.data_ptr(), p.b.data_ptr() + 4 * p.b_offs[i],
-                                     out.data_ptr(), mat.numel() // 2, n, h, w, ci, co,
-                                     mat.numel() // (2 * k * k * ci), k, int(p.relus[i]), fr, rows,
-                                     tw, nh, tg, sg, st, sp,
-                                     torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "conv_frame_tf32_forward")
-    conv_frame_tf32_cuda.launches += 1
+    bias = p.b[p.b_offs[i]: p.b_offs[i] + co]
+    tf32_launch(x, mat, bias, out, mode="conv", k=k, cout=co, epi="relu" if p.relus[i] else "none",
+                addr=_tf32_out(n, h, w, co, swap))
     return out
 
 

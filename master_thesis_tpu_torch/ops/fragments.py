@@ -5,7 +5,8 @@
 :func:`wgmma_phase_adjoint_matrix` for ``csrc/tail_bwd_wgmma.cuh``,
 :func:`wgmma_pull_matrix` for ``csrc/conv_bwd_wgmma.cuh``,
 :func:`wgmma_wide_matrix` for ``csrc/conv3x3_wide_wgmma.cuh`` and
-``csrc/conv_frame_wgmma.cuh``, :func:`wgmma_tf32_matrix` for
+``csrc/conv_frame_wgmma.cuh``, :func:`wgmma_tf32_matrix`,
+:func:`wgmma_tf32_phase_matrix` and :func:`wgmma_tf32_last_matrix` for
 ``csrc/conv_frame_tf32_wgmma.cuh``).
 
 A conv's weights form a row-major ``(K, N)`` matrix, rows ordered
@@ -130,6 +131,22 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(x.float() - hi)
 
 
+def _tf32_layout(m: torch.Tensor) -> torch.Tensor:
+    """``(O, C, taps)`` f32 (O a multiple of 8, C of 32) -> its hi matrix,
+    then its lo matrix (:func:`tf32_split`), each index order ``(c // 32,
+    tap, o, 32 channels)``, 16-byte chunk ``j`` of row ``o`` at position ``j
+    ^ o % 8``."""
+    o, c, taps = m.shape
+    rows = torch.arange(o, device=m.device).view(o, 1)
+    pos = torch.arange(8, device=m.device).view(1, 8)
+
+    def layout(part):
+        blocks = part.reshape(o, c // 32, 8, 4, taps).permute(1, 4, 0, 2, 3)  # (chunk, tap, o, j, c % 4)
+        return blocks[:, :, rows, pos ^ (rows % 8)].reshape(-1)
+
+    return torch.cat([layout(part) for part in tf32_split(m)])
+
+
 def wgmma_tf32_matrix(w: torch.Tensor) -> torch.Tensor:
     """A 3x3 or 5x5 conv's OIHW kernel as the A operands of
     ``csrc/conv_frame_tf32_wgmma.cuh`` (the swapped GEMM in 3xTF32: M =
@@ -145,14 +162,41 @@ def wgmma_tf32_matrix(w: torch.Tensor) -> torch.Tensor:
                          f"Cout % 64 == 0, got {tuple(w.shape)}")
     op = -(-o // 128) * 128
     w = torch.nn.functional.pad(w.float(), (0, 0, 0, 0, 0, 0, 0, op - o))
-    rows = torch.arange(op, device=w.device).view(op, 1)
-    pos = torch.arange(8, device=w.device).view(1, 8)
+    return _tf32_layout(w.reshape(op, c, k * k))
 
-    def layout(m):
-        blocks = m.reshape(op, c // 32, 8, 4, k * k).permute(1, 4, 0, 2, 3)  # (chunk, tap, o, j, c % 4)
-        return blocks[:, :, rows, pos ^ (rows % 8)].reshape(-1)
 
-    return torch.cat([layout(part) for part in tf32_split(w)])
+def wgmma_tf32_last_matrix(w: torch.Tensor) -> torch.Tensor:
+    """A 3x3 conv to at most 3 outputs (the tail's conv_last) as the B operand
+    of ``csrc/conv_frame_tf32_wgmma.cuh``'s last mode (the unswapped GEMM, an
+    n24 product a row of taps): per row of taps ``ky`` 24 rows ``8 kx + o``
+    (outputs zero-padded to 8) of the weight ``w[o, c, ky, kx]``, hi then lo,
+    in :func:`wgmma_tf32_matrix`'s layout with the rows of taps as its taps:
+    index order ``(c // 32, ky, 8 kx + o, 32 channels)``, swizzled likewise."""
+    o, c = w.shape[0], w.shape[1]
+    if c % 32 or o > 3 or w.shape[2:] != (3, 3):
+        raise ValueError(f"the tf32 last-mode layout needs a 3x3 kernel, Cin % 32 == 0, Cout <= 3, "
+                         f"got {tuple(w.shape)}")
+    w = torch.nn.functional.pad(w.float(), (0, 0, 0, 0, 0, 0, 0, 8 - o))  # (8, c, ky, kx)
+    return _tf32_layout(w.permute(3, 0, 1, 2).reshape(24, c, 3))
+
+
+def wgmma_tf32_phase_matrix(fused: torch.Tensor) -> torch.Tensor:
+    """A nearest-2x upsample-conv in its 4-phase form as the A operand of
+    ``csrc/conv_frame_tf32_wgmma.cuh``'s phase mode: ``fused`` the ``(3, 3,
+    C, 4 * O)`` HWIO kernel of ``models.nn_ext.fused_upsample_conv_kernel``
+    (phases packed ``(a, b, o)``), O = 64. Its 4 phases x O outputs are the M
+    rows, phase-major (row ``64 (2 a + b) + o``), its 4 taps ``(ti, tj)``
+    (tap ``2 ti + tj``, input offset ``(a - 1 + ti, b - 1 + tj)``: the
+    kernel's ``fused[a + ti, b + tj, :, phase]``) the taps of
+    :func:`wgmma_tf32_matrix`'s layout: hi then lo, index order ``(c // 32,
+    tap, row, 32 channels)``, swizzled likewise."""
+    c, o = fused.shape[2], fused.shape[3] // 4
+    if c % 32 or o != 64 or fused.shape[:2] != (3, 3):
+        raise ValueError(f"the tf32 phase layout needs Cin % 32 == 0 and Cout == 64, got {c}, {o}")
+    f6 = fused.float().reshape(3, 3, c, 2, 2, o)
+    taps = torch.stack([torch.stack([f6[a + ti, b + tj, :, a, b, :] for ti in (0, 1) for tj in (0, 1)], dim=-1)
+                        for a in (0, 1) for b in (0, 1)])  # (phase, c, o, tap)
+    return _tf32_layout(taps.permute(0, 2, 1, 3).reshape(4 * o, c, 4))
 
 
 def wgmma_phase_matrix(fused: torch.Tensor) -> torch.Tensor:

@@ -27,26 +27,35 @@ backward (:func:`.tail_bwd.tail_bwd_first_cuda`); K6 recomputes with this
 module's stages.
 
 In f32 (:func:`tail_f32`, :func:`tail_banded_f32`) the tail is four
-:func:`.conv_f32.conv_f32_fwd` launches, NHWC: each upsample-conv at the
-high resolution reading its input through nearest x2 (the upsampled input
-is never formed), all in f32 as the TPU kernel takes it under
-``Precision.HIGHEST``; in bands, each conv computes the rows the next one
-reads, over band-sized buffers, and the first reads the frame in place.
-:func:`tail` and :func:`tail_banded` pick the route by the working dtype.
+launches of the 3xTF32 kernel (``csrc/conv_frame_tf32.cu``,
+:func:`tail_stage_tf32_cuda`), NHWC, with f32 accuracy as the TPU kernel
+takes it under ``Precision.HIGHEST``: each upsample-conv in its 4-phase
+form at the low resolution (phase mode), hr_conv in conv mode, conv_last as
+n24 products of its 3 outputs by a row's 3 taps (last mode); in bands,
+each stage computes the rows the next one reads, over band-sized buffers,
+and the first reads the frame in place. At a width other than the kernel's
+(nf != 64) each stage is one :func:`.conv_f32.conv_f32_fwd` (the SIMT
+kernel) instead (:func:`tail_f32_plan`).
+On the CPU each stage is :func:`.conv_f32.conv_f32_fwd_plain` (the
+upsample-convs through x2). The f32 first design, four
+:func:`.conv_f32.conv_f32_fwd` launches (the SIMT kernel, the
+upsample-convs at the high resolution), stays as :func:`tail_f32_first` /
+:func:`tail_banded_f32_first` for chip_smoke.py alone. :func:`tail` and
+:func:`tail_banded` pick the route by the working dtype.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from master_thesis_tpu_torch import _build
-from master_thesis_tpu_torch.ops import fragments
+from master_thesis_tpu_torch.ops import conv_stack, fragments
 from master_thesis_tpu_torch.ops import rrdb as rrdb_ops
-from master_thesis_tpu_torch.ops.conv_f32 import conv_f32_fwd, hwio, kernel_route, nhwc
+from master_thesis_tpu_torch.ops.conv_f32 import conv_f32_fwd, conv_f32_fwd_plain, hwio, kernel_route, nhwc
 from master_thesis_tpu_torch.models.nn_ext import (
     fused_upsample_conv_kernel,
     leaky_relu,
@@ -84,14 +93,22 @@ def pack_tail(
     - ``last_oihw`` / ``last_wg`` / ``last_w``: conv_last likewise, its 3
       outputs zero-padded to the wgmma's 8 and to one 16-wide mma.sync tile.
 
-    - ``{up1,up2,hr,last}_hwio``: each conv's own kernel as the f32 route's
-      HWIO operand (f32 only).
+    - ``{up1,up2,hr,last}_hwio``: each conv's own kernel as the SIMT f32
+      kernel's HWIO operand (f32 only; the f32 first design, and the f32
+      route's plain version);
+    - ``{up1,up2,hr,last}_tf32``: the 3xTF32 kernel's operands, hi then lo
+      (f32 only, at the kernel's widths: C = O = 64): the upsample-convs'
+      4 phases (``fragments.wgmma_tf32_phase_matrix``), hr_conv as a conv
+      (``fragments.wgmma_tf32_matrix``) and conv_last as the B operand of
+      an n24 product a row of taps (``fragments.wgmma_tf32_last_matrix``).
 
     The wgmma operands (``*_wg``) are made where the widths are the
     kernel's multiples (C % 32 == 0, O % 8 == 0), as for the trunk.
     """
     p: Dict[str, torch.Tensor] = {}
     wgmma = all(w.shape[1] % 32 == 0 and w.shape[0] % 8 == 0 for w, _ in (upconv1, upconv2, hr_conv))
+    tf32 = (dtype == torch.float32 and conv_last[0].shape[:2] == (3, KERNEL_NF)
+            and all(w.shape[:2] == (KERNEL_NF, KERNEL_NF) for w, _ in (upconv1, upconv2, hr_conv)))
     for name, (w, b) in (("up1", upconv1), ("up2", upconv2)):
         o, c = w.shape[0], w.shape[1]
         fused = fused_upsample_conv_kernel(w.detach().float().permute(2, 3, 1, 0))
@@ -104,6 +121,8 @@ def pack_tail(
         p[f"{name}_phase"] = phase.to(dtype).contiguous()
         if wgmma:
             p[f"{name}_wg"] = fragments.wgmma_phase_matrix(fused).to(dtype).contiguous()
+        if tf32:
+            p[f"{name}_tf32"] = fragments.wgmma_tf32_phase_matrix(fused).contiguous()
         p[f"{name}_oihw"] = w.detach().to(dtype).contiguous()
         p[f"{name}_b"] = b.detach().float().contiguous()
     for name, (w, b) in (("hr", hr_conv), ("last", conv_last)):
@@ -118,6 +137,9 @@ def pack_tail(
     if dtype == torch.float32:
         for name, (w, _) in zip(("up1", "up2", "hr", "last"), (upconv1, upconv2, hr_conv, conv_last)):
             p[f"{name}_hwio"] = hwio(w)
+    if tf32:
+        p["hr_tf32"] = fragments.wgmma_tf32_matrix(hr_conv[0].detach()).contiguous()
+        p["last_tf32"] = fragments.wgmma_tf32_last_matrix(conv_last[0].detach()).contiguous()
     return p
 
 
@@ -245,15 +267,17 @@ def tail_stage_cuda(k: int, src: torch.Tensor, p: Dict[str, torch.Tensor], out: 
     _build.check(lib, rc, "tail_stage")
 
 
-def tail_stage_cost(k: int, n: int, h: int, w: int, nf: int = KERNEL_NF) -> Tuple[int, int]:
+def tail_stage_cost(k: int, n: int, h: int, w: int, nf: int = KERNEL_NF,
+                    itemsize: int = 2) -> Tuple[int, int]:
     """(FLOPs, bytes) of stage ``k`` of the tail of a ``(n, nf, h, w)``
     input run on its own: its products (the upsample-convs in their 4-phase
-    form), its input read and its output written once."""
+    form), its input read and its output written once, ``itemsize`` bytes
+    an element (bf16 by default)."""
     px = [h * w, 4 * h * w, 16 * h * w, 16 * h * w][k]  # the stage's input pixels
     cout = 3 if k == 3 else nf
     if k < 2:
-        return 2 * n * 4 * px * 4 * nf * nf, 2 * n * nf * 5 * px
-    return 2 * n * px * 9 * nf * cout, 2 * n * px * (nf + cout)
+        return 2 * n * 4 * px * 4 * nf * nf, itemsize * n * nf * 5 * px
+    return 2 * n * px * 9 * nf * cout, itemsize * n * px * (nf + cout)
 
 
 def _upconv_first(lib, x, p, name, out, r0, rows, stream) -> None:
@@ -389,9 +413,14 @@ def tail_banded_plain(
     return torch.cat(outs, dim=2)
 
 
-# The f32 route's stages: (packed kernel, read through x2, epilogue).
+# The f32 route's stages: (packed kernel, read through x2, epilogue), and
+# the 3xTF32 kernel's mode for each.
 F32_STAGES = (("up1", True, "leaky"), ("up2", True, "leaky"), ("hr", False, "leaky"),
               ("last", False, "none"))
+TF32_MODES = ("phase", "phase", "conv", "last")
+# The 3xTF32 operands' lengths (f32 elements, hi and lo) at the kernel's width.
+_TF32_NUMEL = {"up1_tf32": 2 * 4 * 4 * KERNEL_NF**2, "up2_tf32": 2 * 4 * 4 * KERNEL_NF**2,
+               "hr_tf32": 2 * 9 * 128 * KERNEL_NF, "last_tf32": 2 * 3 * 24 * KERNEL_NF}
 
 
 def _check_f32(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> None:
@@ -403,25 +432,96 @@ def _check_f32(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> None:
             raise ValueError(f"{name}_hwio must be packed in float32 (pack_tail) on x's device")
 
 
-def tail_f32_stages(x: torch.Tensor, p: Dict[str, torch.Tensor], keep: int = 4):
-    """The first ``keep`` stages of :func:`tail_f32` on NHWC ``x``: their
-    NHWC outputs, in order (the backward's recompute keeps 3)."""
+def _simt_stage(k: int, x: torch.Tensor, p: Dict[str, torch.Tensor], out: torch.Tensor, **window) -> torch.Tensor:
+    """Stage ``k`` as the f32 first design runs it: one
+    :func:`.conv_f32.conv_f32_fwd` (the SIMT kernel), the upsample-convs at
+    the high resolution reading their input through x2."""
+    name, up, epi = F32_STAGES[k]
+    return conv_f32_fwd(x, p[f"{name}_hwio"], out, bias=p[f"{name}_b"], up=up, epi=epi, **window)
+
+
+def tail_stage_tf32_cuda(k: int, x: torch.Tensor, p: Dict[str, torch.Tensor], out: torch.Tensor, *,
+                         hin: Optional[int] = None, rows: Optional[Tuple[int, int]] = None, x_row0: int = 0,
+                         out_row0: int = 0) -> torch.Tensor:
+    """Stage ``k`` of the f32 tail (0 upconv1, 1 upconv2, 2 hr_conv, 3
+    conv_last) as one launch of the 3xTF32 kernel (``csrc/conv_frame_tf32.cu``:
+    phase mode for the upsample-convs at the low resolution, conv mode for
+    hr_conv, last mode (n24 products) for conv_last; ``conv_stack.tf32_launch``, counted in
+    ``conv_stack.conv_frame_tf32_cuda.launches``). ``x`` contiguous NHWC f32
+    ``(N, rows held, w, 64)`` on the card, ``out`` contiguous NHWC ``(N, rows,
+    w', 64 or 3)``; the row window as :func:`.conv_f32.conv_f32_fwd`'s:
+    ``x``'s row 0 is the frame's row ``x_row0`` of ``hin``, the output rows
+    ``rows = (r0, r1)`` (2x the input's for an upsample-conv) are written at
+    ``r - out_row0``. ``p`` from :func:`pack_tail` in f32 at the kernel's
+    width (``*_tf32``); anything else is refused. Returns ``out``."""
+    name, up, epi = F32_STAGES[k]
+    key = f"{name}_tf32"
+    mat = p.get(key)
+    if mat is None or mat.numel() != _TF32_NUMEL[key]:
+        raise ValueError(f"{key} must be packed in float32 at the kernel's width {KERNEL_NF} (pack_tail)")
+    if x.dim() != 4 or x.shape[3] != KERNEL_NF or out.dim() != 4 or not out.is_contiguous():
+        raise ValueError(f"x must be NHWC (N, H, W, {KERNEL_NF}) and out contiguous NHWC")
+    s = 2 if up else 1
+    want = (x.shape[0], s * x.shape[2], 3 if k == 3 else KERNEL_NF)
+    if (out.shape[0], out.shape[2], out.shape[3]) != want:
+        raise ValueError(f"out {tuple(out.shape)} is not stage {k}'s output of x {tuple(x.shape)}")
+    conv_stack.tf32_launch(x, mat, p[f"{name}_b"], out, mode=TF32_MODES[k], k=3,
+                           cout=4 * KERNEL_NF if up else want[2], epi=epi, hin=hin, rows=rows, x_row0=x_row0,
+                           out_row0=out_row0)
+    return out
+
+
+def tail_stage_tf32_plain(k: int, x: torch.Tensor, p: Dict[str, torch.Tensor], out: torch.Tensor,
+                          **window) -> torch.Tensor:
+    """The plain version of :func:`tail_stage_tf32_cuda` on any device, the
+    same arguments: the stage in f32 (:func:`.conv_f32.conv_f32_fwd_plain`,
+    the upsample-convs through x2, the same function as their 4-phase form)
+    over the same rows."""
+    name, up, epi = F32_STAGES[k]
+    return conv_f32_fwd_plain(x, p[f"{name}_hwio"], out, bias=p[f"{name}_b"], up=up, epi=epi, **window)
+
+
+def tail_f32_plan(p: Dict[str, torch.Tensor]) -> str:
+    """The kernel of the f32 tail ``p`` on the card: ``"tf32"``
+    (:func:`tail_stage_tf32_cuda`) where :func:`pack_tail` made the 3xTF32
+    operands (nf 64, the kernel's width), ``"simt"`` (:func:`_simt_stage`) at
+    any other width, as K7 / K8 send their thin convs."""
+    return "tf32" if all(f"{name}_tf32" in p for name, _, _ in F32_STAGES) else "simt"
+
+
+def tail_stage_f32(k: int, x: torch.Tensor, p: Dict[str, torch.Tensor], out: torch.Tensor,
+                   **window) -> torch.Tensor:
+    """Stage ``k`` of the f32 route: off the CPU the kernel of
+    :func:`tail_f32_plan` (each takes a CUDA tensor and refuses any other),
+    its plain version for a CPU tensor; nothing falls back."""
+    if out.device.type == "cpu":
+        return tail_stage_tf32_plain(k, x, p, out, **window)
+    if tail_f32_plan(p) == "tf32":
+        return tail_stage_tf32_cuda(k, x, p, out, **window)
+    return _simt_stage(k, x, p, out, **window)
+
+
+def tail_f32_stages(x: torch.Tensor, p: Dict[str, torch.Tensor], keep: int = 4, stage=tail_stage_f32):
+    """The first ``keep`` stages of :func:`tail_f32` on NHWC ``x`` (one
+    ``stage`` each, :func:`tail_stage_f32` by default): their NHWC outputs, in
+    order (the backward's recompute keeps 3)."""
     outs = []
-    for name, up, epi in F32_STAGES[:keep]:
+    for k, (name, up, _) in enumerate(F32_STAGES[:keep]):
         n, h, w, _ = x.shape
         s = 2 if up else 1
         y = torch.empty((n, s * h, s * w, p[f"{name}_hwio"].shape[3]), dtype=x.dtype, device=x.device)
-        x = conv_f32_fwd(x, p[f"{name}_hwio"], y, bias=p[f"{name}_b"], up=up, epi=epi)
+        x = stage(k, x.contiguous(), p, y)
         outs.append(x)
     return outs
 
 
 def tail_f32(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The tail's f32 route (K4 in f32, ``rrdbnet_tail_pallas`` with f32
-    weights): four :func:`.conv_f32.conv_f32_fwd` launches, NHWC, the
-    upsample-convs reading through x2. ``x`` f32 ``(N, nf, h, w)``, any
-    layout; returns ``(N, 3, 4h, 4w)`` with channels-last strides, like
-    :func:`tail_cuda`. Launches count in ``tail_f32.launches``."""
+    weights): four launches of the 3xTF32 kernel (:func:`tail_stage_f32`;
+    the SIMT kernel at nf != 64), NHWC, the upsample-convs in their 4-phase
+    form. ``x`` f32 ``(N, nf, h,
+    w)``, any layout; returns ``(N, 3, 4h, 4w)`` with channels-last strides,
+    like :func:`tail_cuda`. Launches count in ``tail_f32.launches``."""
     _check_f32(x, p)
     out = tail_f32_stages(nhwc(x), p)[-1]
     if x.is_cuda:
@@ -430,6 +530,22 @@ def tail_f32(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 tail_f32.launches = 0
+
+
+def tail_f32_first(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The f32 first design of :func:`tail_f32`: four
+    :func:`.conv_f32.conv_f32_fwd` launches (the SIMT kernel), the
+    upsample-convs at the high resolution. Kept to time the route against on
+    the card; no path of the port calls it (launches in
+    ``tail_f32_first.launches``)."""
+    _check_f32(x, p)
+    out = tail_f32_stages(nhwc(x), p, stage=_simt_stage)[-1]
+    if x.is_cuda:
+        tail_f32_first.launches += TAIL_KERNELS
+    return out.permute(0, 3, 1, 2)
+
+
+tail_f32_first.launches = 0
 
 
 def _reads(lo: int, hi: int, up: bool, h: int) -> Tuple[int, int]:
@@ -441,44 +557,71 @@ def _reads(lo: int, hi: int, up: bool, h: int) -> Tuple[int, int]:
     return max(a, 0), min(b + 1, h)
 
 
-def tail_banded_f32(
-    x: torch.Tensor, p: Dict[str, torch.Tensor], band_rows: int = TAIL_BAND_ROWS
-) -> torch.Tensor:
-    """The tail's f32 route in row bands (K5 in f32, the banded branch of
-    ``rrdbnet_tail_pallas``): per band of low-resolution rows ``[r0, r1)``
-    four launches, conv_last computing the band's own output rows ``[4 r0,
-    4 r1)`` and each conv before it the rows the next one reads, into
-    band-sized buffers made once and reused by every band; upconv1 reads x
-    in place. Equals :func:`tail_f32` (the same sums in the same order);
-    launches count in ``tail_banded_f32.launches``."""
-    _check_f32(x, p)
-    n, _, h, w = x.shape
-    xv = nhwc(x)
+def f32_band_plans(h: int, band_rows: int):
+    """Per band of an ``h``-row tail input, the rows of x, upconv1's,
+    upconv2's, hr_conv's and conv_last's outputs that the band computes:
+    conv_last the band's own (x4), each stage before it the rows the next
+    one reads."""
     plans = []
     for r0, r1 in rrdb_ops.bands(h, band_rows):
         win = [(4 * r0, 4 * r1)]  # conv_last, hr_conv, upconv2, upconv1, x
         for (_, up, _), hh in zip(F32_STAGES[::-1], (4 * h, 4 * h, 2 * h, h)):
             win.append(_reads(*win[-1], up, hh))
         plans.append(win[::-1])  # x, upconv1, upconv2, hr_conv, conv_last
+    return plans
+
+
+def _banded_f32(x: torch.Tensor, p: Dict[str, torch.Tensor], band_rows: int, stage, counter) -> torch.Tensor:
+    """The f32 tail in row bands, each stage one ``stage`` call per band
+    (:func:`tail_banded_f32`), its launches counted in ``counter.launches``."""
+    _check_f32(x, p)
+    n, _, h, w = x.shape
+    xv = nhwc(x)
+    plans = f32_band_plans(h, band_rows)
     most = [max(pl[i][1] - pl[i][0] for pl in plans) for i in (1, 2, 3)]
     bufs = [torch.empty((n, rows, s * w, p[f"{name}_hwio"].shape[3]), dtype=x.dtype, device=x.device)
             for rows, s, name in zip(most, (2, 4, 4), ("up1", "up2", "hr"))]
     out = torch.empty((n, 4 * h, 4 * w, 3), dtype=x.dtype, device=x.device)
     for win in plans:
         src, src_h = xv, h
-        for i, (name, up, epi) in enumerate(F32_STAGES):
+        for i, (_, up, _) in enumerate(F32_STAGES):
             dst = bufs[i] if i < 3 else out
             rows_out = win[i + 1]
-            conv_f32_fwd(src, p[f"{name}_hwio"], dst, bias=p[f"{name}_b"], up=up, epi=epi, hin=src_h,
-                         rows=rows_out, x_row0=win[i][0] if i else 0,
-                         out_row0=rows_out[0] if i < 3 else 0)
+            stage(i, src, p, dst, hin=src_h, rows=rows_out, x_row0=win[i][0] if i else 0,
+                  out_row0=rows_out[0] if i < 3 else 0)
             src, src_h = dst, (2 if up else 1) * src_h
         if x.is_cuda:
-            tail_banded_f32.launches += TAIL_KERNELS
+            counter.launches += TAIL_KERNELS
     return out.permute(0, 3, 1, 2)
 
 
+def tail_banded_f32(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], band_rows: int = TAIL_BAND_ROWS
+) -> torch.Tensor:
+    """The tail's f32 route in row bands (K5 in f32, the banded branch of
+    ``rrdbnet_tail_pallas``): per band of low-resolution rows ``[r0, r1)``
+    four launches of the 3xTF32 kernel (:func:`tail_stage_f32`), conv_last
+    computing the band's own output rows ``[4 r0, 4 r1)`` and each stage
+    before it the rows the next one reads, into band-sized buffers made once
+    and reused by every band; upconv1 reads x in place. Equals
+    :func:`tail_f32` bit for bit (the same sums in the same order);
+    launches count in ``tail_banded_f32.launches``."""
+    return _banded_f32(x, p, band_rows, tail_stage_f32, tail_banded_f32)
+
+
 tail_banded_f32.launches = 0
+
+
+def tail_banded_f32_first(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], band_rows: int = TAIL_BAND_ROWS
+) -> torch.Tensor:
+    """The f32 first design of :func:`tail_banded_f32`, every stage one
+    :func:`.conv_f32.conv_f32_fwd` per band; only chip_smoke.py calls it
+    (launches in ``tail_banded_f32_first.launches``)."""
+    return _banded_f32(x, p, band_rows, _simt_stage, tail_banded_f32_first)
+
+
+tail_banded_f32_first.launches = 0
 
 
 def tail(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -1001,3 +1001,114 @@ def test_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     tiles = torch.zeros(256, 64, 16, 16, device=cuda).contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError, match="epilogue"):
         conv_stack.conv_stack_tiles_cl_f32(tiles, p, swap=True)
+
+
+# K4's and K5's f32 tail on the same kernel: upconv1 / upconv2 in phase mode
+# (4-phase, at the low resolution), hr_conv in conv mode, conv_last in last
+# mode (n24 products, a row's 3 taps x 8 outputs); row windows for K5's bands.
+def _tf32_tail(rng, cuda):
+    nf = tail.KERNEL_NF
+    return tail.pack_tail(*[tuple(t.to(cuda) for t in _conv(rng, nf, o, (1.0 / (9 * nf)) ** 0.5))
+                            for o in (nf, nf, nf, 3)], torch.float32)
+
+
+@pytest.mark.parametrize("k,n,h,w", [
+    (0, 2, 13, 21),  # phase mode, ragged
+    (0, 3, 64, 64),  # upconv1 at K4's grid
+    (1, 1, 37, 70),  # phase mode over two row tiles and ragged columns
+    (2, 2, 50, 90),  # hr_conv, ragged
+    (3, 2, 50, 90),  # conv_last, ragged
+    (3, 1, 256, 256),  # conv_last at K4's size
+])
+def test_tail_tf32_stage_matches_plain(cuda, k, n, h, w):
+    """Each stage, one launch of the 3xTF32 kernel over whole frames, against
+    its plain f32 version (TF32 off) within TF32_L2; a rerun is
+    bit-identical; each launch counts on the kernel's counter."""
+    from master_thesis_tpu_torch.ops import conv_stack
+
+    rng = np.random.RandomState(30 + k)
+    p = _tf32_tail(rng, cuda)
+    x = torch.from_numpy(rng.randn(n, h, w, tail.KERNEL_NF).astype(np.float32)).to(cuda)
+    s = 2 if k < 2 else 1
+    shape = (n, s * h, s * w, 3 if k == 3 else tail.KERNEL_NF)
+    before = conv_stack.conv_frame_tf32_cuda.launches
+    got = tail.tail_stage_tf32_cuda(k, x, p, torch.empty(shape, device=cuda))
+    again = tail.tail_stage_tf32_cuda(k, x, p, torch.empty(shape, device=cuda))
+    torch.cuda.synchronize()
+    assert conv_stack.conv_frame_tf32_cuda.launches == before + 2
+    want = tail.tail_stage_tf32_plain(k, x, p, torch.empty(shape, device=cuda))
+    assert _rel_l2(got, want) <= TF32_L2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_tail_tf32_stage_row_windows_match_plain(cuda, k):
+    """A stage over a row window as K5's bands run it (x holds the frame's
+    rows from x_row0, the output rows [r0, r1) written at r - out_row0; the
+    phase mode's window starting at an odd row) equals the same rows of the
+    full-frame launch bit for bit, and the plain version's within TF32_L2."""
+    rng = np.random.RandomState(40 + k)
+    p = _tf32_tail(rng, cuda)
+    n, h, w = 2, 40, 36
+    s = 2 if k < 2 else 1
+    x = torch.from_numpy(rng.randn(n, h, w, tail.KERNEL_NF).astype(np.float32)).to(cuda)
+    co = 3 if k == 3 else tail.KERNEL_NF
+    full = tail.tail_stage_tf32_cuda(k, x, p, torch.empty(n, s * h, s * w, co, device=cuda))
+    r0, r1 = (s * 11 - 1, s * 27 + 1) if k < 2 else (11, 27)
+    lo, hi = (r0 - 1) // s, min((r1 + 1) // s + 1, h)
+    xw = x[:, lo:hi].contiguous()
+    out = torch.full((n, r1 - r0 + 3, s * w, co), float("nan"), device=cuda)
+    window = dict(hin=h, rows=(r0, r1), x_row0=lo, out_row0=r0 - 2)
+    got = tail.tail_stage_tf32_cuda(k, xw, p, out, **window)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 2:2 + r1 - r0], full[:, r0:r1])
+    assert torch.isnan(got[:, :2]).all() and torch.isnan(got[:, 2 + r1 - r0:]).all()
+    want = tail.tail_stage_tf32_plain(k, xw, p, torch.zeros_like(out), **window)
+    assert _rel_l2(got[:, 2:2 + r1 - r0], want[:, 2:2 + r1 - r0]) <= TF32_L2
+
+
+def test_tail_f32_routes_on_the_tf32_kernel(cuda):
+    """K4's and K5's f32 routes on the card: four launches of the 3xTF32
+    kernel a tail (a band), none of conv_f32_fwd; K5 equals K4 bit for bit,
+    and both the plain tail within TF32_L2; the first designs (conv_f32_fwd
+    alone) agree."""
+    from master_thesis_tpu_torch.ops import conv_f32, conv_stack
+
+    rng = np.random.RandomState(50)
+    p = _tf32_tail(rng, cuda)
+    x = torch.from_numpy(rng.randn(2, tail.KERNEL_NF, 29, 22).astype(np.float32)).to(cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    tf, simt = conv_stack.conv_frame_tf32_cuda.launches, conv_f32.conv_f32_fwd_cuda.launches
+    full = tail.tail_f32(x, p)
+    banded = tail.tail_banded_f32(x, p, 8)
+    torch.cuda.synchronize()
+    assert conv_stack.conv_frame_tf32_cuda.launches == tf + tail.TAIL_KERNELS * (1 + 4)
+    assert conv_f32.conv_f32_fwd_cuda.launches == simt
+    assert torch.equal(full, banded)
+    want = tail.tail_plain(x, p)
+    assert _rel_l2(full, want) <= TF32_L2
+    assert _rel_l2(tail.tail_f32_first(x, p), want) <= TF32_L2
+    assert _rel_l2(tail.tail_banded_f32_first(x, p, 8), want) <= TF32_L2
+
+
+def test_tail_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """bf16 frames, NCHW strides, a tail packed in bf16 or at another width,
+    and an output of the wrong shape raise: nothing falls back."""
+    rng = np.random.RandomState(51)
+    p = _tf32_tail(rng, cuda)
+    x = torch.zeros(2, 8, 8, tail.KERNEL_NF, device=cuda)
+    out = torch.empty(2, 16, 16, tail.KERNEL_NF, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        tail.tail_stage_tf32_cuda(0, x.bfloat16(), p, out)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        tail.tail_stage_tf32_cuda(0, x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), p, out)
+    pb = tail.pack_tail(*[tuple(t.to(cuda) for t in _conv(rng, 64, o, 0.05)) for o in (64, 64, 64, 3)],
+                        torch.bfloat16)
+    with pytest.raises(ValueError, match="kernel's width"):
+        tail.tail_stage_tf32_cuda(0, x, pb, out)
+    p32 = tail.pack_tail(*[tuple(t.to(cuda) for t in _conv(rng, 32, o, 0.05)) for o in (32, 32, 32, 3)],
+                         torch.float32)
+    with pytest.raises(ValueError, match="kernel's width"):
+        tail.tail_stage_tf32_cuda(0, x[..., :32].contiguous(), p32, out[..., :32].contiguous())
+    with pytest.raises(ValueError, match="stage 0's output"):
+        tail.tail_stage_tf32_cuda(0, x, p, torch.empty(2, 16, 8, tail.KERNEL_NF, device=cuda))

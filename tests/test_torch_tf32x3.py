@@ -8,6 +8,8 @@ Tolerances: 2e-4, the JAX tests' own (tests/test_pallas_sep4d.py), against
 JAX; the f32 limit of chip_smoke.py, a relative L2 of 1e-5, against the
 plain f32 conv and against f64."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,97 +45,197 @@ def _rel_l2(got, want):
     return ((got.double() - want.double()).norm() / want.double().norm()).item()
 
 
-def _emulate_tf32(x, w, b, relu, swap=False, plant=0, seed=0):
-    """One conv as ``csrc/conv_frame_tf32_wgmma.cuh`` computes it, read through
-    its descriptors: ``x (N, H, W, Cin)`` f32 NHWC, ``w`` OIHW (k = 3 or 5),
-    ``b`` f32. Tiles of ``conv_stack.frame_tile_tf32`` (fr frames x rows x tw
-    on nh n144 halves); work units (tile, COUT_T outputs). Per tile and
+def _boxes(x, tiles, fr, bh, bw, r, x_row0, valid):
+    """The TMA boxes of ``tiles`` ((f0, y0, x0) each) over NHWC ``x``, whose
+    row 0 is the frame's row ``x_row0`` and which holds ``valid`` of its
+    rows: ``(T, fr * bh * bw, C)``, zeros outside the frames and the rows x
+    holds (the zero fill)."""
+    n, _, wd, cin = x.shape
+    f0, y0, x0 = (torch.tensor(v).view(-1, 1, 1, 1) for v in zip(*tiles))
+    fs = f0 + torch.arange(fr).view(1, -1, 1, 1)
+    ys = y0 - r - x_row0 + torch.arange(bh).view(1, 1, -1, 1)
+    xs = x0 - r + torch.arange(bw).view(1, 1, 1, -1)
+    ok = (fs < n) & (ys >= 0) & (ys < valid) & (xs >= 0) & (xs < wd)
+    got = x[fs.clamp(0, n - 1), ys.clamp(0, valid - 1), xs.clamp(0, wd - 1)]
+    return torch.where(ok.unsqueeze(-1), got, 0.0).reshape(len(tiles), -1, cin)
+
+
+def _group(a, b):
+    """One k8 group of products of tf32 values, summed exactly (in f64, so
+    that the sum does not depend on how the matmul orders it)."""
+    return a.double() @ b.double()
+
+
+def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape, hin=None, rows=None, x_row0=0,
+                    out_row0=0, addr=None, plant=0, seed=0, out=None):
+    """One launch of ``csrc/conv_frame_tf32_wgmma.cuh`` read through its
+    descriptors, with ``conv_stack.tf32_launch``'s arguments (``x`` NHWC f32,
+    ``mat`` the packed hi then lo matrix); returns the NHWC output of shape
+    ``out_shape``: ``out`` (contiguous) written in place where the launch
+    stores, or zeros elsewhere without it. The tile is
+    ``conv_stack.tf32_tile``'s; the rows computed ``[cy0, cy1)`` (phase
+    mode: ``(r0 // 2, (r1 + 1) // 2)`` of the output rows). Per tile and
     32-channel chunk the TMA box (tw + k - 1 x rows + k - 1 x fr pixels from
-    (x0 - r, y0 - r, f0), zeros outside the frames) lands 128-byte swizzled
-    at the stage's start; the split rounds it in place to its hi half
-    (``fragments.tf32_split``) and writes its lo half a box further on, each
-    128-byte row swizzled by its own address bits; past that the dropped
-    columns read junk (random here). Per (chunk, tap) the weight stage is the
-    hi and the lo block of ``fragments.wgmma_tf32_matrix`` at (chunk, tap,
+    (x0 - r, y0 - r, f0), zeros outside the frames and x's rows) lands
+    128-byte swizzled at the stage's start; the split rounds it in place to
+    its hi half (``fragments.tf32_split``) and writes its lo half a box
+    further on, each 128-byte row swizzled by its own address bits; past
+    that the dropped columns read junk (random here). Conv and phase modes
+    (the swapped GEMM): work units (tile, COUT_T outputs); per (chunk, tap)
+    the weight stage is the hi and the lo block of ``mat`` at (chunk, tap,
     n0). Warpgroup mt's A (64 outputs x 8 channels) starts at row 64 mt + 32
-    bytes a k8 step, a half's B (144 columns x 8 channels) at pixel 144 h + dy
-    bw + dx of the hi or the lo copy; three products a k8 step (lo·hi, hi·lo,
-    hi·hi), products of tf32 values exact in f32, sums in f32, each row of
-    taps into a partial sum then added to the unit's. Column n is
-    output pixel (f0 + n // bw // bh, y0 + n // bw % bh, x0 + n % bw),
-    dropped past the tile or the frames; bias, ReLU, stored at (f // tg) sg +
-    (f % tg) st + q sp + o (``swap``: sep4d's regrouping). ``plant`` emulates
-    ``-DTF32_PLANT``: 1 drops the two correction products, 2 the corner tap,
-    3 reads each tile's top halo row below a frame's first row tile as
-    zeros."""
-    n, h, wd, cin = x.shape
-    cout, k = w.shape[0], w.shape[-1]
-    fr, rows, tw, nh = conv_stack.frame_tile_tf32(n, h, wd, k, cout)
-    bw, bh = tw + k - 1, rows + k - 1
-    tx_n, ty_n, groups = -(-wd // tw), -(-h // rows), -(-n // fr)
-    cout_t = 128 // nh
-    mat = fragments.wgmma_tf32_matrix(w)
-    lo_off = mat.numel() // 2
-    cpad = lo_off // (k * k * cin)
-    xp = torch.zeros(groups * fr, ty_n * rows + k - 1, tx_n * tw + k - 1, cin)
-    xp[:n, k // 2: k // 2 + h, k // 2: k // 2 + wd] = x
-    tiles = [(g, ty, tx) for g in range(groups) for ty in range(ty_n) for tx in range(tx_n)]
-    boxes = torch.stack([xp[g * fr: g * fr + fr, ty * rows: ty * rows + bh, tx * tw: tx * tw + bw]
-                         for g, ty, tx in tiles]).reshape(len(tiles), -1, cin)  # (T, box_px, cin)
+    bytes a k8 step, a half's B (144 columns x 8 channels) at pixel 144 h +
+    dy bw + dx of the hi or the lo copy, the tap's (dy, dx): (tap // k, tap %
+    k), in phase mode (a + tap // 2, b + tap % 2) for the warpgroup's phase
+    (a, b). Last mode (the unswapped GEMM): a unit is a tile; m64 block blk's
+    A (64 pixel rows x 8 channels) starts at pixel 64 blk + dy bw, the B (24
+    columns 8 dx + o x 8 channels) is the (chunk, row of taps dy) block of
+    ``mat``; column n's output sums rows n, n + 1, n + 2 of its dx columns.
+    Three products a k8 step (A's lo with B's hi, A's hi with B's lo, hi
+    with hi), each k8 group summed exactly, rounded to f32 and added in f32,
+    each row of taps (k taps; 2 in phase mode) into a partial sum then added
+    to the unit's. Column n is tile pixel (f0 + n // bw // bh, y0 + n // bw %
+    bh, x0 + n % bw), dropped past the tile,
+    the frames or the rows computed; bias, the activation, stored at (f //
+    tg) sg + (f % tg) st + (y - out_row0) sr + x sp + o (phase mode: pixel
+    (2y + a, 2x + b) of channel o - 64 (2a + b), within the output rows).
+    ``plant`` emulates ``-DTF32_PLANT``: 1 drops the two correction
+    products, 2 the corner tap (phase mode: tap (0, 0) of each phase), 3
+    reads each tile's top halo row below a frame's first row tile as zeros,
+    4 reads x's row 0 (the frame's row x_row0) as zeros where x_row0 > 0."""
+    n, x_rows, wd, cin = x.shape
+    hin = x_row0 + x_rows if hin is None else hin
+    r0, r1 = (0, (2 if mode == "phase" else 1) * hin) if rows is None else rows
+    cy0, cy1 = (r0 // 2, (r1 + 1) // 2) if mode == "phase" else (r0, r1)
+    fr, trows, tw, nh = conv_stack.tf32_tile(mode, n, hin, wd, k, cout, cy0, cy1, x_row0)
+    r, taps, tpr = k // 2, (4 if mode == "phase" else k * k), (2 if mode == "phase" else k)
+    bw, bh = tw + k - 1, trows + k - 1
+    tiles = [(g * fr, cy0 + ty * trows, tx * tw) for g in range(-(-n // fr))
+             for ty in range(-(-(cy1 - cy0) // trows)) for tx in range(-(-wd // tw))]
+    boxes = _boxes(x, tiles, fr, bh, bw, r, x_row0, min(x_rows, hin - x_row0))
     nt, box_px = boxes.shape[:2]
-    reach = 2 * box_px + nh * 144 + (k - 1) * (bw + 1)  # 128-byte rows the reads reach
+    lo_off = mat.numel() // 2
+    cpad = lo_off // (taps * cin)
+    cols_read = 64 * conv_stack.TF32_LAST_BLOCKS if mode == "last" else nh * 144
+    reach = 2 * box_px + cols_read + (k - 1) * (bw + 1)  # 128-byte rows the reads reach
     pix, ch = torch.arange(box_px).view(-1, 1), torch.arange(32).view(1, -1)
     hi_dst = (_swz(pix * 128 + 4 * ch) // 4).reshape(-1)  # where TMA puts (pixel, channel)
     lo_dst = (_swz((box_px + pix) * 128 + 4 * ch) // 4).reshape(-1)
-    top = torch.tensor([ty > 0 for _, ty, _ in tiles]).view(-1, 1, 1) & (torch.arange(box_px) < bw).view(1, -1, 1)
+    t_y0 = torch.tensor([y0 for _, y0, _ in tiles]).view(-1, 1, 1)
+    prow = (torch.arange(box_px) // bw % bh).view(1, -1, 1)  # a box pixel's row in the box
+    zero = torch.zeros(nt, box_px, 1, dtype=torch.bool)
+    if plant == 3:
+        zero = (t_y0 > 0) & (torch.arange(box_px) < bw).view(1, -1, 1)
+    if plant == 4 and x_row0 > 0:
+        zero = t_y0 - r + prow == x_row0
     junk = torch.Generator().manual_seed(seed)
+    smems = []
+    for c in range(cin // 32):
+        hi, lo = fragments.tf32_split(boxes[..., 32 * c: 32 * c + 32])
+        hi, lo = hi.masked_fill(zero, 0.0), lo.masked_fill(zero, 0.0)
+        smem = torch.randn(nt, reach * 32, generator=junk)
+        smem[:, hi_dst] = hi.reshape(nt, -1)
+        smem[:, lo_dst] = lo.reshape(nt, -1)
+        smems.append(smem)
     r144, r64, ks = torch.arange(144).view(-1, 1), torch.arange(64).view(-1, 1), torch.arange(8).view(1, -1)
-    # Output addressing (conv_stack._tf32_out).
-    tg, sg, st, sp = conv_stack._tf32_out(n, h, wd, cout, swap)
-    out = torch.zeros(n * h * wd * cout)
+    tg, sg, st, sr, sp = addr or (n, 0, out_shape[1] * out_shape[2] * out_shape[3], out_shape[2] * out_shape[3],
+                                  out_shape[3])
+    out = torch.zeros(math.prod(out_shape)) if out is None else out.view(-1)
+    act = {"none": lambda v: v, "relu": torch.relu, "leaky": lambda v: torch.where(v >= 0, v, 0.2 * v)}[epi]
+
+    def products(part, a_hi, a_lo, b_hi, b_lo):  # the A operand's hi / lo, then the B operand's
+        for g in ([] if plant == 1 else [_group(a_lo, b_hi), _group(a_hi, b_lo)]) + [_group(a_hi, b_hi)]:
+            part = part + g.float()
+        return part
+
+    def store(v, cols, outs, phase=None):
+        """v (T, len(outs), len(cols)): output channel outs of tile column cols."""
+        q, xc = cols // bw, cols % bw
+        fl, y = q // bh, q % bh
+        for t, (f0, y0, x0) in enumerate(tiles):
+            f, yy, xx = f0 + fl, y0 + y, x0 + xc
+            keep = (xc < tw) & (y < trows) & (fl < fr) & (f < n) & (yy < cy1) & (xx < wd)
+            if phase is not None:
+                yy, xx = 2 * yy + phase[0], 2 * xx + phase[1]
+                keep &= (yy >= r0) & (yy < r1)
+            base = (f[keep] // tg) * sg + (f[keep] % tg) * st + (yy[keep] - out_row0) * sr + xx[keep] * sp
+            out[base.view(-1, 1) + outs.view(1, -1)] = v[t][:, keep].T
+
+    if mode == "last":
+        # n24 products: column 8 dx + o of pixel row m sums tap (dy, dx) over
+        # row m + dy bw, a partial sum a (chunk, row of taps); the epilogue
+        # adds rows m, m + 1 and m + 2's dx columns in that order, then the bias.
+        sums = []
+        for blk in range(conv_stack.TF32_LAST_BLOCKS):
+            acc = torch.zeros(nt, 64, 24)
+            for c in range(cin // 32):
+                for dy in range(3):
+                    part = torch.zeros(nt, 64, 24)
+                    off = (c * 3 + dy) * 24 * 32
+                    for kk in range(4):
+                        bidx = _swz(32 * kk + torch.arange(24).view(-1, 1) * 128 + 4 * ks) // 4
+                        w_hi, w_lo = mat[off:][bidx].T, mat[lo_off + off:][bidx].T  # (8 channels, 24)
+                        if plant == 2 and dy == 0:  # the corner tap (0, 0): columns 0-7
+                            w_hi, w_lo = F.pad(w_hi[:, 8:], (8, 0)), F.pad(w_lo[:, 8:], (8, 0))
+                        col = (64 * blk + dy * bw) * 128 + 32 * kk + r64 * 128 + 4 * ks
+                        a_hi, a_lo = smems[c][:, _swz(col) // 4], smems[c][:, _swz(col + box_px * 128) // 4]
+                        part = products(part, a_hi, a_lo, w_hi, w_lo)
+                    acc = acc + part
+            sums.append(acc)
+        ex = F.pad(torch.cat(sums, dim=1), (0, 0, 0, 8))
+        m = torch.arange(64 * conv_stack.TF32_LAST_BLOCKS)
+        v = ex[:, m, 0:cout] + ex[:, m + 1, 8:8 + cout] + ex[:, m + 2, 16:16 + cout]
+        store(act(v + bias.view(1, 1, -1)).transpose(1, 2), m, torch.arange(cout))
+        return out.view(out_shape)
+
+    cout_t = 128 // nh
     cols = torch.arange(144)
     for n0 in range(0, cout, cout_t):
         for mt in range(cout_t // 64):
+            ph = (n0 + 64 * mt) // 64
             for half in range(nh):
                 acc, part = torch.zeros(nt, 64, 144), torch.zeros(nt, 64, 144)
                 for c in range(cin // 32):
-                    hi, lo = fragments.tf32_split(boxes[..., 32 * c: 32 * c + 32])
-                    if plant == 3:
-                        hi, lo = hi.masked_fill(top, 0.0), lo.masked_fill(top, 0.0)
-                    smem = torch.randn(nt, reach * 32, generator=junk)
-                    smem[:, hi_dst] = hi.reshape(nt, -1)
-                    smem[:, lo_dst] = lo.reshape(nt, -1)
-                    for tap in range(k * k):
-                        if tap % k == 0:  # each row of taps summed apart, then added
+                    for tap in range(taps):
+                        if tap % tpr == 0:  # each row of taps summed apart, then added
                             acc, part = acc + part, torch.zeros_like(part)
                         if plant == 2 and tap == 0:
                             continue
-                        off = ((c * k * k + tap) * cpad + n0) * 32
+                        off = ((c * taps + tap) * cpad + n0) * 32
                         w_hi = mat[off: off + cout_t * 32]
                         w_lo = mat[lo_off + off: lo_off + off + cout_t * 32]
-                        shift = (tap // k) * bw + tap % k
+                        if mode == "phase":
+                            shift = (ph // 2 + tap // 2) * bw + ph % 2 + tap % 2
+                        else:
+                            shift = (tap // k) * bw + tap % k
                         for kk in range(4):
                             aidx = _swz(64 * mt * 128 + 32 * kk + r64 * 128 + 4 * ks) // 4
-                            a_hi, a_lo = w_hi[aidx], w_lo[aidx]
                             col = (144 * half + shift) * 128 + 32 * kk + r144 * 128 + 4 * ks
-                            b_hi = smem[:, _swz(col) // 4].transpose(1, 2)
-                            b_lo = smem[:, _swz(col + box_px * 128) // 4].transpose(1, 2)
-                            if plant != 1:
-                                part += a_lo @ b_hi
-                                part += a_hi @ b_lo
-                            part += a_hi @ b_hi
-                o = torch.arange(n0 + 64 * mt, n0 + 64 * mt + 64)
-                v = acc + part + b[o].view(1, -1, 1)
-                v = torch.relu(v) if relu else v
-                col = 144 * half + cols
-                q, xc = col // bw, col % bw
-                fl, y = q // bh, q % bh
-                for t, (g, ty, tx) in enumerate(tiles):
-                    f, yy, xx = g * fr + fl, ty * rows + y, tx * tw + xc
-                    keep = (xc < tw) & (y < rows) & (fl < fr) & (f < n) & (yy < h) & (xx < wd)
-                    base = (f[keep] // tg) * sg + (f[keep] % tg) * st + (yy[keep] * wd + xx[keep]) * sp
-                    out[base.view(-1, 1) + o.view(1, -1)] = v[t][:, keep].T
-    return out.view(n, h, wd, cout)
+                            b_hi = smems[c][:, _swz(col) // 4].transpose(1, 2)
+                            b_lo = smems[c][:, _swz(col + box_px * 128) // 4].transpose(1, 2)
+                            part = products(part, w_hi[aidx], w_lo[aidx], b_hi, b_lo)
+                if mode == "phase":
+                    o = torch.arange(64)
+                    v = act(acc + part + bias.view(1, -1, 1))
+                    store(v, 144 * half + cols, o, phase=(ph // 2, ph % 2))
+                else:
+                    o = torch.arange(n0 + 64 * mt, n0 + 64 * mt + 64)
+                    v = act(acc + part + bias[o].view(1, -1, 1))
+                    store(v, 144 * half + cols, o)
+    return out.view(out_shape)
+
+
+def _emulate_tf32(x, w, b, relu, swap=False, plant=0, seed=0):
+    """One K7 / K8 conv (conv mode, whole frames) as
+    ``csrc/conv_frame_tf32_wgmma.cuh`` computes it (:func:`_emulate_launch`):
+    ``x (N, H, W, Cin)`` f32 NHWC, ``w`` OIHW (k = 3 or 5), ``b`` f32,
+    ReLU with ``relu``, stored as ``conv_stack._tf32_out`` addresses it
+    (``swap``: sep4d's regrouping)."""
+    n, h, wd, _ = x.shape
+    cout, k = w.shape[0], w.shape[-1]
+    return _emulate_launch(x, fragments.wgmma_tf32_matrix(w), b, mode="conv", k=k, cout=cout,
+                           epi="relu" if relu else "none", out_shape=(n, h, wd, cout),
+                           addr=conv_stack._tf32_out(n, h, wd, cout, swap), plant=plant, seed=seed)
 
 
 def _conv(rng, cin, cout, k):
