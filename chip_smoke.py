@@ -196,7 +196,8 @@ Phases, each fatal on failure:
    card check correctness, not scaling;
 14. f32 (run after phase 11, before the CLI; ``csrc/conv_f32.cu``, and
    the 3xTF32 kernel ``csrc/conv_frame_tf32.cu`` for K7's and K8's
-   64-multiple convs and for K4's / K5's four tail stages; TF32 off): first
+   64-multiple convs, K4's / K5's four tail stages and K1's / K2's five
+   convs an RDB; TF32 off): first
    that kernel alone on every shape the f32 CHN+DFPN step gives it (sep4d's
    four wide convs at 5 120 tiles, stage 1's last with the swap in its
    epilogue; the mixer's 256 -> 256 5x5 and 3x3; flow_256's and flow_64's
@@ -205,33 +206,39 @@ Phases, each fatal on failure:
    fault compiled in with ``-DTF32_PLANT`` that applies (the two correction
    products dropped, the corner tap left out, each tile's top halo row read
    as zeros where a frame has several row tiles; a row window's first input
-   row read as zeros, K5's) caught, its time beside its floor (3 x FLOPs at
-   495 TFLOP/s), the f32 bound, the SIMT kernel and one cuDNN ``F.conv2d``;
-   then each site's f32 route at its main-path shapes (K1 / K4
+   row read as zeros, K2's and K5's; a gc-mode conv's last 32-channel chunk
+   read one chunk early, K1's and K2's) caught, its time beside its floor
+   (3 x FLOPs at 495 TFLOP/s), the f32 bound, the SIMT kernel and one cuDNN
+   ``F.conv2d``; then each site's f32 route at its main-path shapes (K1 / K4
    80x64x64, K3 / K6 8x64x64, K2 / K5 8x128x256 in bands, K7 sep4d's two
    stages and the mixer, K8 its three callers)
-   against its plain f32 version by relative L2 (limit 1e-5; the backward
+   against its plain f32 version by relative L2 (limit 1e-5; K1's and K2's
+   over the RRDB's body, its output less 1.2 x; the backward
    checks' plain versions sum in f64 over the route's own activations),
    each check read on the faults that apply to its kernels: two compiled
    into conv_f32.cu with ``-DF32_PLANT`` (tap (0, 0) dropped; the channel
    slice read one group of 8 off) where a route launches it, the
    ``-DTF32_PLANT`` ones where it launches the 3xTF32 kernel (K4, K6, K7, K8
-   1-3; K5 1-4), which must be caught;
+   1-3; K5 1-4; K1 1-3 and 5; K2 1-5), which must be caught;
    each route's device time with its launch count beside its
-   bound (at 67 TFLOP/s; K4, K5, K7, K8 from their routed convs, the bound at
-   67 TFLOP/s beside it), the 3 x TF32 figure, the plain version, the cuDNN
-   route and the library yardstick (one ``F.conv2d`` / ``conv2d_weight``
-   a launch; an upsample-conv at the upsampled size); K4's, K5's, K7's and
-   K8's beside their f32 first design (every conv on the SIMT kernel), each
-   fatal unless faster; K5 equal to K4 bit for bit on one input; K4's four
-   stages alone at 80x64x64 and one K5 band's four launches against their
-   plain versions, rerun and faults, each beside its floor, the SIMT kernel
-   and one cuDNN ``F.conv2d``; the f32 CPN serving step (B=4, F=5,
+   bound (at 67 TFLOP/s; K1, K2, K4, K5, K7, K8 from their routed convs, the
+   bound at 67 TFLOP/s beside it), the 3 x TF32 figure, the plain version,
+   the cuDNN route and the library yardstick (one ``F.conv2d`` /
+   ``conv2d_weight`` a launch; an upsample-conv at the upsampled size);
+   K1's, K2's, K4's, K5's, K7's and K8's beside their f32 first design
+   (every conv on the SIMT kernel), each fatal unless faster; K5 equal to
+   K4 and K2 to K1 bit for bit on one input; K4's four stages alone at
+   80x64x64 and one K5 band's four launches, then K1's five convs at
+   80x64x64 and one K2 band's five, against their plain versions, rerun
+   and faults, each beside its floor, the SIMT kernel and one cuDNN
+   ``F.conv2d`` (K1's conv1-4 also beside the padded conv mode, Cout 32 ->
+   64); the f32 CPN serving step (B=4, F=5,
    256x256, nb 20) against its plain routes, profiled; the f32 CHN train
    step (B=8, frames_n 2), its grads against the plain backward versions
    from the same forward (limit 1e-4), 3 steps after 1; a CHN+DFPN step on
    every kernel route in f32 (the 3xTF32 kernel's launches held to the
-   routed convs' count and the tail's four); each f32 route's launches.
+   routed convs' count, the trunk's 300 and the tail's four); each f32
+   route's launches.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card or
@@ -3440,37 +3447,43 @@ F32_REPLACES = {
 F32_FAULTS = {1: "tap (0, 0) dropped", 2: "channel slice read one group of 8 channels off"}
 # The faults compiled into the 3xTF32 kernel (csrc/conv_frame_tf32.cu) with
 # -DTF32_PLANT=n; a launch over whole frames can show the first three (the
-# fourth needs a row window with x_row0 > 0: K5's bands).
+# fourth needs a row window with x_row0 > 0: K2's and K5's bands; the fifth a
+# gc-mode launch: K1's and K2's conv1..conv4).
 TF32_FAULTS = {1: "the two correction products dropped (1xTF32)",
                2: "corner tap (-r, -r) left out (phase mode: each phase's tap (0, 0))",
                3: "each tile's top halo row read as zeros",
-               4: "a row window's first input row read as zeros (a band's halo row)"}
+               4: "a row window's first input row read as zeros (a band's halo row)",
+               5: "gc mode: a dense-concat conv's last 32-channel chunk read one chunk early"}
 TF32_FRAME_FAULTS = (1, 2, 3)
 F32_SOURCES = ["master_thesis_tpu_torch/csrc/conv_f32.cu"]
-TF32_TAIL_SOURCES = ["master_thesis_tpu_torch/csrc/conv_frame_tf32.cu",
-                     "master_thesis_tpu_torch/csrc/conv_frame_tf32_wgmma.cuh"]
-TF32_SOURCES = TF32_TAIL_SOURCES + F32_SOURCES
+TF32_KERNEL_SOURCES = ["master_thesis_tpu_torch/csrc/conv_frame_tf32.cu",
+                       "master_thesis_tpu_torch/csrc/conv_frame_tf32_wgmma.cuh"]
+TF32_SOURCES = TF32_KERNEL_SOURCES + F32_SOURCES
 # Each f32 route by the kernels it launches: the profiler's pattern for
 # their names, a label, their source files (the first is the row's
 # ``source``), whether conv_f32.cu's two faults can show on it, and the
-# 3xTF32 faults that can. The SIMT kernel alone (K1, K2, K3); the 3xTF32
-# kernel for K7's and K8's 64-multiple convs and the SIMT kernel for the thin
-# ones; the 3xTF32 kernel alone (K4, K5: the upconvs in phase mode, hr_conv
-# in conv mode, conv_last in last mode); K6, the SIMT kernel with the
-# recompute on the 3xTF32 kernel.
+# 3xTF32 faults that can. The SIMT kernel alone (K3); the 3xTF32 kernel for
+# K7's and K8's 64-multiple convs and the SIMT kernel for the thin ones; the
+# 3xTF32 kernel alone (K4, K5: the upconvs in phase mode, hr_conv in conv
+# mode, conv_last in last mode; K1, K2: conv1..conv4 in gc mode, conv5 in
+# conv mode); K6, the SIMT kernel with the recompute on the 3xTF32 kernel.
 F32_ROUTES = {
     "simt": SimpleNamespace(kernels=r"\bcf::", label="conv_f32_fwd / conv_f32_wgrad", sources=F32_SOURCES,
                             simt_faults=True, tf32_faults=()),
     "tf32+simt": SimpleNamespace(kernels=r"\b(cf|ft)::", label="3xTF32 wgmma frame kernel + conv_f32_fwd",
                                  sources=TF32_SOURCES, simt_faults=True, tf32_faults=TF32_FRAME_FAULTS),
     "tail": SimpleNamespace(kernels=r"\bft::", label="3xTF32 wgmma kernel: upconvs in phase mode, hr_conv in "
-                            "conv mode, conv_last in last mode", sources=TF32_TAIL_SOURCES, simt_faults=False,
+                            "conv mode, conv_last in last mode", sources=TF32_KERNEL_SOURCES, simt_faults=False,
                             tf32_faults=TF32_FRAME_FAULTS),
     "simt+tail": SimpleNamespace(kernels=r"\b(cf|ft)::", label="conv_f32_fwd / conv_f32_wgrad, the recompute on "
-                                 "the 3xTF32 kernel", sources=F32_SOURCES + TF32_TAIL_SOURCES, simt_faults=True,
+                                 "the 3xTF32 kernel", sources=F32_SOURCES + TF32_KERNEL_SOURCES, simt_faults=True,
                                  tf32_faults=TF32_FRAME_FAULTS),
+    "rdb": SimpleNamespace(kernels=r"\bft::", label="3xTF32 wgmma kernel: conv1..conv4 in gc mode, conv5 in conv "
+                           "mode with the residual epilogue", sources=TF32_KERNEL_SOURCES, simt_faults=False,
+                           tf32_faults=TF32_FRAME_FAULTS + (5,)),
 }
-F32_ROUTES["tail in bands"] = SimpleNamespace(**{**vars(F32_ROUTES["tail"]), "tf32_faults": tuple(TF32_FAULTS)})
+F32_ROUTES["tail in bands"] = SimpleNamespace(**{**vars(F32_ROUTES["tail"]), "tf32_faults": (1, 2, 3, 4)})
+F32_ROUTES["rdb in bands"] = SimpleNamespace(**{**vars(F32_ROUTES["rdb"]), "tf32_faults": (1, 2, 3, 4, 5)})
 
 
 def f32_counters():
@@ -3494,18 +3507,21 @@ def tf32_off():
 
 @contextlib.contextmanager
 def f32_plain_convs():
-    """Within: the f32 routes' kernels (the SIMT kernels, the tail's 3xTF32
-    stages) run their plain versions on card tensors (the routes' own code
-    around them stays): the plain routes."""
-    from master_thesis_tpu_torch.ops import conv_f32, tail
+    """Within: the f32 routes' kernels (the SIMT kernels, the tail's and the
+    RDB's 3xTF32 launches) run their plain versions on card tensors (the
+    routes' own code around them stays): the plain routes."""
+    from master_thesis_tpu_torch.ops import conv_f32, rrdb, tail
 
-    orig = conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda, tail.tail_stage_tf32_cuda
-    conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda, tail.tail_stage_tf32_cuda = (
-        conv_f32.conv_f32_fwd_plain, conv_f32.conv_f32_wgrad_plain, tail.tail_stage_tf32_plain)
+    orig = (conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda, tail.tail_stage_tf32_cuda,
+            rrdb.rdb_conv_tf32_cuda)
+    (conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda, tail.tail_stage_tf32_cuda,
+     rrdb.rdb_conv_tf32_cuda) = (conv_f32.conv_f32_fwd_plain, conv_f32.conv_f32_wgrad_plain,
+                                 tail.tail_stage_tf32_plain, rrdb.rdb_conv_tf32_plain)
     try:
         yield
     finally:
-        conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda, tail.tail_stage_tf32_cuda = orig
+        (conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda, tail.tail_stage_tf32_cuda,
+         rrdb.rdb_conv_tf32_cuda) = orig
 
 
 @contextlib.contextmanager
@@ -3524,8 +3540,8 @@ def planted_f32(fault):
 
 @contextlib.contextmanager
 def planted_tf32(fault):
-    """Within: K7's and K8's f32 routes launch the 3xTF32 frame kernel from
-    the library built with ``-DTF32_PLANT=fault``."""
+    """Within: the f32 routes launch the 3xTF32 kernel from the library
+    built with ``-DTF32_PLANT=fault``."""
     from master_thesis_tpu_torch.ops import conv_stack
 
     orig = conv_stack._tf32_lib
@@ -3573,11 +3589,12 @@ def f32_library_ms(fn):
     TF32 off, channels-last, timed alone and summed."""
     import torch.nn.functional as F
 
-    from master_thesis_tpu_torch.ops import conv_f32, conv_stack, tail
+    from master_thesis_tpu_torch.ops import conv_f32, conv_stack, rrdb, tail
 
     shapes = {}
     orig = conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda
     orig_tf32, orig_tail = conv_stack.conv_frame_tf32_cuda, tail.tail_stage_tf32_cuda
+    orig_rdb = rrdb.rdb_conv_tf32_cuda
 
     def fwd(x, w, out, **kw):
         g = conv_f32.geometry(x, w, out, k=kw.get("k", 3), up=kw.get("up", False),
@@ -3606,17 +3623,24 @@ def f32_library_ms(fn):
         shapes[key] = shapes.get(key, 0) + 1
         return orig_tail(k, x, p, out, **window)
 
+    def rdb_conv(k, x, p, out, **window):
+        r0, r1 = window.get("rows") or (0, window.get("hin") or x.shape[1])
+        key = ("fwd", x.shape[0], x.shape[3], out.shape[3], r1 - r0, out.shape[2], 3)
+        shapes[key] = shapes.get(key, 0) + 1
+        return orig_rdb(k, x, p, out, **window)
+
     # The wrapped kernels count their launches on the wrappers in their
     # place, and hand the counts back.
     fwd.launches, wgrad.launches, tf32.launches = (orig[0].launches, orig[1].launches,
                                                    orig_tf32.launches)
     conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = fwd, wgrad
-    conv_stack.conv_frame_tf32_cuda, tail.tail_stage_tf32_cuda = tf32, tail_stage
+    conv_stack.conv_frame_tf32_cuda, tail.tail_stage_tf32_cuda, rrdb.rdb_conv_tf32_cuda = tf32, tail_stage, rdb_conv
     try:
         fn()
     finally:
         conv_f32.conv_f32_fwd_cuda, conv_f32.conv_f32_wgrad_cuda = orig
         conv_stack.conv_frame_tf32_cuda, tail.tail_stage_tf32_cuda = orig_tf32, orig_tail
+        rrdb.rdb_conv_tf32_cuda = orig_rdb
         orig[0].launches, orig[1].launches, orig_tf32.launches = (fwd.launches, wgrad.launches,
                                                                   tf32.launches)
     total = 0.0
@@ -3690,6 +3714,40 @@ def tail_bound(n, h, w):
     return sum(by_limit.values()), max(by_limit, key=by_limit.get)
 
 
+def rdb_conv_floor(k, n, h, w):
+    """Conv ``k`` (1..5) of an RDB on the 3xTF32 kernel, over ``n`` f32
+    frames of ``h x w``: ``(seconds, bound_by, FLOPs)``, the larger of 3 x
+    its FLOPs at 495 TFLOP/s and its input and output at 3.35 TB/s
+    (``rrdb.rdb_conv_cost``)."""
+    from master_thesis_tpu_torch.ops import rrdb
+
+    flops, nbytes_ = rrdb.rdb_conv_cost(k, n, h, w, itemsize=4)
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes_ / PEAK_BYTES
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def rdb_bound(n, h, w):
+    """K1's or K2's routed bound for one RRDB over ``n`` frames of ``h x w``
+    (the frame's work; K2's halo rows are its design's), ``(seconds,
+    bound_by)``: three RDBs' five conv floors (:func:`rdb_conv_floor`), one
+    after another; bound by what bounds most of it."""
+    by_limit = {"operations": 0.0, "bytes": 0.0}
+    for k in range(1, 6):
+        t, by, _ = rdb_conv_floor(k, n, h, w)
+        by_limit[by] += 3 * t
+    return sum(by_limit.values()), max(by_limit, key=by_limit.get)
+
+
+def f32_check_body(base):
+    """An RRDB's f32 check: :func:`f32_check` with the relative L2 over the
+    part the convs compute (``base``: the RRDB's identity part, ``1.2 x``,
+    left out of its norm, as the bf16 checks read it), where a fault is not
+    diluted by the input that the RRDB passes through (~6x at these
+    weights)."""
+    return lambda name, got, want, planted: check(f"{name}, {planted}" if planted else name, got, want, base,
+                                                  L2_F32, max_abs=False, planted=bool(planted))
+
+
 def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, check_fn, kind="simt",
              first=None, routed=None):
     """One site's f32 route, whose kernels are ``F32_ROUTES[kind]``: its check
@@ -3697,10 +3755,10 @@ def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, 
     those kernels, then its device time with its launch count (the kernels
     whose names match the route's pattern), the bound, the 3 x TF32 figure,
     the plain version, the cuDNN route and the library yardstick. ``first``
-    (K4, K5, K7, K8): the f32 first design, every conv on conv_f32.cu,
+    (K1, K2, K4, K5, K7, K8): the f32 first design, every conv on conv_f32.cu,
     checked and timed beside the route, which must be faster; ``routed``
     (with it): the route's bound, ``(seconds, bound_by)`` from
-    :func:`routed_bound` or :func:`tail_bound` (the bound at 67 TFLOP/s kept
+    :func:`routed_bound`, :func:`tail_bound` or :func:`rdb_bound` (the bound at 67 TFLOP/s kept
     as ``bound_f32_ms``). Returns the route's output."""
     kind = F32_ROUTES[kind]
     got, want = route(), plain()
@@ -3810,9 +3868,9 @@ def phase_tf32_convs(dfpn, vgg):
             raise RuntimeError(f"{name}: a rerun is not bit-identical")
         tile = conv_stack.frame_tile_tf32(n, h, w, k, co)
         for fault, flabel in TF32_FAULTS.items():
-            if (fault == 3 and tile[1] >= h) or fault == 4:
+            if (fault == 3 and tile[1] >= h) or fault in (4, 5):
                 print(f"planted {name}, {flabel}: not applicable "
-                      + ("(one row tile a frame)" if fault == 3 else "(no row window)"))
+                      + {3: "(one row tile a frame)", 4: "(no row window)", 5: "(conv mode)"}[fault])
                 continue
             with planted_tf32(fault):
                 f32_check(name, run(), want, flabel)
@@ -3925,9 +3983,9 @@ def phase_tail_stages_tf32(tail_w):
         x_row0 = window.get("x_row0", 0)
         tile = conv_stack.tf32_tile(mode, x.shape[0], hin, x.shape[2], 3, 256 if up else co, cy0, cy1, x_row0)
         for fault, flabel in TF32_FAULTS.items():
-            if (fault == 3 and tile[1] >= cy1 - cy0) or (fault == 4 and x_row0 == 0):
+            if (fault == 3 and tile[1] >= cy1 - cy0) or (fault == 4 and x_row0 == 0) or fault == 5:
                 print(f"planted {label}, {flabel}: not applicable "
-                      + ("(one row tile)" if fault == 3 else "(x_row0 0)"))
+                      + {3: "(one row tile)", 4: "(x_row0 0)", 5: "(not gc mode)"}[fault])
                 continue
             with planted_tf32(fault):
                 f32_check(label, run(), want, flabel)
@@ -3953,6 +4011,143 @@ def phase_tail_stages_tf32(tail_w):
               f"({by}; {floor / ms:.1%} of it), SIMT conv_f32_fwd {simt_ms:.4f} ms ({simt_ms / ms:.2f}x), "
               f"cuDNN f32 F.conv2d {cudnn_ms:.4f} ms")
     print(f"kernel K4 f32 stages: floors summed {floors:.4f} ms")
+
+
+def rdb_conv_yardsticks(k, x, p, out, conv_kw, padded):
+    """Conv ``k`` (0..4) of the f32 RDB ``p`` on ``x`` (its input's view of the
+    dense concat) on its yardsticks: ``conv_f32_fwd`` (the SIMT kernel, the
+    first design's launch), one cuDNN ``F.conv2d`` (f32, TF32 off,
+    channels-last), and with ``padded`` (whole frames) for conv1..conv4 the
+    padded form of the 3xTF32 kernel (conv mode with Cout padded 32 -> 64,
+    into scratch; the design gc mode was weighed against), checked against
+    the plain conv. Returns ``(simt_ms, cudnn_ms, padded_ms)``."""
+    import torch.nn.functional as nnf
+
+    from master_thesis_tpu_torch.ops import conv_f32, conv_stack, fragments, rrdb
+
+    simt_ms = cuda_ms(lambda: conv_f32.conv_f32_fwd_cuda(x, rrdb.hwio_kernels(p)[k], out, **conv_kw),
+                      iters=3, warmup=1)
+    xc = channels_last(x.permute(0, 3, 1, 2))
+    wc = channels_last(p.kernels[k])
+    cudnn_ms = cuda_ms(lambda: nnf.conv2d(xc, wc, padding=1), iters=3, warmup=1)
+    del xc
+    padded_ms = None
+    if padded and k < 4:
+        w64 = nnf.pad(p.kernels[k], (0, 0, 0, 0, 0, 0, 0, 32))
+        mat = fragments.wgmma_tf32_matrix(w64).contiguous()
+        b64 = nnf.pad(conv_kw["bias"], (0, 32)).contiguous()
+        scratch = torch.empty(x.shape[0], x.shape[1], x.shape[2], 64, device="cuda")
+        run = lambda: conv_stack.tf32_launch(x, mat, b64, scratch, mode="conv", k=3, cout=64, epi="leaky")
+        run()
+        want = torch.empty_like(scratch[..., :32])
+        rrdb.rdb_conv_tf32_plain(k, x, p, want)
+        n, h, w = x.shape[:3]
+        f32_check(f"K1 f32 conv{k + 1} in the padded conv mode at {n}x{h}x{w}", scratch[..., :32], want, None)
+        padded_ms = cuda_ms(run, iters=3, warmup=1)
+        del scratch, mat
+    return simt_ms, cudnn_ms, padded_ms
+
+
+def phase_rdb_convs_tf32(rdbs):
+    """K1's five f32 launches alone on the 3xTF32 kernel at 80 x 64^2
+    (conv1..conv4 in gc mode over the dense concat, conv5 in conv mode with
+    both residuals), then the five of one K2 band (the second of 8 x
+    128x256 in 32-row bands: the band buffer's row 0 is frame row 27): each
+    held against its plain f32 version (TF32 off) by relative L2
+    (``L2_F32``; conv5's over its output less its residuals' part, 0.2 r +
+    r2), a rerun bit-identical, each planted fault that applies
+    caught (the halo-row one where a launch has more than one row tile, the
+    band one where its rows read row x_row0, the gc one in gc mode); its
+    time beside its floor (:func:`rdb_conv_floor`), ``conv_f32_fwd`` (the
+    first design's launch), one cuDNN ``F.conv2d`` (f32, TF32 off) and, for
+    conv1..conv4 at 80 x 64^2, the padded conv mode. Returns ``(ms,
+    floor_ms)`` of an RRDB's 15 launches at 80 x 64^2."""
+    from master_thesis_tpu_torch.ops import conv_stack, rrdb
+
+    g = torch.Generator().manual_seed(SEED + 46)
+    p = rdbs[2]  # the third RDB: conv5 adds the RRDB residual too
+    n, h, w = B * F, H // 4, W // 4
+    nf, gc = rrdb.KERNEL_NF, rrdb.KERNEL_GC
+    launches = []
+    cat = torch.randn(n, h, w, nf + 4 * gc, generator=g).cuda()
+    res = torch.randn(n, h, w, nf, generator=g).cuda()
+    for k in range(5):
+        x = cat[..., :nf + k * gc] if k < 4 else cat
+        out = cat[..., nf + k * gc: nf + (k + 1) * gc] if k < 4 else torch.empty(n, h, w, nf, device="cuda")
+        kw = {} if k < 4 else dict(r=cat[..., :nf], r2=res)
+        launches.append((f"K1 f32 conv{k + 1} at {n}x{h}x{w}", k, x, out, kw, {}))
+    lo = rrdb.TRUNK_BAND_ROWS - rrdb.BAND_HALO  # band 2, rows [32, 64), with its 5-row halo
+    hi = 2 * rrdb.TRUNK_BAND_ROWS + rrdb.BAND_HALO
+    wins = rrdb.band_windows(BAND_H, rrdb.TRUNK_BAND_ROWS, 2 * rrdb.TRUNK_BAND_ROWS)
+    bn, bw_ = BAND_N, BAND_WS[1]
+    band = torch.randn(bn, hi - lo, bw_, nf + 4 * gc, generator=g).cuda()
+    frame_x = torch.randn(bn, BAND_H, bw_, nf, generator=g).cuda()
+    for k in range(5):
+        x = band[..., :nf + k * gc] if k < 4 else band
+        if k < 4:
+            out, kw = band[..., nf + k * gc: nf + (k + 1) * gc], dict(rows=wins[k], hin=BAND_H, x_row0=lo, out_row0=lo)
+        else:
+            out = torch.empty(bn, BAND_H, bw_, nf, device="cuda")
+            kw = dict(rows=wins[k], hin=BAND_H, x_row0=lo, r=frame_x)
+        launches.append((f"K2 f32 band 2 conv{k + 1} at {bn}x{BAND_H}x{bw_}, rows {wins[k][0]}-{wins[k][1]} from "
+                         f"x_row0 {lo}", k, x, out, kw, {"band": True}))
+    ms_sum = floor_sum = 0.0
+    for label, k, x, out, kw, opt in launches:
+        mode = "gc" if k < 4 else "conv"
+        label = f"{label} ({mode} mode)"
+        run = lambda: rrdb.rdb_conv_tf32_cuda(k, x, p, out, **kw)
+        want = rrdb.rdb_conv_tf32_plain(k, x, p, torch.empty_like(out), **kw)
+        r0, r1 = kw.get("rows", (0, x.shape[1]))
+        sl = slice(r0 - kw.get("out_row0", 0), r1 - kw.get("out_row0", 0))
+        # conv5's output is mostly its residuals (0.2 r + r2): read it over the
+        # part its products make, as the RRDB checks read the RRDB's body.
+        base = None if k < 4 else 0.2 * kw["r"][:, sl] + (0 if kw.get("r2") is None else kw["r2"][:, sl])
+        chk = lambda got_, planted: check(f"{label}, {planted}" if planted else label, got_, want[:, sl], base,
+                                          L2_F32, max_abs=False, planted=bool(planted))
+        run()
+        got = out[:, sl].clone()
+        chk(got, None)
+        run()
+        if not torch.equal(got, out[:, sl]):
+            raise RuntimeError(f"{label}: a rerun is not bit-identical")
+        hin = kw.get("hin", x.shape[1])
+        x_row0 = kw.get("x_row0", 0)
+        tile = conv_stack.tf32_tile(mode, x.shape[0], hin, x.shape[2], 3, gc if k < 4 else nf, r0, r1, x_row0)
+        for fault, flabel in TF32_FAULTS.items():
+            why = {3: "(one row tile)" if tile[1] >= r1 - r0 else None,
+                   4: "(its rows do not read row x_row0)" if x_row0 == 0 or r0 - 1 > x_row0 else None,
+                   5: "(conv mode)" if k == 4 else None}.get(fault)
+            if why:
+                print(f"planted {label}, {flabel}: not applicable {why}")
+                continue
+            with planted_tf32(fault):
+                run()
+                chk(out[:, sl], flabel)
+        run()
+        ms = cuda_ms(run, iters=3, warmup=1)
+        conv_kw = dict(rrdb._conv_args(k, p, kw.get("r"), kw.get("r2")),
+                       **{a: kw[a] for a in ("rows", "hin", "x_row0", "out_row0") if a in kw})
+        simt_ms, cudnn_ms, padded_ms = rdb_conv_yardsticks(k, x, p, out, conv_kw, not opt)
+        if opt:
+            flops = 2 * x.shape[0] * (r1 - r0) * x.shape[2] * 9 * x.shape[3] * out.shape[3]
+            t_ops = 3 * flops / PEAK_TF32_FLOPS
+            t_bytes = 4 * x.shape[0] * x.shape[2] * ((r1 - r0 + 2) * x.shape[3] + (r1 - r0) * out.shape[3]) / PEAK_BYTES
+            floor, by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+        else:
+            t, by, flops = rdb_conv_floor(k + 1, n, h, w)
+            floor = 1e3 * t
+            ms_sum += 3 * ms
+            floor_sum += 3 * floor
+        print(f"kernel {label} (tile {tile}): {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), floor {floor:.4f} ms "
+              f"({by}; {floor / ms:.1%} of it), SIMT conv_f32_fwd {simt_ms:.4f} ms ({simt_ms / ms:.2f}x), "
+              f"cuDNN f32 F.conv2d {cudnn_ms:.4f} ms"
+              + ("" if padded_ms is None else f", padded conv mode (Cout 32 -> 64) {padded_ms:.4f} ms "
+                 f"({padded_ms / ms:.2f}x)"))
+        del got, want
+    print(f"kernel K1 f32 convs, an RRDB's 15 launches at {n}x{h}x{w}: {ms_sum:.4f} ms, floors {floor_sum:.4f} ms "
+          f"({floor_sum / ms_sum:.1%} of it)")
+    del cat, res, band, frame_x, launches
+    return ms_sum, floor_sum
 
 
 def f32_check(name, got, want, planted):
@@ -4010,7 +4205,16 @@ def phase_f32(results, device_line):
         x = channels_last(rnd(n, 64, h, w))
         f32_site(results, "K1", "RRDB (3 RDBs x 5 convs)", lambda: rrdb.rrdb_trunk(x, [rdbs]),
                  lambda: rrdb.rrdb_trunk(x, [rdbs], rdb_fn=rrdb.rdb_plain), lambda: rrdb_cudnn(x, rdbs),
-                 3 * rrdb.rdb_flops(n, h, w), 2 * nbytes(x), 3 * rrdb.RDB_CONVS, f32_check)
+                 3 * rrdb.rdb_flops(n, h, w), 2 * nbytes(x), 3 * rrdb.RDB_CONVS, f32_check_body(1.2 * x),
+                 kind="rdb", first=lambda: rrdb.rrdb_trunk(x, [rdbs], rdb_fn=rrdb.rdb_f32_first),
+                 routed=rdb_bound(n, h, w))
+        # The train step's forward runs K1 on 8 frames: too few tiles for 132
+        # SMs to be the serving step's tenth.
+        xt = x[:TRAIN_B]
+        t_new = cuda_ms(lambda: rrdb.rrdb_trunk(xt, [rdbs]), iters=3, warmup=1)
+        t_first = cuda_ms(lambda: rrdb.rrdb_trunk(xt, [rdbs], rdb_fn=rrdb.rdb_f32_first), iters=3, warmup=1)
+        print(f"kernel K1 f32 at the train step's {TRAIN_B}x64x{h}x{w}: {t_new:.4f} ms, first design (conv_f32 "
+              f"alone) {t_first:.4f} ms ({t_first / t_new:.2f}x), bound {1e3 * rdb_bound(TRAIN_B, h, w)[0]:.4f} ms")
         f32_site(results, "K4", "tail (4 convs)", lambda: tail.tail(x, tail_w),
                  lambda: tail.tail_plain(x, tail_w), lambda: tail_cudnn(x, tail_w),
                  tail.tail_flops(n, h, w), nbytes(x) + n * 3 * 16 * h * w * 4, tail.TAIL_KERNELS,
@@ -4018,11 +4222,22 @@ def phase_f32(results, device_line):
         del x
         xb = channels_last(rnd(BAND_N, 64, BAND_H, BAND_WS[1]))
         bands_k2 = len(rrdb.bands(BAND_H, rrdb.TRUNK_BAND_ROWS))
-        f32_site(results, "K2", f"RRDB in {rrdb.TRUNK_BAND_ROWS}-row bands",
-                 lambda: rrdb.rrdb_trunk_banded(xb, [rdbs]),
-                 lambda: rrdb.rrdb_trunk_banded_plain(xb, [rdbs]), lambda: rrdb_cudnn(xb, rdbs),
-                 3 * rrdb.rdb_flops(BAND_N, BAND_H, BAND_WS[1]), 2 * nbytes(xb),
-                 3 * rrdb.RDB_CONVS * bands_k2, f32_check)
+        k2 = f32_site(results, "K2", f"RRDB in {rrdb.TRUNK_BAND_ROWS}-row bands",
+                      lambda: rrdb.rrdb_trunk_banded(xb, [rdbs]),
+                      lambda: rrdb.rrdb_trunk_banded_plain(xb, [rdbs]), lambda: rrdb_cudnn(xb, rdbs),
+                      3 * rrdb.rdb_flops(BAND_N, BAND_H, BAND_WS[1]), 2 * nbytes(xb),
+                      3 * rrdb.RDB_CONVS * bands_k2, f32_check_body(1.2 * xb), kind="rdb in bands",
+                      first=lambda: rrdb.rrdb_trunk(xb, [rdbs], rdb_fn=functools.partial(
+                          rrdb.rdb_banded_f32_first, band_rows=rrdb.TRUNK_BAND_ROWS)),
+                      routed=rdb_bound(BAND_N, BAND_H, BAND_WS[1]))
+        # K2 sums each output's products in K1's order: the two agree bit for
+        # bit on an input both take.
+        k1 = rrdb.rrdb_trunk(xb, [rdbs])
+        print(f"check K2 f32 == K1 f32 at {BAND_N}x64x{BAND_H}x{BAND_WS[1]}, bit for bit: "
+              + ("ok" if torch.equal(k2, k1) else f"FAIL (max|diff| {(k2 - k1).abs().max().item():.3g})"))
+        if not torch.equal(k2, k1):
+            raise RuntimeError("K2's f32 route does not equal K1's bit for bit")
+        del k1, k2
         bands_k5 = len(rrdb.bands(BAND_H, tail.TAIL_BAND_ROWS))
         k5 = f32_site(results, "K5", f"tail in {tail.TAIL_BAND_ROWS}-row bands",
                       lambda: tail.tail_banded(xb, tail_w), lambda: tail.tail_banded_plain(xb, tail_w),
@@ -4039,6 +4254,7 @@ def phase_f32(results, device_line):
             raise RuntimeError("K5's f32 route does not equal K4's bit for bit")
         del xb, k4, k5
         phase_tail_stages_tf32(tail_w)
+        results["K1 f32"].update(zip(("tf32_convs_ms", "tf32_convs_floor_ms"), phase_rdb_convs_tf32(rdbs)))
     with torch.no_grad():
         # K3 / K6 at the train step's 8 x 64^2.
         nt = TRAIN_B
@@ -4157,7 +4373,8 @@ def phase_f32(results, device_line):
         del items, outs8
         for site, (ms, floor) in tf32_sums.items():
             results[f"{site} f32"].update(tf32_convs_ms=ms, tf32_convs_floor_ms=floor)
-        tf32_want = sum(count for *_, count in tf32_conv_items(dfpn, vgg).values()) + tail.TAIL_KERNELS
+        tf32_want = (sum(count for *_, count in tf32_conv_items(dfpn, vgg).values()) + tail.TAIL_KERNELS
+                     + 3 * NB * rrdb.RDB_CONVS)
 
     # Beside the sites' counters, the 3xTF32 kernel's (K7's and K8's routed
     # convs, the tail's stages).
@@ -4181,7 +4398,7 @@ def phase_f32(results, device_line):
     with torch.inference_mode():
         (y_hat, y_comp), counts = counted(lambda: serve(*inputs))
         want = {**dict.fromkeys(counters, 0), "K1": 3 * NB * rrdb.RDB_CONVS, "K4": tail.TAIL_KERNELS,
-                "TF32": tail.TAIL_KERNELS}
+                "TF32": tail.TAIL_KERNELS + 3 * NB * rrdb.RDB_CONVS}
         print(f"f32 serving step launches: {counts} (expected {want})")
         if counts != want:
             raise RuntimeError("the f32 serving step did not launch each f32 route as expected")
@@ -4233,9 +4450,11 @@ def phase_f32(results, device_line):
         want_g = grads()
     check_groups("f32 CHN train step grads, backward routes vs plain versions from the same forward",
                  got, want_g, L2_F32_STEP)
-    # The 3xTF32 kernel: the tail's four launches and K6's recompute (three).
+    # The 3xTF32 kernel: the trunk's forward (K1), the tail's four launches
+    # and K6's recompute (three).
     want = {**dict.fromkeys(counters, 0), "K1": 3 * NB * rrdb.RDB_CONVS, "K3": NB * rrdb_bwd.RRDB_BWD_F32_KERNELS,
-            "K4": tail.TAIL_KERNELS, "K6": tail_bwd.TAIL_BWD_F32_KERNELS, "TF32": tail.TAIL_KERNELS + 3}
+            "K4": tail.TAIL_KERNELS, "K6": tail_bwd.TAIL_BWD_F32_KERNELS,
+            "TF32": 3 * NB * rrdb.RDB_CONVS + tail.TAIL_KERNELS + 3}
     print(f"f32 train step launches: {counts} (expected {want})")
     if counts != want:
         raise RuntimeError("the f32 train step did not launch each f32 route as expected")
@@ -4257,6 +4476,9 @@ def phase_f32(results, device_line):
           f"(3 steps after 1), {TRAIN_B / dt:.3f} samples/s, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; " + ", ".join(f"{k} {v:.6g}" for k, v in loss.items())
           + f" on {device_line}")
+    # The device's busy share of the f32 step: how far the host's launches
+    # (the f32 backward's ~1 000 a step) hold it back.
+    phase_profile(lambda *b: step(st, *b), batch, dt, grad=True)
     del st, step, chn_t
 
     # A CHN+DFPN step in f32 with every kernel route (K7 on sep4d and the
@@ -4273,7 +4495,7 @@ def phase_f32(results, device_line):
         if (not torch.isfinite(y_hat).all() or counts["K7"] == 0 or counts["K8"] == 0 or counts["K1"] == 0
                 or counts["TF32"] != tf32_want):
             raise RuntimeError(f"f32 CHN+DFPN step: launches {counts} (3xTF32 kernel: {tf32_want} expected: "
-                               "K7's and K8's routed convs and the tail's four), "
+                               "K7's and K8's routed convs, the trunk's and the tail's four), "
                                f"finite {torch.isfinite(y_hat).all()}")
         results["K7 f32"]["launches"], results["K8 f32"]["launches"] = counts["K7"], counts["K8"]
         for k in ("K7", "K8"):

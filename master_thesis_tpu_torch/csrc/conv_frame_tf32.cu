@@ -2,14 +2,17 @@
 // note and the bound): K7's and K8's f32 convs with 64-multiple widths (conv
 // mode, one k x k conv over NHWC f32 frames, K7's tiles being frames of
 // 16x16; ops/conv_stack.py routes those convs of an f32 stack here and the
-// rest to conv_f32.cu), and K4's / K5's f32 tail, four launches: upconv1 and
+// rest to conv_f32.cu), K4's / K5's f32 tail, four launches: upconv1 and
 // upconv2 in phase mode, hr_conv in conv mode, conv_last in last mode
-// (ops/tail.py).
+// (ops/tail.py), and K1's / K2's f32 RDB, five launches: conv1..conv4 in gc
+// mode, conv5 in conv mode with the residual epilogue (ops/rrdb.py).
 #include "conv_tile.cuh"
 #include "conv_frame_tf32_wgmma.cuh"
 
 // One launch, field for field ops/conv_stack.py:_TF32Call. x: (n, x_rows,
-// wd, cin) f32 NHWC, contiguous, frame rows from x_row0 of frames of h rows;
+// wd, cin) f32 NHWC with contiguous channels, pixels xc floats apart (the
+// first cin channels of a wider buffer where xc > cin), rows wd * xc, frames
+// xn; frame rows from x_row0 of frames of h rows;
 // w: the packed hi matrix (ops/fragments.py: wgmma_tf32_matrix,
 // wgmma_tf32_phase_matrix, or wgmma_tf32_matrix padded to 8 outputs for last
 // mode) with the lo matrix lo_off floats further; b: the biases (phase mode:
@@ -18,14 +21,19 @@
 // output rows [r0, r1). The tile is fr frames x rows x tw pixels of x's
 // resolution on nh n144 halves (ops/conv_stack.py:frame_tile_tf32,
 // last_tile_tf32). mode: 0 conv (k = 3 or 5), 1 phase (cout = 4 phases x
-// 64), 2 last (cout <= 8, cout_pad 8); epi: 0 none, 1 ReLU, 2 leaky ReLU
-// (0.2), after the bias.
+// 64), 2 last (cout <= 3, cout_pad 24), 3 gc (cout 32, cout_pad 96); epi: 0
+// none, 1 ReLU, 2 leaky ReLU (0.2), after the bias, 3 (conv mode) 0.2 *
+// (0.2 * (acc + b) + r) + r2, r and r2 (r2 null for none) whole frames read
+// at frame f, row y, column x, channel o at f * r_sn + y * r_sy + x * r_sx + o
+// (r2 likewise with its own strides).
 struct TF32Call {
   const void* x;
   const void* w;
   const void* b;
   void* out;
-  long long lo_off, tg, sg, st, sr, sp;
+  const void* r;
+  const void* r2;
+  long long lo_off, tg, sg, st, sr, sp, xc, xn, r_sn, r_sy, r_sx, r2_sn, r2_sy, r2_sx;
   int n, h, wd, cin, cout, cout_pad, k, mode, epi, fr, rows, tw, nh, x_row0, x_rows, r0, r1, out_row0;
 };
 
@@ -55,6 +63,14 @@ extern "C" int conv_frame_tf32_forward(const TF32Call* c, void* stream) {
   a.r0 = c->r0;
   a.r1 = c->r1;
   a.out_row0 = c->out_row0;
-  return ft::launch(static_cast<const float*>(c->x), a, c->k, c->nh, c->mode, c->x_rows,
+  a.r = static_cast<const float*>(c->r);
+  a.r2 = static_cast<const float*>(c->r2);
+  a.r_sn = c->r_sn;
+  a.r_sy = c->r_sy;
+  a.r_sx = c->r_sx;
+  a.r2_sn = c->r2_sn;
+  a.r2_sy = c->r2_sy;
+  a.r2_sx = c->r2_sx;
+  return ft::launch(static_cast<const float*>(c->x), a, c->k, c->nh, c->mode, c->x_rows, c->xc, c->xn,
                     static_cast<cudaStream_t>(stream));
 }

@@ -1,15 +1,18 @@
-// K7 / K8 in f32, and K4 / K5 (the RRDBNet tail) in f32: one conv over N
-// whole NHWC f32 frames (or a window of their rows) on Hopper's tensor cores
-// in 3xTF32: each product a * b is a_hi b_hi + a_hi b_lo + a_lo b_hi, a =
-// a_hi + a_lo with a_hi = tf32(a) and a_lo = tf32(a - a_hi) (round to
-// nearest, ties away), three wgmma products summed in f32. Three modes:
+// K7 / K8 in f32, K4 / K5 (the RRDBNet tail) in f32 and K1 / K2 (the RRDB
+// trunk) in f32: one conv over N whole NHWC f32 frames (or a window of their
+// rows) on Hopper's tensor cores in 3xTF32: each product a * b is a_hi b_hi +
+// a_hi b_lo + a_lo b_hi, a = a_hi + a_lo with a_hi = tf32(a) and a_lo = tf32(a
+// - a_hi) (round to nearest, ties away), three wgmma products summed in f32.
+// Four modes:
 //
 // - conv: a k x k conv (k = 3 or 5; same padding, zeros only at the frame's
-//   border; f32 bias, then ReLU or leaky ReLU (0.2) where asked), Cin a
-//   multiple of 32 and Cout of 64. K7's tiles are frames of 16x16. The thin
-//   convs of a stack (sep4d's 1 -> 128 and 128 -> 1, the mixer's tail, the
-//   flow estimators' c0 and c17, VGG's 3 -> 64) stay on conv_f32.cu's SIMT
-//   kernel. The tail's hr_conv (3x3, 64 -> 64, leaky) is one launch of it.
+//   border; f32 bias, then ReLU or leaky ReLU (0.2) where asked, or the
+//   residual epilogue below), Cin a multiple of 32 and Cout of 64. K7's tiles
+//   are frames of 16x16. The thin convs of a stack (sep4d's 1 -> 128 and
+//   128 -> 1, the mixer's tail, the flow estimators' c0 and c17, VGG's 3 ->
+//   64) stay on conv_f32.cu's SIMT kernel. The tail's hr_conv (3x3, 64 -> 64,
+//   leaky) is one launch of it, and so is an RDB's conv5 (3x3, 192 -> 64,
+//   the residual epilogue).
 // - phase: a nearest-2x upsample then 3x3 conv (the tail's upconv1 and
 //   upconv2, leaky) in its 4-phase form at the low resolution: output phase
 //   (a, b) of low-resolution pixel (y, x) is high-resolution pixel (2y + a,
@@ -19,6 +22,16 @@
 // - last: the tail's conv_last (3x3, 64 -> 3, no activation) as the
 //   unswapped product (below), so that its 3 outputs cost an n8 a tap, not
 //   an m64.
+// - gc: an RDB's dense-concat convs conv1..conv4 (3x3, Cin 64, 96, 128, 160
+//   -> gc = 32, leaky) as the unswapped product with 32 outputs a tap (an
+//   n96 a row of taps), so that gc = 32 costs no padding to an m64.
+//
+// The residual epilogue ("resid", conv mode): an RDB's conv5, 0.2 (0.2
+// (acc + b) + r) + r2, each step one f32 fma in conv_f32.cu's order (the r2
+// step only where r2 is given), r the RDB's input x and r2 the RRDB residual
+// on an RRDB's third RDB. r and r2 are whole frames read at the output
+// pixel's frame, row and column through their own strides, so a band's
+// launch reads them in place.
 //
 // Replaces, in f32: master_thesis_tpu/ops/pallas_sep4d.py: conv_stack_tiles
 // (K7, body _conv_stack_kernel: sep4d's two stages and the mixer) and
@@ -26,7 +39,10 @@
 // flow_64's segments, VGG's pool-4 tower), for their 64-multiple convs; and
 // master_thesis_tpu/ops/pallas_tail.py: rrdbnet_tail_pallas (K4, body
 // _tail_kernel, and K5, its banded branch, body _tail_band_kernel: each
-// upsample-conv as _phase_conv), all four stages. Those run their dots in
+// upsample-conv as _phase_conv), all four stages; and
+// master_thesis_tpu/ops/pallas_rrdb.py: rrdb_pallas (K1, body _rrdb_kernel)
+// and rrdb_trunk_pallas_banded (K2, body _rdb_band_kernel), all five convs
+// of each RDB (15 launches an RRDB). Those run their dots in
 // f32 under Precision.HIGHEST: a multi-pass split product on the TPU's
 // low-precision matrix unit, as here. One TF32 product alone reads ~3e-4
 // relative L2 against f64 on the card.
@@ -44,7 +60,10 @@
 // operations), hr_conv 2.342 ms (conv mode, operations), conv_last 0.419 ms
 // (last mode, bytes: its 1.34 GB input; its products, 8 outputs a tap, 0.293
 // ms); the whole tail 3.754 ms by operations, its input and output 0.044 ms
-// (chip_smoke.py:phase_tail_stages_tf32 prints each).
+// (chip_smoke.py:phase_tail_stages_tf32 prints each). An RDB at 80 x 64^2
+// (157.0 GFLOP): conv1..conv4 84.6 GFLOP, 0.513 ms, conv5 72.5 GFLOP, 0.439
+// ms, all bound by operations; an RRDB 2.855 ms (chip_smoke.py:
+// phase_rdb_convs_tf32 prints each conv's floor).
 //
 // Design: conv_frame_wgmma.cuh's swapped implicit GEMM, D = W^T X: M = output
 // channels (one m64 tile a consumer warpgroup), N = the box's wrapped pixel
@@ -84,6 +103,26 @@
 // Cout to an m64 of the swapped form instead would cost 21x its products (a
 // 2.3 ms floor at K4's shape against this form's 0.42 ms).
 //
+// Gc mode is last mode with 32 outputs: N = 96, a row of taps' 3 taps dx x
+// 32 outputs (fragments.wgmma_tf32_gc_matrix: one 12 KB block a (chunk, dy),
+// hi and lo), the same tiles, m64 blocks and one wgmma group a (chunk, dy)
+// into a fresh partial sum. Its weights do not fit once a CTA (cin 160: 5
+// chunks x 3 rows x 24 KB), so the (chunk, dy) blocks stream through the
+// weight ring, two stages of hi + lo; the rest of the 64 KB region is the
+// epilogue's exchange. The epilogue adds rows n + 1's dx 1 and n + 2's dx 2
+// columns to row n's dx 0 in four passes of 8 outputs (each thread writes
+// its rows' dx 1 and dx 2 columns of the pass to the exchange, 16 KB, then
+// reads the next rows' for its own): ((dx 0 + dx 1) + dx 2) + b, as last
+// mode adds them. Each pixel's 8 outputs of a pass are one 32-byte sector
+// of its store, at channel offset cin of the dense-concat buffer. Padding
+// gc = 32 to an m64 of the swapped form instead would double conv1..conv4's
+// products (54% of an RDB's).
+//
+// The input's pixel stride is a launch argument (xc floats, a multiple of 4;
+// its frame stride xn): an RDB's convs read the first cin channels of the
+// NHWC dense-concat buffer of nf + 4 gc = 192 channels (a pixel 768 bytes
+// apart) in place, and conv1..conv4 store their 32 outputs into it.
+//
 // Row windows (K5's bands, as conv_f32.cu's): the input buffer holds the
 // frame's rows from x_row0 (its TMA map has the frame's rows that it holds,
 // so the zero fill is the frame's border and never a band's edge), the
@@ -91,11 +130,12 @@
 // output rows [r0, r1) at buffer row r - out_row0 (phase mode: cy0 = r0 / 2,
 // cy1 = (r1 + 1) / 2, each phase's row masked to the window). An output
 // sums the same products in the same order whatever the tile, the window or
-// the halves, so a banded tail equals the full-frame one bit for bit.
+// the halves, so a banded tail equals the full-frame one bit for bit, and a
+// banded RDB (K2's 15 launches a band) the full-frame one (K1's).
 //
 // The split. The weights are split once when packed (ops/fragments.py:
 // wgmma_tf32_matrix: the hi and the lo matrix, each (Cin / 32, taps, Cout
-// padded to 128 (last mode: rows of taps, 24 rows), 32), each output's 16-byte
+// padded to 128 (last mode: rows of taps, 24 rows; gc mode 96), 32), each output's 16-byte
 // chunks in the 128-byte swizzle), so a (tap, chunk) stage is two bulk copies.
 // The activations are split in shared memory: three producer warps that issue
 // no load wait for each box, round it in place to its hi half and write its lo
@@ -111,7 +151,8 @@
 // every load (setmaxnreg hands the warpgroup's registers to the consumers),
 // keeping the box ring (2 stages of hi + lo) and the weight ring ((tap,
 // chunk) blocks, hi + lo: 2 stages of 128 outputs or 4 of 64; in last mode
-// the whole weights once) full; the next box is issued early in the current
+// the whole weights once; in gc mode 2 stages of a (chunk, dy) block) full;
+// the next box is issued early in the current
 // chunk's taps. Two consumer warpgroups, each one m64 x n144 product: on one
 // half (NH = 1) warpgroup w owns outputs [64 w, 64 w + 64) of the CTA's 128,
 // on two halves (NH = 2) half w of its 64. Each (chunk, tap) is one wgmma
@@ -149,13 +190,15 @@
 //
 // Shared memory: a stage of the box ring is its hi and lo copies, 2 x fr x bh x
 // bw x 128 bytes rounded up to 1024; the weight region 64 KB in every mode (the
-// ring; last mode's 36 KB of weights and its 2 x 9.3 KB exchange). A box has at
+// ring; last mode's 36 KB of weights and its 2 x 9.3 KB exchange; gc mode's
+// 2 x 24 KB ring and its 16 KB exchange). A box has at
 // most 324 pixels (K7's 18 x 18, and K8's 3x3 tiles of 16 x 16; its 5x5 tiles
 // of 4 rows x 32 on one n144 half, a 36 x 8 box): 231 552 bytes at K7's tile,
 // of the 232 448. The tail's stages take the same budget: phase mode at 64^2
 // and 128^2 tiles of 16 x 16 on two halves (an 18 x 18 box, 231 552 bytes),
 // hr_conv 16 x 16 tiles on two halves (64 outputs a CTA), last mode tiles of 7
-// rows x 32 (a 34 x 9 box, 4 m64 blocks: 222 336 bytes) (ops/conv_stack.py:
+// rows x 32 (a 34 x 9 box, 4 m64 blocks: 222 336 bytes), and so do gc mode's;
+// an RDB's conv5 tiles of 7 rows x 32 on two halves (ops/conv_stack.py:
 // tf32_smem, last_tile_tf32). Columns past the box read the next bytes of
 // shared memory (the lo copy, the next stage, the weights) and are dropped: a
 // column's sums depend on its own pixels only. The launcher refuses a tile
@@ -163,12 +206,15 @@
 //
 // Planted faults for the checks on the card, -DTF32_PLANT=n: 1 drops the two
 // correction products (plain 1xTF32); 2 leaves out the corner tap (-r, -r),
-// in phase mode tap (0, 0) of each phase, in last mode by zeroing its weights
-// in shared memory; 3 reads the top halo row of every
+// in phase mode tap (0, 0) of each phase, in last and gc modes by zeroing its
+// weights in shared memory; 3 reads the top halo row of every
 // tile below a frame's first row tile as zeros (that row is the tile above's,
 // across the tile boundary); 4 reads a window's first input row (frame row
-// x_row0) as zeros where x_row0 > 0: a band's halo row, which only K5's
-// bands read (as tail.cu's BAND_PLANT in bf16).
+// x_row0) as zeros where x_row0 > 0: a band's halo row, which only K2's and
+// K5's bands read (as tail.cu's BAND_PLANT in bf16); 5, in gc mode, loads
+// the last 32-channel chunk of the input from one chunk early (a dense-concat
+// conv reading x_{k-2}'s channels where x_{k-1}'s belong; conv1 its first
+// chunk twice).
 #pragma once
 
 #include "conv3x3_wgmma.cuh"
@@ -192,13 +238,17 @@ constexpr int PROD_REGS = 40, CONS_REGS = 232;
 static_assert(PROD_REGS * 128 + CONS_REGS * NCONS <= 65536, "register file");
 constexpr int SMEM_MAX = 232448;
 constexpr int BARS = 128;  // (afull, asplit, aempty) x SA + (wfull, wempty) x (2 or 4)
-constexpr int CONV = 0, PHASE = 1, LAST = 2;            // modes
-constexpr int EPI_NONE = 0, EPI_RELU = 1, EPI_LEAKY = 2;  // epilogues
+constexpr int CONV = 0, PHASE = 1, LAST = 2, GC = 3;                    // modes
+constexpr int EPI_NONE = 0, EPI_RELU = 1, EPI_LEAKY = 2, EPI_RESID = 3;  // epilogues
+constexpr float RES_SCALE = 0.2f;  // the residual epilogue's scale, the RDB's
 // Last mode: a row of taps' 3 taps x outputs padded to 8 (an n24 product;
 // one (chunk, row) block of LAST_W floats, hi or lo), 2 m64 pixel blocks a
 // warpgroup (256 wrapped columns a tile, the last 2 read by their left
 // neighbours), the epilogue's exchange rows.
 constexpr int LAST_N = 8, LAST_W = 3 * LAST_N * CHUNK, LAST_MB = 2, EX_ROWS = 2 * LAST_MB * 64 + 8;
+// Gc mode: 32 outputs (an n96 product a row of taps), last mode's m64
+// blocks, the epilogue's exchange of 2 x (its 256 pixel rows x 8 outputs).
+constexpr int GC_N = 32, GC_ROWS = 2 * LAST_MB * 64;
 
 struct Args {
   const float* wt;    // packed hi matrix, the lo matrix lo_off floats further
@@ -214,6 +264,11 @@ struct Args {
   int tiles_x, tiles_y, groups;  // column tiles, row tiles, frame groups
   int a_tx, a_stage;             // one box copy's bytes, and a stage's (hi + lo, 1024-aligned)
   unsigned mbw, mbh, mtg;        // the epilogue's divisors bw, bh and tg as magic numbers (div_by)
+  // The residual epilogue: r, r2 (r2 null for none) read at frame f, row y,
+  // column x, channel o at f r_sn + y r_sy + x r_sx + o.
+  const float* r;
+  const float* r2;
+  long long r_sn, r_sy, r_sx, r2_sn, r2_sy, r2_sx;
 };
 
 // ceil(2^32 / d): with it n / d is umulhi(n, m) for every n, d < 2^16
@@ -283,6 +338,29 @@ __device__ __forceinline__ void mma24(float (&d)[12], uint64_t a, uint64_t b, in
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// D (64 x 96 f32, 48 registers a thread) = A (64 x 8) B (8 x 96) + (acc ?
+// D : 0), tf32, both K-major from shared memory: for each n8 block j, d[4 j
+// + 2 i + e] = D[16 w + l / 4 + 8 i][8 j + 2 (l % 4) + e].
+__device__ __forceinline__ void mma96(float (&d)[48], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 // The K-major 128-byte-swizzled descriptor at `addr` (SBO 1024 bytes: 8
 // rows of 128), base offset 0: each address is swizzled by its own bits.
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
@@ -320,18 +398,26 @@ __device__ __forceinline__ float activate(float v, Act f) {
   return fmaxf(fmaxf(v, f.slope * v), f.floor);
 }
 
-template <int K, int NH, int MODE>
+// RES: conv mode's residual epilogue (its own instances, so that the other
+// convs' epilogue carries none of it).
+template <int K, int NH, int MODE, bool RES = false>
 __global__ void __launch_bounds__(NTHREAD, 1)
 tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
   constexpr int R = K / 2;
-  constexpr int KK = MODE == PHASE ? 4 : MODE == LAST ? K : K * K;  // taps (last mode: rows of taps)
+  constexpr bool ROWS_N = MODE == LAST || MODE == GC;  // the unswapped product: taps by rows
+  constexpr int KK = MODE == PHASE ? 4 : ROWS_N ? K : K * K;  // taps (last and gc modes: rows of taps)
   constexpr int TPR = MODE == PHASE ? 2 : K;      // taps a row: one partial sum
-  constexpr int COUT_T = MODE == LAST ? LAST_N : 128 / NH;  // outputs a work unit
-  constexpr int SW = MODE == LAST ? 1 : W_RING / (COUT_T * 128);  // weight stages: 2 of 128, 4 of 64
+  // Outputs a work unit (gc mode: a (chunk, dy) block's 3 dx x 32 rows).
+  constexpr int COUT_T = MODE == LAST ? LAST_N : MODE == GC ? 3 * GC_N : 128 / NH;
+  // Weight stages: 2 of 128, 4 of 64, 2 of gc mode's 96 (in 48 KB of the 64).
+  constexpr int SW = MODE == LAST ? 1 : W_RING / (COUT_T * 128);
   constexpr uint32_t W_BYTES = COUT_T * 128;      // one (tap, chunk) block, hi or lo
   constexpr int JB = SW + 1 < KK - 1 ? SW + 1 : KK - 1;  // the tap before which the next box goes
   static_assert(NH == 1 || NH == 2, "one or two n144 halves");
-  static_assert(MODE == CONV || K == 3, "phase and last modes are 3x3");
+  static_assert(MODE == CONV || K == 3, "phase, last and gc modes are 3x3");
+  static_assert(MODE == CONV || !RES, "the residual epilogue is conv mode's");
+  static_assert(MODE != GC || (SW == 2 && 2 * SW * W_BYTES + 2 * GC_ROWS * 8 * 4 == 2 * W_RING),
+                "gc mode's ring and exchange fill the weight region");
   extern __shared__ __align__(1024) unsigned char ft_smem[];
   unsigned char* smem = ft_smem;
   const int w_off = SA * a.a_stage;
@@ -340,7 +426,7 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
   const uint32_t wfull0 = aempty0 + 8 * SA, wempty0 = wfull0 + 8 * SW;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bw = a.tw + K - 1, bh = a.rows + K - 1;
-  const int nct = MODE == LAST ? 1 : a.cout / COUT_T, nch = a.cin / CHUNK;
+  const int nct = ROWS_N ? 1 : a.cout / COUT_T, nch = a.cin / CHUNK;
   const int units = a.groups * a.tiles_y * a.tiles_x * nct;  // (tile, COUT_T outputs), outputs fastest
 
   if (threadIdx.x == 0) {
@@ -368,9 +454,10 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
         if (bu >= units) return;
         const Tile t = tile_of(a, bu / nct);
         const int sa = qa % SA;
+        const int ch = TF32_PLANT == 5 && MODE == GC && bc == nch - 1 && bc > 0 ? bc - 1 : bc;
         if (qa >= SA) cw::mbar_wait(aempty0 + 8 * sa, (qa / SA - 1) & 1);
         cw::mbar_expect_tx(afull0 + 8 * sa, (uint32_t)a.a_tx);
-        cw::tma_load_4d(cw::smem_u32(smem + sa * a.a_stage), &xmap, CHUNK * bc, t.x0 - R,
+        cw::tma_load_4d(cw::smem_u32(smem + sa * a.a_stage), &xmap, CHUNK * ch, t.x0 - R,
                         t.y0 - R - a.x_row0, t.f0, afull0 + 8 * sa);
         ++qa;
         if (++bc == nch) {
@@ -547,6 +634,116 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
       }
     }
     return;
+  } else if constexpr (MODE == GC) {
+    // Warpgroup wgi: m64 pixel blocks wgi, wgi + 2 of the tile's 2 LAST_MB,
+    // as in last mode. A (chunk, row of taps dy) is one wgmma group of m64
+    // n96 products into a fresh partial sum: column 32 dx + o of pixel row m
+    // sums tap (dy, dx) for output o over its row m + dy bw. The weight block
+    // of each (chunk, dy) arrives through the ring.
+    float* const ex = reinterpret_cast<float*>(smem + w_off + SW * 2 * W_BYTES);  // [dx - 1][row][8]
+    const Act act = act_of(a.epi);
+    int qa = 0, qw = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Tile t = tile_of(a, u);
+      float acc[LAST_MB][48], part[LAST_MB][48];
+#pragma unroll
+      for (int j = 0; j < LAST_MB; ++j)
+#pragma unroll
+        for (int i = 0; i < 48; ++i) acc[j][i] = part[j][i] = 0.0f;
+      for (int c = 0; c < nch; ++c, ++qa) {
+        const int sa = qa % SA;
+        cw::mbar_wait(asplit0 + 8 * sa, (qa / SA) & 1);
+        const uint64_t dah = desc(cw::smem_u32(smem + sa * a.a_stage)), dal = dah + (a.a_tx >> 4);
+#pragma unroll 1
+        for (int dy = 0; dy < KK; ++dy, ++qw) {
+          const int sw = qw % SW;
+          cw::mbar_wait(wfull0 + 8 * sw, (qw / SW) & 1);
+          const uint32_t wh = cw::smem_u32(smem + w_off + sw * 2 * W_BYTES);
+          if (TF32_PLANT == 2 && dy == 0) {  // the corner tap's rows (dx 0) zeroed in shared memory
+            for (int i = threadIdx.x; i < 2 * GC_N * 32; i += NCONS) {
+              float* w = reinterpret_cast<float*>(smem + w_off + sw * 2 * W_BYTES);
+              w[i / (GC_N * 32) * (W_BYTES / 4) + i % (GC_N * 32)] = 0.0f;
+            }
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            cw::named_sync(1, NCONS);
+          }
+          const uint64_t dwh = desc(wh), dwl = desc(wh + W_BYTES);
+#pragma unroll
+          for (int j = 0; j < LAST_MB; ++j) cw::fence_acc(part[j]);
+          cw::wgmma_fence();
+          const uint32_t arow = dy * bw * 8;  // descriptor units (16 bytes): dy rows of pixels
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t b_hi = dwh + 2 * kk, b_lo = dwl + 2 * kk;
+#pragma unroll
+            for (int j = 0; j < LAST_MB; ++j) {
+              const uint32_t col = (wgi + 2 * j) * 64 * 8 + arow + 2 * kk;
+              if (TF32_PLANT != 1) {
+                mma96(part[j], dal + col, b_hi, kk > 0);
+                mma96(part[j], dah + col, b_lo, 1);
+              }
+              mma96(part[j], dah + col, b_hi, TF32_PLANT != 1 || kk > 0);
+            }
+          }
+          cw::wgmma_commit();
+          cw::wgmma_wait<0>();  // each (chunk, dy) a partial sum, added in f32
+#pragma unroll
+          for (int j = 0; j < LAST_MB; ++j) {
+            cw::fence_acc(part[j]);
+#pragma unroll
+            for (int i = 0; i < 48; ++i) acc[j][i] += part[j][i];
+          }
+          release(wempty0 + 8 * sw);
+        }
+        release(aempty0 + 8 * sa);
+      }
+
+      // Epilogue: output column n's output o is row n's dx 0 column plus row
+      // n + 1's dx 1 and row n + 2's dx 2 (rows past the tile's 256 are
+      // dropped columns; they read row 255). Per pass p (outputs 8 p ..
+      // 8 p + 7) each thread writes its rows' dx 1 and dx 2 columns to the
+      // exchange, then adds the next rows' to its own dx 0 and stores.
+      const int xlim = min(a.tw, a.w - t.x0), ylim = min(a.rows, a.cy1 - t.y0);
+      float* const o0 = a.out + frame_base(a, t.f0) + (long long)(t.y0 - a.out_row0) * a.sr +
+                        (long long)t.x0 * a.sp + 2 * q4;
+      int off[LAST_MB][2];  // each of the thread's rows: its pixel's offset, or -1 (not stored)
+#pragma unroll
+      for (int j = 0; j < LAST_MB; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = (wgi + 2 * j) * 64 + 16 * wl + g + 8 * i, y = div_by(m, bw, a.mbw), x = m - y * bw;
+          off[j][i] = x < xlim && y < ylim && t.f0 < a.n ? y * (int)a.sr + x * (int)a.sp : -1;
+        }
+#pragma unroll
+      for (int pass = 0; pass < 4; ++pass) {
+#pragma unroll
+        for (int j = 0; j < LAST_MB; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int m = (wgi + 2 * j) * 64 + 16 * wl + g + 8 * i;
+            const int c1 = 4 * (4 + pass) + 2 * i, c2 = 4 * (8 + pass) + 2 * i;  // dx 1's, dx 2's registers
+            *reinterpret_cast<float2*>(ex + 8 * m + 2 * q4) = make_float2(acc[j][c1], acc[j][c1 + 1]);
+            *reinterpret_cast<float2*>(ex + 8 * (GC_ROWS + m) + 2 * q4) = make_float2(acc[j][c2], acc[j][c2 + 1]);
+          }
+        cw::named_sync(1, NCONS);
+        const float b0 = a.bias[8 * pass + 2 * q4], b1 = a.bias[8 * pass + 2 * q4 + 1];
+#pragma unroll
+        for (int j = 0; j < LAST_MB; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int m = (wgi + 2 * j) * 64 + 16 * wl + g + 8 * i;
+            const float2 d1 = *reinterpret_cast<const float2*>(ex + 8 * min(m + 1, GC_ROWS - 1) + 2 * q4);
+            const float2 d2 = *reinterpret_cast<const float2*>(ex + 8 * (GC_ROWS + min(m + 2, GC_ROWS - 1)) + 2 * q4);
+            const int c0 = 4 * pass + 2 * i;  // dx 0's registers
+            if (off[j][i] >= 0)
+              *reinterpret_cast<float2*>(o0 + off[j][i] + 8 * pass) =
+                  make_float2(activate(acc[j][c0] + d1.x + d2.x + b0, act),
+                              activate(acc[j][c0 + 1] + d1.y + d2.y + b1, act));
+          }
+        cw::named_sync(1, NCONS);
+      }
+    }
+    return;
   } else {
     const int mt = NH == 1 ? wgi : 0, h = NH == 2 ? wgi : 0;  // warpgroup wgi's outputs and half
     int qa = 0, qw = 0;
@@ -636,6 +833,13 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
                         (long long)((MODE == PHASE ? 2 * t.y0 + pa : t.y0) - a.out_row0) * a.sr +
                         (long long)(MODE == PHASE ? 2 * t.x0 + pb : t.x0) * a.sp + oc;
       const Act act = act_of(a.epi);
+      // The residual epilogue's r and r2 at the tile's first pixel, output oc.
+      const float* const rp0 =
+          RES ? a.r + t.f0 * a.r_sn + (long long)t.y0 * a.r_sy + (long long)t.x0 * a.r_sx + oc : nullptr;
+      const float* const r2p0 =
+          RES && a.r2 != nullptr
+              ? a.r2 + t.f0 * a.r2_sn + (long long)t.y0 * a.r2_sy + (long long)t.x0 * a.r2_sx + oc
+              : nullptr;
 #pragma unroll
       for (int j = 0; j < 18; ++j)
 #pragma unroll
@@ -650,22 +854,33 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
           if (x >= xlim || y < ylo || y >= ylim || fl >= flim) continue;
           float* o = o0 + (y * sy + x * sx);
           if (a.fr > 1) o += frame_base(a, t.f0 + fl) - fb0;
-          o[0] = activate(acc[4 * j + e] + b0, act);
-          o[8] = activate(acc[4 * j + 2 + e] + b1, act);
+          float v0 = acc[4 * j + e] + b0, v1 = acc[4 * j + 2 + e] + b1;
+          if constexpr (RES) {  // 0.2 (0.2 v + r) + r2, conv_f32.cu's order
+            const float* rp = rp0 + (y * (int)a.r_sy + x * (int)a.r_sx) + fl * a.r_sn;
+            v0 = fmaf(RES_SCALE, v0, rp[0]);
+            v1 = fmaf(RES_SCALE, v1, rp[8]);
+            if (r2p0 != nullptr) {
+              const float* r2p = r2p0 + (y * (int)a.r2_sy + x * (int)a.r2_sx) + fl * a.r2_sn;
+              v0 = fmaf(RES_SCALE, v0, r2p[0]);
+              v1 = fmaf(RES_SCALE, v1, r2p[8]);
+            }
+          }
+          o[0] = activate(v0, act);
+          o[8] = activate(v1, act);
         }
     }
   }
 }
 
-// NHWC f32 frames (n, rows, w, c), rows_stride rows apart, read in boxes of
-// 32 channels x bw x bh x fr pixels, 128-byte swizzled.
-inline int make_map(CUtensorMap* m, const void* base, int c, int w, int rows, int rows_stride, int n,
-                    int bw, int bh, int fr) {
+// NHWC f32 frames (n, rows, w, c): the first c channels of pixels xc floats
+// apart, frames xn floats apart, read in boxes of 32 channels x bw x bh x fr
+// pixels, 128-byte swizzled.
+inline int make_map(CUtensorMap* m, const void* base, int c, int w, int rows, long long xc, long long xn,
+                    int n, int bw, int bh, int fr) {
   PFN_cuTensorMapEncodeTiled_v12000 fn = cw::encode_fn();
   if (fn == nullptr) return cw::TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)rows, (cuuint64_t)n};
-  const cuuint64_t strides[3] = {(cuuint64_t)c * 4, (cuuint64_t)w * c * 4,
-                                 (cuuint64_t)rows_stride * w * c * 4};
+  const cuuint64_t strides[3] = {(cuuint64_t)xc * 4, (cuuint64_t)w * xc * 4, (cuuint64_t)xn * 4};
   const cuuint32_t box[4] = {CHUNK, (cuuint32_t)bw, (cuuint32_t)bh, (cuuint32_t)fr};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims,
@@ -676,10 +891,10 @@ inline int make_map(CUtensorMap* m, const void* base, int c, int w, int rows, in
 }
 
 // CTAs that can run at once: one an SM.
-template <int K, int NH, int MODE>
+template <int K, int NH, int MODE, bool RES>
 int resident_ctas() {
   static const int n = [] {
-    return cudaFuncSetAttribute(tf32_kernel<K, NH, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    return cudaFuncSetAttribute(tf32_kernel<K, NH, MODE, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 SMEM_MAX) == cudaSuccess
                ? cw::sm_count()
                : 0;
@@ -687,35 +902,44 @@ int resident_ctas() {
   return n;
 }
 
-template <int K, int NH, int MODE>
+template <int K, int NH, int MODE, bool RES = false>
 int launch_t(const CUtensorMap& xm, const Args& a, int smem, cudaStream_t stream) {
-  const int cap = resident_ctas<K, NH, MODE>();
+  const int cap = resident_ctas<K, NH, MODE, RES>();
   if (cap <= 0) return (int)cudaErrorInvalidConfiguration;
   const long long units =
-      (long long)a.groups * a.tiles_y * a.tiles_x * (MODE == LAST ? 1 : a.cout / (128 / NH));
+      (long long)a.groups * a.tiles_y * a.tiles_x * (MODE == LAST || MODE == GC ? 1 : a.cout / (128 / NH));
   const long long grid = units < cap ? units : cap;
-  tf32_kernel<K, NH, MODE><<<(int)grid, NTHREAD, smem, stream>>>(xm, a);
+  tf32_kernel<K, NH, MODE, RES><<<(int)grid, NTHREAD, smem, stream>>>(xm, a);
   return (int)cudaGetLastError();
 }
 
 // One launch over x (a.n frames of x_rows rows from frame row a.x_row0, a.w,
-// a.cin) NHWC f32 into a.out, in mode `mode` with a k x k kernel (3 or 5 in
-// conv mode, 3 otherwise) on a tile of a.fr x a.rows x a.tw, on nh n144
-// halves (conv, phase) or 2 LAST_MB m64 blocks (last); the output rows
-// [a.r0, a.r1) stored. Returns the CUDA error code (or
-// cw::TENSOR_MAP_ERROR + a CUresult).
-inline int launch(const float* x, Args a, int k, int nh, int mode, int x_rows, cudaStream_t stream) {
+// a.cin; pixels xc floats apart, frames xn) NHWC f32 into a.out, in mode
+// `mode` with a k x k kernel (3 or 5 in conv mode, 3 otherwise) on a tile of
+// a.fr x a.rows x a.tw, on nh n144 halves (conv, phase) or 2 LAST_MB m64
+// blocks (last, gc); the output rows [a.r0, a.r1) stored. Returns the CUDA
+// error code (or cw::TENSOR_MAP_ERROR + a CUresult).
+inline int launch(const float* x, Args a, int k, int nh, int mode, int x_rows, long long xc, long long xn,
+                  cudaStream_t stream) {
   const int ho = mode == PHASE ? 2 * a.h : a.h;  // the output frame's rows
-  if ((mode != CONV && mode != PHASE && mode != LAST) || (k != 3 && (k != 5 || mode != CONV)) ||
+  const bool rows_n = mode == LAST || mode == GC;  // the unswapped product
+  if ((mode != CONV && mode != PHASE && mode != LAST && mode != GC) || (k != 3 && (k != 5 || mode != CONV)) ||
       (nh != 1 && nh != 2) || a.n < 1 || a.h < 1 || a.w < 1 || a.cin < CHUNK || a.cin % CHUNK ||
       a.fr < 1 || a.rows < 1 || a.tw < 1 || a.tw > a.w || a.tg < 1 || a.x_row0 < 0 || x_rows < 1 ||
       a.x_row0 >= a.h || a.r0 < 0 || a.r1 > ho || a.r0 >= a.r1 || a.out_row0 > a.r0 ||
-      (a.epi != EPI_NONE && a.epi != EPI_RELU && a.epi != EPI_LEAKY))
+      (a.epi != EPI_NONE && a.epi != EPI_RELU && a.epi != EPI_LEAKY && a.epi != EPI_RESID) ||
+      (a.epi == EPI_RESID && (mode != CONV || a.r == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  // The input: the first cin channels of pixels xc floats apart (16-byte
+  // strides and base for the TMA map), frames xn floats apart.
+  if (xc < a.cin || xc % 4 || xn % 4 || xn < (long long)x_rows * a.w * xc || (uintptr_t)x % 16)
     return (int)cudaErrorInvalidValue;
   if (mode == LAST) {  // the weights and the exchange fill the 64 KB weight region at Cin 64
     if (a.cout < 1 || a.cout > 3 || a.cout_pad != 3 * LAST_N || a.cin > 2 * CHUNK || a.fr != 1 ||
         2 * (a.cin / CHUNK) * 3 * LAST_W * 4 + 2 * EX_ROWS * 9 * 4 > 2 * W_RING)
       return (int)cudaErrorInvalidValue;
+  } else if (mode == GC) {  // 32 outputs, the (chunk, dy) blocks streamed
+    if (a.cout != GC_N || a.cout_pad != 3 * GC_N || a.fr != 1) return (int)cudaErrorInvalidValue;
   } else if (a.cout < 64 || a.cout % (128 / nh) || a.cout_pad % COUT_PAD || a.cout_pad < a.cout ||
              (mode == PHASE && (a.cout != 256 || a.cout_pad != 256))) {
     return (int)cudaErrorInvalidValue;
@@ -726,14 +950,16 @@ inline int launch(const float* x, Args a, int k, int nh, int mode, int x_rows, c
     return (int)cudaErrorInvalidValue;
   const int bw = a.tw + k - 1, bh = a.rows + k - 1;
   const int cols = ((a.fr - 1) * bh + a.rows - 1) * bw + a.tw;  // the tile's last output column + 1
-  const int read = mode == LAST ? 2 * LAST_MB * 64 : nh * HALF;  // the columns the products read
-  if (cols + (mode == LAST ? 2 : 0) > read || bw > 256 || bh > 256 || a.fr > 256)
+  const int read = rows_n ? 2 * LAST_MB * 64 : nh * HALF;  // the columns the products read
+  if (cols + (rows_n ? 2 : 0) > read || bw > 256 || bh > 256 || a.fr > 256)
     return (int)cudaErrorInvalidValue;  // an output column past the halves or blocks
   a.a_tx = a.fr * bh * bw * 128;
   a.a_stage = (2 * a.a_tx + 1023) / 1024 * 1024;
   const int smem = smem_bytes(a.a_tx, read, k, bw);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidConfiguration;
-  if (a.n >= 65536 || a.tg >= 65536 || 2 * (a.rows * a.sr + a.tw * a.sp) >= (1LL << 31))
+  if (a.n >= 65536 || a.tg >= 65536 || 2 * (a.rows * a.sr + a.tw * a.sp) >= (1LL << 31) ||
+      (a.epi == EPI_RESID && (2 * (a.rows * a.r_sy + a.tw * a.r_sx) >= (1LL << 31) ||
+                              2 * (a.rows * a.r2_sy + a.tw * a.r2_sx) >= (1LL << 31))))
     return (int)cudaErrorInvalidValue;  // div_by's range, and a column's 32-bit offset in a tile
   a.mbw = magic(bw);
   a.mbh = magic(bh);
@@ -749,12 +975,18 @@ inline int launch(const float* x, Args a, int k, int nh, int mode, int x_rows, c
   need1 = need1 < a.h ? need1 : a.h;
   if (a.x_row0 > need0 || a.x_row0 + valid < need1) return (int)cudaErrorInvalidValue;  // rows x lacks
   CUtensorMap xm;
-  const int e = make_map(&xm, x, a.cin, a.w, valid, x_rows, a.n, bw, bh, a.fr);
+  const int e = make_map(&xm, x, a.cin, a.w, valid, xc, xn, a.n, bw, bh, a.fr);
   if (e != 0) return e;
+  if (mode == GC) return launch_t<3, 1, GC>(xm, a, smem, stream);
   if (mode == PHASE)
     return nh == 2 ? launch_t<3, 2, PHASE>(xm, a, smem, stream)
                    : launch_t<3, 1, PHASE>(xm, a, smem, stream);
   if (mode == LAST) return launch_t<3, 1, LAST>(xm, a, smem, stream);
+  if (a.epi == EPI_RESID) {
+    if (k != 3) return (int)cudaErrorInvalidValue;  // an RDB's conv5 is 3x3
+    return nh == 2 ? launch_t<3, 2, CONV, true>(xm, a, smem, stream)
+                   : launch_t<3, 1, CONV, true>(xm, a, smem, stream);
+  }
   if (k == 3)
     return nh == 2 ? launch_t<3, 2, CONV>(xm, a, smem, stream) : launch_t<3, 1, CONV>(xm, a, smem, stream);
   return nh == 2 ? launch_t<5, 2, CONV>(xm, a, smem, stream) : launch_t<5, 1, CONV>(xm, a, smem, stream);

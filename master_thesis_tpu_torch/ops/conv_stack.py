@@ -80,10 +80,10 @@ FRAME_COLS, FRAME_TW = 288, 64
 # The 3xTF32 frame kernel's pixel columns a wgmma (csrc/conv_frame_tf32_wgmma.cuh:
 # one or two n144 halves a tile).
 TF32_HALF = 144
-# Its modes and epilogues (csrc/conv_frame_tf32_wgmma.cuh), and last mode's
-# m64 pixel blocks a tile (2 LAST_MB).
-TF32_MODES = {"conv": 0, "phase": 1, "last": 2}
-TF32_EPILOGUES = {"none": 0, "relu": 1, "leaky": 2}
+# Its modes and epilogues (csrc/conv_frame_tf32_wgmma.cuh), and last and gc
+# modes' m64 pixel blocks a tile (2 LAST_MB).
+TF32_MODES = {"conv": 0, "phase": 1, "last": 2, "gc": 3}
+TF32_EPILOGUES = {"none": 0, "relu": 1, "leaky": 2, "resid": 3}
 TF32_LAST_BLOCKS = 4
 # Tile candidates (rows, cols) of K8's fused groups, largest first.
 BAND_TILES = ((32, 32), (16, 32), (16, 16), (8, 16), (4, 16), (2, 16), (1, 16))
@@ -769,8 +769,9 @@ def _tf32_lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
 class _TF32Call(ctypes.Structure):
     """``TF32Call`` of csrc/conv_frame_tf32.cu, field for field."""
 
-    _fields_ = ([(f, ctypes.c_void_p) for f in ("x", "w", "b", "out")]
-                + [(f, ctypes.c_longlong) for f in ("lo_off", "tg", "sg", "st", "sr", "sp")]
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("x", "w", "b", "out", "r", "r2")]
+                + [(f, ctypes.c_longlong) for f in ("lo_off", "tg", "sg", "st", "sr", "sp", "xc", "xn", "r_sn",
+                                                    "r_sy", "r_sx", "r2_sn", "r2_sy", "r2_sx")]
                 + [(f, ctypes.c_int) for f in ("n", "h", "wd", "cin", "cout", "cout_pad", "k", "mode", "epi",
                                                "fr", "rows", "tw", "nh", "x_row0", "x_rows", "r0", "r1",
                                                "out_row0")])
@@ -781,51 +782,98 @@ def tf32_tile(mode: str, n: int, h: int, w: int, k: int, cout: int, cy0: int, cy
     """The tile ``(frames, rows, cols, halves)`` of one launch of the 3xTF32
     kernel computing the rows ``[cy0, cy1)`` of ``n`` frames of ``h x w``
     (the input's resolution): :func:`frame_tile_tf32` (whole frames only
-    where the launch covers them), or in last mode :func:`last_tile_tf32`
-    with one half."""
-    if mode == "last":
+    where the launch covers them), or in last and gc modes
+    :func:`last_tile_tf32` with one half."""
+    if mode in ("last", "gc"):
         return (1, *last_tile_tf32(cy1 - cy0, w), 1)
     whole = cy0 == 0 and cy1 == h and x_row0 == 0
     return frame_tile_tf32(n if whole else 1, cy1 - cy0, w, k, cout)
 
 
+def pixel_strides(t: torch.Tensor) -> Optional[Tuple[int, int]]:
+    """``(pixel stride, frame stride)`` in elements of NHWC ``t`` as the 3xTF32
+    kernel's TMA map reads it: the first channels of a buffer whose pixels,
+    rows and frames lie one after another (a contiguous tensor, or a channel
+    or row slice of one), both strides multiples of 16 bytes; None for any
+    other layout. A size-1 dimension's stride, which PyTorch leaves free
+    (``is_contiguous`` ignores it), is taken as the dense one."""
+    n, rows, w, c = t.shape
+    if t.is_contiguous():
+        return (c, rows * w * c) if c % 4 == 0 else None
+    sn, sy, sx, sc = t.stride()
+    sc = 1 if c == 1 else sc
+    sx = (sy if rows > 1 else sn if n > 1 else c) if w == 1 else sx
+    sy = w * sx if rows == 1 else sy
+    sn = rows * sy if n == 1 else sn
+    ok = sc == 1 and sx >= c and sx % 4 == 0 and sy == w * sx and sn >= rows * sy and sn % 4 == 0
+    return (sx, sn) if ok else None
+
+
 def tf32_launch(x: torch.Tensor, mat: torch.Tensor, bias: torch.Tensor, out: torch.Tensor, *, mode: str,
                 k: int, cout: int, epi: str, hin: Optional[int] = None, rows: Optional[Tuple[int, int]] = None,
                 x_row0: int = 0, out_row0: int = 0,
-                addr: Optional[Tuple[int, int, int, int, int]] = None) -> None:
+                addr: Optional[Tuple[int, int, int, int, int]] = None, r: Optional[torch.Tensor] = None,
+                r2: Optional[torch.Tensor] = None) -> None:
     """One launch of ``csrc/conv_frame_tf32.cu`` (3xTF32 on ``wgmma``), the one
     place the kernel is launched; counted in ``conv_frame_tf32_cuda.launches``.
-    ``x`` contiguous NHWC f32 ``(N, rows held, W, Cin)`` on the card, its row 0
-    the frame's row ``x_row0`` of ``hin`` (all of x's rows by default);
-    ``mat`` the packed hi then lo matrix of ``mode`` (``"conv"``: a ``k x k``
-    conv to ``cout`` outputs, :func:`.fragments.wgmma_tf32_matrix`;
-    ``"phase"``: an upsample-conv's 4 phases, ``cout = 256``,
-    :func:`.fragments.wgmma_tf32_phase_matrix`; ``"last"``: a 3x3 conv to at
-    most 3 outputs, :func:`.fragments.wgmma_tf32_last_matrix`); ``bias``
-    f32; ``epi`` ``"none"``, ``"relu"`` or ``"leaky"``. Writes the output
-    rows ``rows = (r0, r1)`` (the
+    ``x`` NHWC f32 ``(N, rows held, W, Cin)`` on the card, contiguous or the
+    first Cin channels of a wider contiguous buffer (an RDB's dense concat:
+    its pixel stride is the buffer's), its row 0 the frame's row ``x_row0``
+    of ``hin`` (all of x's rows by default); ``mat`` the packed hi then lo
+    matrix of ``mode`` (``"conv"``: a ``k x k`` conv to ``cout`` outputs,
+    :func:`.fragments.wgmma_tf32_matrix`; ``"phase"``: an upsample-conv's 4
+    phases, ``cout = 256``, :func:`.fragments.wgmma_tf32_phase_matrix`;
+    ``"last"``: a 3x3 conv to at most 3 outputs,
+    :func:`.fragments.wgmma_tf32_last_matrix`; ``"gc"``: a 3x3 conv to 32
+    outputs, :func:`.fragments.wgmma_tf32_gc_matrix`); ``bias`` f32; ``epi``
+    ``"none"``, ``"relu"``, ``"leaky"`` or (conv mode) ``"resid"``, an RDB's
+    conv5: ``0.2 * (0.2 * (acc + b) + r) + r2`` (``r2`` optional), ``r`` and
+    ``r2`` whole NHWC frames with contiguous channels read at the output
+    pixel's frame, row and column. Writes the output rows ``rows = (r0,
+    r1)`` (the
     output's resolution: 2x in phase mode; all by default) at row ``r -
     out_row0`` of ``out``, addressed ``addr = (tg, sg, st, sr, sp)``
     (frame f's row r, column x, channel o at ``(f // tg) sg + (f % tg) st +
-    (r - out_row0) sr + x sp + o``; ``out``'s own NHWC strides by default)."""
+    (r - out_row0) sr + x sp + o``; ``out``'s own NHWC strides by default:
+    ``out`` may be a channel slice of the buffer x is, gc mode's store)."""
     n, x_rows, w, cin = x.shape
     hin = x_row0 + x_rows if hin is None else hin
     scale = 2 if mode == "phase" else 1
     r0, r1 = (0, scale * hin) if rows is None else rows
-    if (not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous() or out.dtype != torch.float32
-            or mat.dtype != torch.float32 or bias.dtype != torch.float32
+    strides = pixel_strides(x)
+    if (not x.is_cuda or x.dtype != torch.float32 or strides is None or x.data_ptr() % 16
+            or out.dtype != torch.float32 or mat.dtype != torch.float32 or bias.dtype != torch.float32
             or {t.device for t in (x, mat, bias, out)} != {x.device}):
-        raise ValueError("the 3xTF32 kernel takes contiguous NHWC float32 CUDA tensors, its operands on x's device")
+        raise ValueError("the 3xTF32 kernel takes contiguous NHWC float32 CUDA tensors (x may be the first "
+                         "channels of one), its operands on x's device")
     if mode not in TF32_MODES or epi not in TF32_EPILOGUES:
         raise ValueError(f"mode {mode!r} / epilogue {epi!r}: not the 3xTF32 kernel's")
+    if (epi == "resid") != (r is not None) or (epi == "resid" and mode != "conv") or (r2 is not None and r is None):
+        raise ValueError("r (and r2) with the 'resid' epilogue in conv mode, and not otherwise")
+    co = cout // 4 if mode == "phase" else cout  # the output's channels
+    if addr is None and (out.stride(3) != 1 or out.shape[0] != n or out.shape[3] != co
+                         or not 0 <= r0 - out_row0 <= r1 - out_row0 <= out.shape[1]):
+        raise ValueError(f"out {tuple(out.shape)} from row {out_row0} does not hold rows [{r0}, {r1}) of "
+                         f"{co} contiguous channels")
+    res = []
+    for t in (r, r2):
+        if t is None:
+            res.append((None, 0, 0, 0))
+            continue
+        if (t.dtype != torch.float32 or t.device != x.device or tuple(t.shape) != (n, hin, w, cout)
+                or t.stride(3) != 1):
+            raise ValueError(f"a residual {tuple(t.shape)} is not the output's whole frames on x's device")
+        res.append((t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)))
     cy0, cy1 = (r0 // 2, (r1 + 1) // 2) if mode == "phase" else (r0, r1)
     fr, trows, tw, nh = tf32_tile(mode, n, hin, w, k, cout, cy0, cy1, x_row0)
-    taps = {"phase": 4, "last": 3}.get(mode, k * k)  # last mode: rows of taps
+    taps = {"phase": 4, "last": 3, "gc": 3}.get(mode, k * k)  # last and gc modes: rows of taps
     cout_pad = mat.numel() // (2 * taps * cin)
     tg, sg, st, sr, sp = addr or (n, 0, out.stride(0), out.stride(1), out.stride(2))
-    call = _TF32Call(x.data_ptr(), mat.data_ptr(), bias.data_ptr(), out.data_ptr(), mat.numel() // 2, tg, sg, st,
-                     sr, sp, n, hin, w, cin, cout, cout_pad, k, TF32_MODES[mode], TF32_EPILOGUES[epi], fr, trows,
-                     tw, nh, x_row0, x_rows, r0, r1, out_row0)
+    (rp, r_sn, r_sy, r_sx), (r2p, r2_sn, r2_sy, r2_sx) = res
+    call = _TF32Call(x.data_ptr(), mat.data_ptr(), bias.data_ptr(), out.data_ptr(), rp, r2p, mat.numel() // 2, tg,
+                     sg, st, sr, sp, *strides, r_sn, r_sy, r_sx, r2_sn, r2_sy, r2_sx, n, hin, w, cin,
+                     cout, cout_pad, k, TF32_MODES[mode], TF32_EPILOGUES[epi], fr, trows, tw, nh, x_row0, x_rows,
+                     r0, r1, out_row0)
     lib = _tf32_lib()
     _build.check(lib, lib.conv_frame_tf32_forward(ctypes.byref(call),
                                                   torch.cuda.current_stream(x.device).cuda_stream),

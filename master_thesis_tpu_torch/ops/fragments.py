@@ -6,8 +6,8 @@
 :func:`wgmma_pull_matrix` for ``csrc/conv_bwd_wgmma.cuh``,
 :func:`wgmma_wide_matrix` for ``csrc/conv3x3_wide_wgmma.cuh`` and
 ``csrc/conv_frame_wgmma.cuh``, :func:`wgmma_tf32_matrix`,
-:func:`wgmma_tf32_phase_matrix` and :func:`wgmma_tf32_last_matrix` for
-``csrc/conv_frame_tf32_wgmma.cuh``).
+:func:`wgmma_tf32_phase_matrix`, :func:`wgmma_tf32_last_matrix` and
+:func:`wgmma_tf32_gc_matrix` for ``csrc/conv_frame_tf32_wgmma.cuh``).
 
 A conv's weights form a row-major ``(K, N)`` matrix, rows ordered
 ``(tap, input channel)``. It is zero-padded to multiples of 16 and stored
@@ -131,20 +131,23 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(x.float() - hi)
 
 
-def _tf32_layout(m: torch.Tensor) -> torch.Tensor:
-    """``(O, C, taps)`` f32 (O a multiple of 8, C of 32) -> its hi matrix,
-    then its lo matrix (:func:`tf32_split`), each index order ``(c // 32,
-    tap, o, 32 channels)``, 16-byte chunk ``j`` of row ``o`` at position ``j
-    ^ o % 8``."""
+def tf32_order(m: torch.Tensor) -> torch.Tensor:
+    """``(O, C, taps)`` (O a multiple of 8, C of 32; any dtype: values, or
+    their positions for a gather) -> 1-D in the 3xTF32 operands' order:
+    ``(c // 32, tap, o, 32 channels)``, 16-byte chunk ``j`` of row ``o`` at
+    position ``j ^ o % 8``. A permutation, so it commutes with
+    :func:`tf32_split`."""
     o, c, taps = m.shape
     rows = torch.arange(o, device=m.device).view(o, 1)
     pos = torch.arange(8, device=m.device).view(1, 8)
+    blocks = m.reshape(o, c // 32, 8, 4, taps).permute(1, 4, 0, 2, 3)  # (chunk, tap, o, j, c % 4)
+    return blocks[:, :, rows, pos ^ (rows % 8)].reshape(-1)
 
-    def layout(part):
-        blocks = part.reshape(o, c // 32, 8, 4, taps).permute(1, 4, 0, 2, 3)  # (chunk, tap, o, j, c % 4)
-        return blocks[:, :, rows, pos ^ (rows % 8)].reshape(-1)
 
-    return torch.cat([layout(part) for part in tf32_split(m)])
+def _tf32_layout(m: torch.Tensor) -> torch.Tensor:
+    """``(O, C, taps)`` f32 -> its hi matrix, then its lo matrix
+    (:func:`tf32_split`), each in :func:`tf32_order`."""
+    return torch.cat(tf32_split(tf32_order(m)))
 
 
 def wgmma_tf32_matrix(w: torch.Tensor) -> torch.Tensor:
@@ -160,9 +163,40 @@ def wgmma_tf32_matrix(w: torch.Tensor) -> torch.Tensor:
     if c % 32 or o % 64 or k not in (3, 5) or w.shape[2] != k:
         raise ValueError("the tf32 layout needs a 3x3 or 5x5 kernel with Cin % 32 == 0 and "
                          f"Cout % 64 == 0, got {tuple(w.shape)}")
+    return torch.cat(tf32_split(tf32_conv_order(w.float())))
+
+
+def tf32_conv_order(w: torch.Tensor, fill=0) -> torch.Tensor:
+    """One matrix of :func:`wgmma_tf32_matrix` (hi or lo) before the split:
+    OIHW ``w`` (any dtype) in :func:`tf32_order`, outputs padded to a
+    multiple of 128 with ``fill``."""
+    o, c, k = w.shape[0], w.shape[1], w.shape[-1]
     op = -(-o // 128) * 128
-    w = torch.nn.functional.pad(w.float(), (0, 0, 0, 0, 0, 0, 0, op - o))
-    return _tf32_layout(w.reshape(op, c, k * k))
+    w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, 0, 0, op - o), value=fill)
+    return tf32_order(w.reshape(op, c, k * k))
+
+
+def tf32_gc_order(w: torch.Tensor) -> torch.Tensor:
+    """One matrix of :func:`wgmma_tf32_gc_matrix` (hi or lo) before the
+    split: OIHW ``w`` (any dtype) as 96 rows ``32 kx + o`` a row of taps
+    ``ky``, in :func:`tf32_order`."""
+    o, c = w.shape[0], w.shape[1]
+    return tf32_order(w.permute(3, 0, 1, 2).reshape(3 * o, c, 3))
+
+
+def wgmma_tf32_gc_matrix(w: torch.Tensor) -> torch.Tensor:
+    """A 3x3 conv to 32 outputs (an RDB's dense-concat conv1..conv4) as the
+    B operand of ``csrc/conv_frame_tf32_wgmma.cuh``'s gc mode (the
+    unswapped GEMM, an n96 product a row of taps): per row of taps ``ky`` 96
+    rows ``32 kx + o`` of the weight ``w[o, c, ky, kx]``, hi then lo, in
+    :func:`wgmma_tf32_matrix`'s layout with the rows of taps as its taps:
+    index order ``(c // 32, ky, 32 kx + o, 32 channels)``, swizzled likewise;
+    one 12 KB block a (chunk, ky), which the kernel streams."""
+    o, c = w.shape[0], w.shape[1]
+    if c % 32 or o != 32 or w.shape[2:] != (3, 3):
+        raise ValueError(f"the tf32 gc-mode layout needs a 3x3 kernel, Cin % 32 == 0, Cout == 32, "
+                         f"got {tuple(w.shape)}")
+    return torch.cat(tf32_split(tf32_gc_order(w.float())))
 
 
 def wgmma_tf32_last_matrix(w: torch.Tensor) -> torch.Tensor:

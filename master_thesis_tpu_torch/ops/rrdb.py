@@ -22,13 +22,19 @@ x1..x4 in the working dtype, sums, bias and lrelu in f32, the RDB output
 rounded to the working dtype before the RRDB residual.
 
 In f32 (:func:`rdb_f32`, :func:`rdb_banded_f32`) an RDB is five launches
-of :func:`.conv_f32.conv_f32_fwd` over one NHWC buffer of ``nf + 4 gc``
-channels, the dense concat: x copied into its first nf channels, conv k
-reading the first ``nf + (k - 1) gc`` and writing its own gc, conv5 adding
-the residuals in its epilogue. Sums, operands and the kept activations are
-f32, as the TPU kernel takes them under ``Precision.HIGHEST``. :func:`rdb`
-and :func:`rrdb_trunk_banded` pick the route by the working dtype
-(:func:`.conv_f32.kernel_route`).
+over one NHWC buffer of ``nf + 4 gc`` channels, the dense concat: x copied
+into its first nf channels, conv k reading the first ``nf + (k - 1) gc`` in
+place and writing its own gc, conv5 adding the residuals in its epilogue.
+Sums, operands and the kept activations are f32, as the TPU kernel takes
+them under ``Precision.HIGHEST``. At nf 64 / gc 32 the five run on the
+3xTF32 ``wgmma`` kernel (``csrc/conv_frame_tf32.cu``,
+:func:`rdb_conv_tf32_cuda`: conv1..conv4 in its gc mode, conv5 in its conv
+mode with the residual epilogue; operands ``PackedRDB.tf32``); at any other
+width on :func:`.conv_f32.conv_f32_fwd` (the SIMT kernel), as on the CPU
+its plain version. The all-SIMT first design stays as :func:`rdb_f32_first`
+and :func:`rdb_banded_f32_first`, which only chip_smoke.py calls.
+:func:`rdb` and :func:`rrdb_trunk_banded` pick the route by the working
+dtype (:func:`.conv_f32.kernel_route`).
 """
 
 from __future__ import annotations
@@ -42,8 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from master_thesis_tpu_torch import _build
-from master_thesis_tpu_torch.ops import fragments
-from master_thesis_tpu_torch.ops.conv_f32 import conv_f32_fwd, kernel_route, nhwc
+from master_thesis_tpu_torch.ops import conv_stack, fragments
+from master_thesis_tpu_torch.ops.conv_f32 import conv_f32_fwd, conv_f32_fwd_plain, kernel_route, nhwc
 from master_thesis_tpu_torch.models.nn_ext import leaky_relu
 
 # Channel widths the CUDA kernel is compiled for (the production RRDBNet).
@@ -59,6 +65,10 @@ class PackedRDB(NamedTuple):
     kernels: Tuple[torch.Tensor, ...]  # conv1..conv5 OIHW (working dtype)
     wg: Optional[torch.Tensor] = None  # K1 / K2's wgmma B blocks (working dtype)
     hwio: Optional[torch.Tensor] = None  # the f32 route's five HWIO kernels (f32 only)
+    # The 3xTF32 kernel's operands, conv1..conv5, each hi then lo (f32 at nf
+    # 64 / gc 32 only): conv1..conv4 fragments.wgmma_tf32_gc_matrix, conv5
+    # fragments.wgmma_tf32_matrix; views of one tensor.
+    tf32: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def _widths(nf: int, gc: int):
@@ -97,7 +107,7 @@ def _gather(kind: str, shapes: Tuple[Tuple[int, ...], ...], device) -> torch.Ten
             sizes = [math.prod(s) for s in shapes]
             pos = torch.arange(sum(sizes)).split(sizes)
             return fragments.wgmma_pull_matrix([p.view(s) for p, s in zip(pos, shapes)]).to(device)
-        if kind in ("hwio", "pull_f32"):
+        if kind in ("hwio", "pull_f32", "tf32"):
             return _f32_index(kind, shapes).to(device)
         layout = {"conv": fragments.conv_matrix, "wgmma": fragments.wgmma_conv_matrix,
                   "adjoint": lambda w, fill: fragments.adjoint_matrix(w, fill=fill)}[kind]
@@ -107,7 +117,11 @@ def _gather(kind: str, shapes: Tuple[Tuple[int, ...], ...], device) -> torch.Ten
 def _f32_index(kind: str, shapes) -> torch.Tensor:
     """Positions in one RDB's flat OIHW kernels (``_sources``) of the f32
     route's operands: ``"hwio"`` each conv's HWIO kernel, conv1..conv5;
-    ``"pull_f32"`` each source's pull kernel (x, then x1..x4), the HWIO
+    ``"tf32"`` each conv's 3xTF32 operand before its split (one of hi / lo:
+    :func:`.fragments.tf32_gc_order` for conv1..conv4,
+    :func:`.fragments.tf32_conv_order` for conv5, its output padding at the
+    zero past the kernels); ``"pull_f32"`` each source's pull kernel (x,
+    then x1..x4), the HWIO
     kernel of one adjoint conv from the cotangents of every conv the source
     feeds (their pre-activation cotangents in conv order, as K3's f32
     route stores them) to the source's channels:
@@ -116,6 +130,9 @@ def _f32_index(kind: str, shapes) -> torch.Tensor:
     views = [p.view(s) for p, s in zip(torch.arange(sum(sizes)).split(sizes), shapes)]
     if kind == "hwio":
         return torch.cat([v.permute(2, 3, 1, 0).reshape(-1) for v in views])
+    if kind == "tf32":
+        return torch.cat([fragments.tf32_gc_order(v) for v in views[:4]]
+                         + [fragments.tf32_conv_order(views[4], fill=sum(sizes))])
     nf, gc = shapes[4][0], shapes[0][0]
     parts = []
     for s in range(5):
@@ -123,6 +140,13 @@ def _f32_index(kind: str, shapes) -> torch.Tensor:
         m = torch.cat([views[u][:, lo:lo + width] for u in range(s, 5)])
         parts.append(m.flip(2, 3).permute(2, 3, 0, 1).reshape(-1))
     return torch.cat(parts)
+
+
+def _tf32_sizes(shapes) -> List[int]:
+    """The length of each conv's 3xTF32 operand (hi and lo) in
+    ``PackedRDB.tf32``: conv1..conv4 96 rows x 3 rows of taps, conv5 its
+    outputs padded to 128 x 9 taps, by Cin."""
+    return [2 * 3 * 3 * s[0] * s[1] for s in shapes[:4]] + [2 * 128 * 9 * shapes[4][1]]
 
 
 def hwio_kernels(p: PackedRDB) -> List[torch.Tensor]:
@@ -152,12 +176,19 @@ def pack_rdbs(convs_list: Sequence[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
     wgmma = all(s[1] % 32 == 0 and s[0] % 8 == 0 for s in shapes)
     wg = src[:, _gather("wgmma", shapes, src.device)] if wgmma else None
     f32 = src[:, _gather("hwio", shapes, src.device)] if dtype == torch.float32 else None
+    t32 = None
+    if dtype == torch.float32 and shapes == tuple((co, ci, 3, 3) for ci, co in _widths(KERNEL_NF, KERNEL_GC)):
+        # The split commutes with the layout's permutation: one gather, then
+        # each conv's hi then lo.
+        parts = src[:, _gather("tf32", shapes, src.device)].split([n // 2 for n in _tf32_sizes(shapes)], dim=1)
+        t32 = torch.cat([t for part in parts for t in fragments.tf32_split(part)], dim=1)
     b = torch.cat([bias.detach().reshape(-1) for convs in convs_list for _, bias in convs])
     b = b.float().view(len(convs_list), -1)
     sizes = [math.prod(s) for s in shapes]
     return [
         PackedRDB(w[r], b[r], tuple(k.view(s) for k, s in zip(src[r, :-1].split(sizes), shapes)),
-                  None if wg is None else wg[r], None if f32 is None else f32[r])
+                  None if wg is None else wg[r], None if f32 is None else f32[r],
+                  None if t32 is None else tuple(t32[r].split(_tf32_sizes(shapes))))
         for r in range(len(convs_list))
     ]
 
@@ -393,43 +424,110 @@ def _check_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor]) -> No
         raise ValueError("the RDB must be packed in float32 (pack_rdb) on x's device")
 
 
+def _conv_args(k: int, p: PackedRDB, r, r2, scales: bool = True):
+    """Conv k's (0..4) bias and epilogue: leaky for conv1..conv4, for conv5
+    ``0.2 * (0.2 * (acc + b) + r) + r2`` (``r2`` optional); ``scales``
+    passes the two 0.2 as :func:`.conv_f32.conv_f32_fwd`'s ``alpha`` /
+    ``beta`` (the 3xTF32 kernel's ``"resid"`` has them built in)."""
+    outs = [w.shape[0] for w in p.kernels]
+    bias = p.b.split(outs)[k]
+    if k < 4:
+        return dict(bias=bias, epi="leaky")
+    return dict(bias=bias, epi="resid", r=r, r2=r2, **(dict(alpha=0.2, beta=0.2) if scales else {}))
+
+
+def rdb_conv_tf32_cuda(k: int, x: torch.Tensor, p: PackedRDB, out: torch.Tensor, *, r=None, r2=None,
+                       hin: Optional[int] = None, rows: Optional[Tuple[int, int]] = None, x_row0: int = 0,
+                       out_row0: int = 0) -> torch.Tensor:
+    """Conv k (0..4) of the f32 RDB ``p`` as one launch of the 3xTF32 kernel
+    (``csrc/conv_frame_tf32.cu`` through ``conv_stack.tf32_launch``, counted
+    in ``conv_stack.conv_frame_tf32_cuda.launches``): conv1..conv4 in gc mode
+    (32 outputs, leaky) into ``out``, a channel slice of the dense-concat
+    buffer that ``x`` (its first Cin channels) is too; conv5 in conv mode
+    with the residual epilogue, ``r`` and ``r2`` whole frames read at the
+    output's pixels. The row window as :func:`.conv_f32.conv_f32_fwd`'s. ``p`` packed in f32
+    at nf 64 / gc 32 (``p.tf32``); anything else is refused. Returns
+    ``out``."""
+    if p.tf32 is None or p.tf32[k].device != x.device:
+        raise ValueError(f"the RDB must be packed in float32 at the kernel's widths nf={KERNEL_NF}, "
+                         f"gc={KERNEL_GC} (pack_rdb) on x's device")
+    mode, cout = ("gc", KERNEL_GC) if k < 4 else ("conv", KERNEL_NF)
+    conv_stack.tf32_launch(x, p.tf32[k], out=out, mode=mode, k=3, cout=cout, hin=hin, rows=rows, x_row0=x_row0,
+                           out_row0=out_row0, **_conv_args(k, p, r, r2, scales=False))
+    return out
+
+
+def rdb_conv_tf32_plain(k: int, x: torch.Tensor, p: PackedRDB, out: torch.Tensor, *, r=None, r2=None,
+                        **window) -> torch.Tensor:
+    """The plain version of :func:`rdb_conv_tf32_cuda` on any device, the
+    same arguments: conv k in f32 (:func:`.conv_f32.conv_f32_fwd_plain`)
+    over the same rows."""
+    return conv_f32_fwd_plain(x, hwio_kernels(p)[k], out, **_conv_args(k, p, r, r2), **window)
+
+
+def _rdb_conv_simt(k: int, x: torch.Tensor, p: PackedRDB, out: torch.Tensor, *, r=None, r2=None,
+                   **window) -> torch.Tensor:
+    """Conv k as the f32 first design runs it: one
+    :func:`.conv_f32.conv_f32_fwd` (the SIMT kernel on the card)."""
+    return conv_f32_fwd(x, hwio_kernels(p)[k], out, **_conv_args(k, p, r, r2), **window)
+
+
+def rdb_conv_f32(k: int, x: torch.Tensor, p: PackedRDB, out: torch.Tensor, **kw) -> torch.Tensor:
+    """Conv k of the f32 route: off the CPU :func:`rdb_conv_tf32_cuda`
+    where :func:`pack_rdbs` made the 3xTF32 operands (``p.tf32``: nf 64 /
+    gc 32, the kernel's widths), else the SIMT kernel
+    (:func:`.conv_f32.conv_f32_fwd`), as the tail and K7 / K8 send their
+    thin convs (each takes a CUDA tensor and refuses any other); its plain
+    version for a CPU tensor. Nothing falls back."""
+    if out.device.type == "cpu":
+        return rdb_conv_tf32_plain(k, x, p, out, **kw)
+    if p.tf32 is not None:
+        return rdb_conv_tf32_cuda(k, x, p, out, **kw)
+    return _rdb_conv_simt(k, x, p, out, **kw)
+
+
 def _rdb_convs_f32(cat: torch.Tensor, p: PackedRDB, out: torch.Tensor, res_x: torch.Tensor,
-                   res: Optional[torch.Tensor], windows=None, x_row0: int = 0, hin=None) -> None:
+                   res: Optional[torch.Tensor], windows=None, x_row0: int = 0, hin=None,
+                   conv=rdb_conv_f32) -> None:
     """The five convs of an RDB over the dense-concat buffer ``cat`` (NHWC,
-    x in its first nf channels): conv1..conv4 into ``cat``, conv5 into
-    ``out`` with ``0.2 * (0.2 * acc + res_x) + res`` (``0.2 * acc + res_x``
-    without ``res``). ``windows``: each conv's output rows (a band's, with
-    ``cat`` holding frame rows from ``x_row0`` and ``out`` / ``res_x`` /
-    ``res`` whole frames), else whole frames."""
-    ks = hwio_kernels(p)
-    outs = [k.shape[0] for k in p.kernels]
-    nf, gc = outs[4], outs[0]
-    bs = p.b.split(outs)
+    x in its first nf channels), one ``conv`` each: conv1..conv4 into
+    ``cat``, conv5 into ``out`` with ``0.2 * (0.2 * acc + res_x) + res``
+    (``0.2 * acc + res_x`` without ``res``). ``windows``: each conv's output
+    rows (a band's, with ``cat`` holding frame rows from ``x_row0`` and
+    ``out`` / ``res_x`` / ``res`` whole frames), else whole frames."""
+    nf, gc = p.kernels[4].shape[0], p.kernels[0].shape[0]
     rows = lambda k: {} if windows is None else dict(rows=windows[k], hin=hin, x_row0=x_row0,
                                                       out_row0=x_row0)
     for k in range(4):
         cin = nf + k * gc
-        conv_f32_fwd(cat[..., :cin], ks[k], cat[..., cin:cin + gc], bias=bs[k], epi="leaky", **rows(k))
+        conv(k, cat[..., :cin], p, cat[..., cin:cin + gc], **rows(k))
     last = {} if windows is None else dict(rows=windows[4], hin=hin, x_row0=x_row0)
-    conv_f32_fwd(cat, ks[4], out, bias=bs[4], epi="resid", alpha=0.2, r=res_x, beta=0.2, r2=res, **last)
+    conv(4, cat, p, out, r=res_x, r2=res, **last)
 
 
-def rdb_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
-            keep_hidden: bool = False):
-    """One RDB's f32 route (K1 in f32, ``rrdb_pallas`` with f32 weights):
-    five :func:`.conv_f32.conv_f32_fwd` launches over one NHWC buffer of
-    ``nf + 4 gc`` channels (x copied into the first nf). ``x`` (and
-    ``res``) f32 ``(N, nf, H, W)``, any layout; the output is channels-last.
-    With ``res`` conv5's epilogue adds the RRDB residual. With
-    ``keep_hidden`` returns ``(out, cat)``, cat the NHWC buffer (x and
-    x1..x4, K3's f32 route reads it). The kernels for a CUDA tensor, their
-    plain versions for a CPU one; launches count in ``rdb_f32.launches``."""
+def _rdb_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor], conv):
+    """One RDB's f32 route with each conv one ``conv``: ``(out, cat)``."""
     _check_f32(x, p, res)
     n, nf, h, w = x.shape
     cat = torch.empty((n, h, w, nf + 4 * p.kernels[0].shape[0]), dtype=x.dtype, device=x.device)
     cat[..., :nf] = nhwc(x)
     out = torch.empty_like(x, memory_format=torch.channels_last)
-    _rdb_convs_f32(cat, p, nhwc(out), cat[..., :nf], None if res is None else nhwc(res))
+    _rdb_convs_f32(cat, p, nhwc(out), cat[..., :nf], None if res is None else nhwc(res), conv=conv)
+    return out, cat
+
+
+def rdb_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
+            keep_hidden: bool = False):
+    """One RDB's f32 route (K1 in f32, ``rrdb_pallas`` with f32 weights):
+    five launches (:func:`rdb_conv_f32`: the 3xTF32 kernel at nf 64 / gc 32,
+    the SIMT kernel otherwise) over one NHWC buffer of ``nf + 4 gc``
+    channels (x copied into the first nf). ``x`` (and ``res``) f32 ``(N,
+    nf, H, W)``, any layout; the output is channels-last. With ``res``
+    conv5's epilogue adds the RRDB residual. With ``keep_hidden`` returns
+    ``(out, cat)``, cat the NHWC buffer (x and x1..x4, K3's f32 route reads
+    it). The kernels for a CUDA tensor, their plain versions for a CPU one;
+    launches count in ``rdb_f32.launches``."""
+    out, cat = _rdb_f32(x, p, res, rdb_conv_f32)
     if x.is_cuda:
         rdb_f32.launches += RDB_CONVS
     return (out, cat) if keep_hidden else out
@@ -438,16 +536,25 @@ def rdb_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
 rdb_f32.launches = 0
 
 
-def rdb_banded_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
-                   band_rows: int = TRUNK_BAND_ROWS) -> torch.Tensor:
-    """One RDB's f32 route in row bands (K2 in f32,
-    ``rrdb_trunk_pallas_banded``): per band the frame rows
-    ``[r0 - 5, r1 + 5)`` of x copied into a band-sized dense-concat buffer
-    (made once, reused by every band), conv k computing the rows of
-    :func:`band_windows`, conv5 writing the band's own rows into the output
-    with x and ``res`` read in place from their frames. Equals
-    :func:`rdb_f32` (the same sums in the same order); launches count in
-    ``rdb_banded_f32.launches``."""
+def rdb_f32_first(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The f32 first design of :func:`rdb_f32`: five
+    :func:`.conv_f32.conv_f32_fwd` launches (the SIMT kernel). Kept to time
+    the route against on the card and to read it against an independent
+    implementation; no path of the port calls it (launches in
+    ``rdb_f32_first.launches``)."""
+    out, _ = _rdb_f32(x, p, res, _rdb_conv_simt)
+    if x.is_cuda:
+        rdb_f32_first.launches += RDB_CONVS
+    return out
+
+
+rdb_f32_first.launches = 0
+
+
+def _rdb_banded_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor], band_rows: int,
+                    conv) -> Tuple[torch.Tensor, int]:
+    """One RDB's f32 route in row bands with each conv one ``conv``:
+    ``(out, bands)``."""
     _check_f32(x, p, res)
     n, nf, h, w = x.shape
     out = torch.empty_like(x, memory_format=torch.channels_last)
@@ -459,13 +566,41 @@ def rdb_banded_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = 
     for (r0, r1), (lo, hi) in zip(spans, halo):
         band = cat[:, :hi - lo]
         band[..., :nf] = xv[:, lo:hi]
-        _rdb_convs_f32(band, p, ov, xv, rv, band_windows(h, r0, r1), lo, h)
-        if x.is_cuda:
-            rdb_banded_f32.launches += RDB_CONVS
+        _rdb_convs_f32(band, p, ov, xv, rv, band_windows(h, r0, r1), lo, h, conv=conv)
+    return out, len(spans)
+
+
+def rdb_banded_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
+                   band_rows: int = TRUNK_BAND_ROWS) -> torch.Tensor:
+    """One RDB's f32 route in row bands (K2 in f32,
+    ``rrdb_trunk_pallas_banded``): per band the frame rows
+    ``[r0 - 5, r1 + 5)`` of x copied into a band-sized dense-concat buffer
+    (made once, reused by every band), conv k (:func:`rdb_conv_f32`)
+    computing the rows of :func:`band_windows`, conv5 writing the band's own
+    rows into the output with x and ``res`` read in place from their frames.
+    Equals :func:`rdb_f32` bit for bit (the same sums in the same order);
+    launches count in ``rdb_banded_f32.launches``."""
+    out, nb = _rdb_banded_f32(x, p, res, band_rows, rdb_conv_f32)
+    if x.is_cuda:
+        rdb_banded_f32.launches += RDB_CONVS * nb
     return out
 
 
 rdb_banded_f32.launches = 0
+
+
+def rdb_banded_f32_first(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
+                         band_rows: int = TRUNK_BAND_ROWS) -> torch.Tensor:
+    """The f32 first design of :func:`rdb_banded_f32`, every conv one
+    :func:`.conv_f32.conv_f32_fwd` per band; only chip_smoke.py calls it
+    (launches in ``rdb_banded_f32_first.launches``)."""
+    out, nb = _rdb_banded_f32(x, p, res, band_rows, _rdb_conv_simt)
+    if x.is_cuda:
+        rdb_banded_f32_first.launches += RDB_CONVS * nb
+    return out
+
+
+rdb_banded_f32_first.launches = 0
 
 
 def rdb(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -525,11 +660,12 @@ def rdb_flops(n: int, h: int, w: int, nf: int = KERNEL_NF, gc: int = KERNEL_GC) 
 
 
 def rdb_conv_cost(k: int, n: int, h: int, w: int, nf: int = KERNEL_NF,
-                  gc: int = KERNEL_GC) -> Tuple[int, int]:
+                  gc: int = KERNEL_GC, itemsize: int = 2) -> Tuple[int, int]:
     """(FLOPs, bytes) of conv k (1..5) of an RDB run on its own: its dense
-    3x3 products, and its input and output read or written once."""
+    3x3 products, and its input and output read or written once,
+    ``itemsize`` bytes an element (bf16 by default)."""
     cin, cout = _widths(nf, gc)[k - 1]
-    return 2 * n * h * w * 9 * cin * cout, 2 * n * h * w * (cin + cout)
+    return 2 * n * h * w * 9 * cin * cout, itemsize * n * h * w * (cin + cout)
 
 
 def rrdb_convs(blk) -> List[List[Tuple[torch.Tensor, torch.Tensor]]]:

@@ -1112,3 +1112,60 @@ def test_tail_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         tail.tail_stage_tf32_cuda(0, x[..., :32].contiguous(), p32, out[..., :32].contiguous())
     with pytest.raises(ValueError, match="stage 0's output"):
         tail.tail_stage_tf32_cuda(0, x, p, torch.empty(2, 16, 8, tail.KERNEL_NF, device=cuda))
+
+
+# K1's and K2's f32 routes at nf 64 / gc 32 on the 3xTF32 kernel: conv1..conv4
+# in gc mode over the dense concat, conv5 in conv mode with the residual
+# epilogue. Ragged frames against gc mode's 7 x 32 tiles, several frames,
+# bands whose buffers start past the frame's first row.
+@pytest.mark.parametrize("n,h,w,band_rows", [(2, 20, 28, 8), (1, 37, 45, 16), (3, 64, 64, 32), (2, 70, 96, 32)])
+def test_rdb_f32_routes_on_the_tf32_kernel(cuda, n, h, w, band_rows):
+    """One f32 RRDB on the card: K1 launches the 3xTF32 kernel 15 times and
+    conv_f32_fwd never, K2 15 times a band; both within TF32_L2 of the
+    plain RRDB over the part the convs compute (the output less its 1.2 x
+    identity part, as chip_smoke.py reads it); K2 equals K1 bit for bit,
+    and a rerun is bit-identical; the SIMT first design agrees too."""
+    from master_thesis_tpu_torch.ops import conv_f32, conv_stack
+
+    rng = np.random.RandomState(24)
+    nf, gc = rrdb.KERNEL_NF, rrdb.KERNEL_GC
+    convs = [[_conv(rng, nf + k * gc, gc if k < 4 else nf, (1.0 / (9 * (nf + k * gc))) ** 0.5) for k in range(5)]
+             for _ in range(3)]
+    rdbs = rrdb.pack_rdbs([[(wt.to(cuda), b.to(cuda)) for wt, b in c] for c in convs], torch.float32)
+    x = torch.from_numpy(rng.randn(n, nf, h, w).astype(np.float32)).to(cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    tf, simt = conv_stack.conv_frame_tf32_cuda.launches, conv_f32.conv_f32_fwd_cuda.launches
+    k1 = rrdb.rrdb_trunk(x, [rdbs])
+    torch.cuda.synchronize()
+    assert conv_stack.conv_frame_tf32_cuda.launches - tf == 15
+    assert conv_f32.conv_f32_fwd_cuda.launches == simt
+    tf = conv_stack.conv_frame_tf32_cuda.launches
+    k2 = rrdb.rrdb_trunk_banded(x, [rdbs], band_rows)
+    torch.cuda.synchronize()
+    assert conv_stack.conv_frame_tf32_cuda.launches - tf == 15 * len(rrdb.bands(h, band_rows))
+    want = rrdb.rrdb_trunk(x, [rdbs], rdb_fn=rrdb.rdb_plain)
+    body = (want - 1.2 * x).norm().item()
+    assert (k1 - want).norm().item() <= TF32_L2 * body
+    assert torch.equal(k2, k1) and torch.equal(rrdb.rrdb_trunk(x, [rdbs]), k1)
+    first = rrdb.rrdb_trunk(x, [rdbs], rdb_fn=rrdb.rdb_f32_first)
+    assert (first - want).norm().item() <= TF32_L2 * body
+
+
+def test_rdb_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """The RDB's 3xTF32 launch refuses an RDB packed in bf16, an input that
+    is not a 16-byte-aligned channel slice of a contiguous NHWC buffer, and
+    a residual that is not the output's whole frames: nothing falls back."""
+    rng = np.random.RandomState(25)
+    nf, gc = rrdb.KERNEL_NF, rrdb.KERNEL_GC
+    convs = [tuple(t.to(cuda) for t in _conv(rng, nf + k * gc, gc if k < 4 else nf, 0.05)) for k in range(5)]
+    p = rrdb.pack_rdb(convs, torch.float32)
+    cat = torch.zeros(1, 16, 16, nf + 4 * gc, device=cuda)
+    with pytest.raises(ValueError, match="kernel's widths"):
+        rrdb.rdb_conv_tf32_cuda(0, cat[..., :nf], rrdb.pack_rdb(convs, torch.bfloat16), cat[..., nf:nf + gc])
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        rrdb.rdb_conv_tf32_cuda(0, cat[..., 1:nf + 1], p, cat[..., nf:nf + gc])  # a 4-byte base: no TMA map
+    nchw = torch.zeros(1, nf + 4 * gc, 16, 16, device=cuda).permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        rrdb.rdb_conv_tf32_cuda(0, nchw[..., :nf], p, cat[..., nf:nf + gc])
+    with pytest.raises(ValueError, match="residual"):
+        rrdb.rdb_conv_tf32_cuda(4, cat, p, torch.empty(1, 16, 16, nf, device=cuda), r=cat[:, :8, :, :nf])

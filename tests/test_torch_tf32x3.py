@@ -66,48 +66,57 @@ def _group(a, b):
     return a.double() @ b.double()
 
 
-def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape, hin=None, rows=None, x_row0=0,
-                    out_row0=0, addr=None, plant=0, seed=0, out=None):
+def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape=None, hin=None, rows=None, x_row0=0,
+                    out_row0=0, addr=None, plant=0, seed=0, out=None, r=None, r2=None):
     """One launch of ``csrc/conv_frame_tf32_wgmma.cuh`` read through its
     descriptors, with ``conv_stack.tf32_launch``'s arguments (``x`` NHWC f32,
-    ``mat`` the packed hi then lo matrix); returns the NHWC output of shape
-    ``out_shape``: ``out`` (contiguous) written in place where the launch
-    stores, or zeros elsewhere without it. The tile is
-    ``conv_stack.tf32_tile``'s; the rows computed ``[cy0, cy1)`` (phase
-    mode: ``(r0 // 2, (r1 + 1) // 2)`` of the output rows). Per tile and
-    32-channel chunk the TMA box (tw + k - 1 x rows + k - 1 x fr pixels from
-    (x0 - r, y0 - r, f0), zeros outside the frames and x's rows) lands
-    128-byte swizzled at the stage's start; the split rounds it in place to
-    its hi half (``fragments.tf32_split``) and writes its lo half a box
-    further on, each 128-byte row swizzled by its own address bits; past
-    that the dropped columns read junk (random here). Conv and phase modes
-    (the swapped GEMM): work units (tile, COUT_T outputs); per (chunk, tap)
-    the weight stage is the hi and the lo block of ``mat`` at (chunk, tap,
-    n0). Warpgroup mt's A (64 outputs x 8 channels) starts at row 64 mt + 32
-    bytes a k8 step, a half's B (144 columns x 8 channels) at pixel 144 h +
-    dy bw + dx of the hi or the lo copy, the tap's (dy, dx): (tap // k, tap %
-    k), in phase mode (a + tap // 2, b + tap % 2) for the warpgroup's phase
-    (a, b). Last mode (the unswapped GEMM): a unit is a tile; m64 block blk's
-    A (64 pixel rows x 8 channels) starts at pixel 64 blk + dy bw, the B (24
-    columns 8 dx + o x 8 channels) is the (chunk, row of taps dy) block of
-    ``mat``; column n's output sums rows n, n + 1, n + 2 of its dx columns.
-    Three products a k8 step (A's lo with B's hi, A's hi with B's lo, hi
-    with hi), each k8 group summed exactly, rounded to f32 and added in f32,
-    each row of taps (k taps; 2 in phase mode) into a partial sum then added
-    to the unit's. Column n is tile pixel (f0 + n // bw // bh, y0 + n // bw %
-    bh, x0 + n % bw), dropped past the tile,
-    the frames or the rows computed; bias, the activation, stored at (f //
-    tg) sg + (f % tg) st + (y - out_row0) sr + x sp + o (phase mode: pixel
-    (2y + a, 2x + b) of channel o - 64 (2a + b), within the output rows).
-    ``plant`` emulates ``-DTF32_PLANT``: 1 drops the two correction
-    products, 2 the corner tap (phase mode: tap (0, 0) of each phase), 3
-    reads each tile's top halo row below a frame's first row tile as zeros,
-    4 reads x's row 0 (the frame's row x_row0) as zeros where x_row0 > 0."""
+    contiguous or the first Cin channels of a wider buffer, ``mat`` the
+    packed hi then lo matrix); returns the NHWC output: ``out`` (any view
+    with contiguous channels, such as a channel slice of the dense concat)
+    written in place where the launch stores, or zeros of ``out_shape``
+    elsewhere without it. The tile is ``conv_stack.tf32_tile``'s; the rows
+    computed ``[cy0, cy1)`` (phase mode: ``(r0 // 2, (r1 + 1) // 2)`` of the
+    output rows). Per tile and 32-channel chunk the TMA box (tw + k - 1 x
+    rows + k - 1 x fr pixels from (x0 - r, y0 - r, f0), zeros outside the
+    frames and x's rows) lands 128-byte swizzled at the stage's start; the
+    split rounds it in place to its hi half (``fragments.tf32_split``) and
+    writes its lo half a box further on, each 128-byte row swizzled by its
+    own address bits; past that the dropped columns read junk (random here).
+    Conv and phase modes (the swapped GEMM): work units (tile, COUT_T
+    outputs); per (chunk, tap) the weight stage is the hi and the lo block
+    of ``mat`` at (chunk, tap, n0). Warpgroup mt's A (64 outputs x 8
+    channels) starts at row 64 mt + 32 bytes a k8 step, a half's B (144
+    columns x 8 channels) at pixel 144 h + dy bw + dx of the hi or the lo
+    copy, the tap's (dy, dx): (tap // k, tap % k), in phase mode (a + tap //
+    2, b + tap % 2) for the warpgroup's phase (a, b). Last and gc modes (the
+    unswapped GEMM, nd = 8 or 32 outputs a dx): a unit is a tile; m64 block
+    blk's A (64 pixel rows x 8 channels) starts at pixel 64 blk + dy bw, the
+    B (3 nd columns nd dx + o x 8 channels) is the (chunk, row of taps dy)
+    block of ``mat``; column n's output sums rows n, n + 1, n + 2 of its dx
+    columns, in that order, then the bias. Three products a k8 step (A's lo
+    with B's hi, A's hi with B's lo, hi with hi), each k8 group summed
+    exactly, rounded to f32 and added in f32, each row of taps (k taps; 2 in
+    phase mode; one (chunk, dy) in last and gc modes) into a partial sum
+    then added to the unit's. Column n is tile pixel (f0 + n // bw // bh, y0
+    + n // bw % bh, x0 + n % bw), dropped past the tile, the frames or the
+    rows computed; bias, the epilogue (the activation; "resid": 0.2 (0.2 v
+    + r) + r2, each step one rounding, r and r2 whole frames read at the
+    pixel), stored at (f // tg) sg + (f %
+    tg) st + (y - out_row0) sr + x sp + o (phase mode: pixel (2y + a, 2x +
+    b) of channel o - 64 (2a + b), within the output rows). ``plant``
+    emulates ``-DTF32_PLANT``: 1 drops the two correction products, 2 the
+    corner tap (phase mode: tap (0, 0) of each phase; last and gc modes:
+    row of taps 0's dx 0 columns), 3 reads each tile's top halo row below a
+    frame's first row tile as zeros, 4 reads x's row 0 (the frame's row
+    x_row0) as zeros where x_row0 > 0, 5 (gc mode) loads the last chunk's
+    box from one chunk early."""
     n, x_rows, wd, cin = x.shape
     hin = x_row0 + x_rows if hin is None else hin
     r0, r1 = (0, (2 if mode == "phase" else 1) * hin) if rows is None else rows
     cy0, cy1 = (r0 // 2, (r1 + 1) // 2) if mode == "phase" else (r0, r1)
     fr, trows, tw, nh = conv_stack.tf32_tile(mode, n, hin, wd, k, cout, cy0, cy1, x_row0)
+    rows_n = mode in ("last", "gc")
+    resid = r, r2
     r, taps, tpr = k // 2, (4 if mode == "phase" else k * k), (2 if mode == "phase" else k)
     bw, bh = tw + k - 1, trows + k - 1
     tiles = [(g * fr, cy0 + ty * trows, tx * tw) for g in range(-(-n // fr))
@@ -116,7 +125,7 @@ def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape, hin=None, ro
     nt, box_px = boxes.shape[:2]
     lo_off = mat.numel() // 2
     cpad = lo_off // (taps * cin)
-    cols_read = 64 * conv_stack.TF32_LAST_BLOCKS if mode == "last" else nh * 144
+    cols_read = 64 * conv_stack.TF32_LAST_BLOCKS if rows_n else nh * 144
     reach = 2 * box_px + cols_read + (k - 1) * (bw + 1)  # 128-byte rows the reads reach
     pix, ch = torch.arange(box_px).view(-1, 1), torch.arange(32).view(1, -1)
     hi_dst = (_swz(pix * 128 + 4 * ch) // 4).reshape(-1)  # where TMA puts (pixel, channel)
@@ -130,18 +139,31 @@ def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape, hin=None, ro
         zero = t_y0 - r + prow == x_row0
     junk = torch.Generator().manual_seed(seed)
     smems = []
-    for c in range(cin // 32):
-        hi, lo = fragments.tf32_split(boxes[..., 32 * c: 32 * c + 32])
+    nch = cin // 32
+    for c in range(nch):
+        cc = c - 1 if plant == 5 and mode == "gc" and c == nch - 1 and c > 0 else c
+        hi, lo = fragments.tf32_split(boxes[..., 32 * cc: 32 * cc + 32])
         hi, lo = hi.masked_fill(zero, 0.0), lo.masked_fill(zero, 0.0)
         smem = torch.randn(nt, reach * 32, generator=junk)
         smem[:, hi_dst] = hi.reshape(nt, -1)
         smem[:, lo_dst] = lo.reshape(nt, -1)
         smems.append(smem)
     r144, r64, ks = torch.arange(144).view(-1, 1), torch.arange(64).view(-1, 1), torch.arange(8).view(1, -1)
-    tg, sg, st, sr, sp = addr or (n, 0, out_shape[1] * out_shape[2] * out_shape[3], out_shape[2] * out_shape[3],
-                                  out_shape[3])
-    out = torch.zeros(math.prod(out_shape)) if out is None else out.view(-1)
-    act = {"none": lambda v: v, "relu": torch.relu, "leaky": lambda v: torch.where(v >= 0, v, 0.2 * v)}[epi]
+    if out is None:
+        out = torch.zeros(out_shape)
+    flat = torch.as_strided(out, (sum((sz - 1) * st for sz, st in zip(out.shape, out.stride())) + 1,), (1,))
+    tg, sg, st, sr, sp = addr or (n, 0, out.stride(0), out.stride(1), out.stride(2))
+    act = {"none": lambda v: v, "relu": torch.relu, "leaky": lambda v: torch.where(v >= 0, v, 0.2 * v)}[
+        "none" if epi == "resid" else epi]
+
+    def finish(v, f, yy, xx, outs):
+        """v (K, len(outs)) at pixels (f, yy, xx): the epilogue after the bias."""
+        if epi != "resid":
+            return act(v)
+        for t in resid:
+            if t is not None:
+                v = (0.2 * v.double() + t[f, yy, xx][:, outs].double()).float()
+        return v
 
     def products(part, a_hi, a_lo, b_hi, b_lo):  # the A operand's hi / lo, then the B operand's
         for g in ([] if plant == 1 else [_group(a_lo, b_hi), _group(a_hi, b_lo)]) + [_group(a_hi, b_hi)]:
@@ -149,7 +171,8 @@ def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape, hin=None, ro
         return part
 
     def store(v, cols, outs, phase=None):
-        """v (T, len(outs), len(cols)): output channel outs of tile column cols."""
+        """v (T, len(outs), len(cols)): output channel outs of tile column cols
+        before its epilogue (the bias added)."""
         q, xc = cols // bw, cols % bw
         fl, y = q // bh, q % bh
         for t, (f0, y0, x0) in enumerate(tiles):
@@ -158,35 +181,37 @@ def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape, hin=None, ro
             if phase is not None:
                 yy, xx = 2 * yy + phase[0], 2 * xx + phase[1]
                 keep &= (yy >= r0) & (yy < r1)
-            base = (f[keep] // tg) * sg + (f[keep] % tg) * st + (yy[keep] - out_row0) * sr + xx[keep] * sp
-            out[base.view(-1, 1) + outs.view(1, -1)] = v[t][:, keep].T
+            f, yy, xx = f[keep], yy[keep], xx[keep]
+            base = (f // tg) * sg + (f % tg) * st + (yy - out_row0) * sr + xx * sp
+            flat[base.view(-1, 1) + outs.view(1, -1)] = finish(v[t][:, keep].T, f, yy, xx, outs)
 
-    if mode == "last":
-        # n24 products: column 8 dx + o of pixel row m sums tap (dy, dx) over
-        # row m + dy bw, a partial sum a (chunk, row of taps); the epilogue
-        # adds rows m, m + 1 and m + 2's dx columns in that order, then the bias.
-        sums = []
-        for blk in range(conv_stack.TF32_LAST_BLOCKS):
-            acc = torch.zeros(nt, 64, 24)
-            for c in range(cin // 32):
-                for dy in range(3):
-                    part = torch.zeros(nt, 64, 24)
-                    off = (c * 3 + dy) * 24 * 32
-                    for kk in range(4):
-                        bidx = _swz(32 * kk + torch.arange(24).view(-1, 1) * 128 + 4 * ks) // 4
-                        w_hi, w_lo = mat[off:][bidx].T, mat[lo_off + off:][bidx].T  # (8 channels, 24)
-                        if plant == 2 and dy == 0:  # the corner tap (0, 0): columns 0-7
-                            w_hi, w_lo = F.pad(w_hi[:, 8:], (8, 0)), F.pad(w_lo[:, 8:], (8, 0))
-                        col = (64 * blk + dy * bw) * 128 + 32 * kk + r64 * 128 + 4 * ks
-                        a_hi, a_lo = smems[c][:, _swz(col) // 4], smems[c][:, _swz(col + box_px * 128) // 4]
-                        part = products(part, a_hi, a_lo, w_hi, w_lo)
-                    acc = acc + part
-            sums.append(acc)
-        ex = F.pad(torch.cat(sums, dim=1), (0, 0, 0, 8))
-        m = torch.arange(64 * conv_stack.TF32_LAST_BLOCKS)
-        v = ex[:, m, 0:cout] + ex[:, m + 1, 8:8 + cout] + ex[:, m + 2, 16:16 + cout]
-        store(act(v + bias.view(1, 1, -1)).transpose(1, 2), m, torch.arange(cout))
-        return out.view(out_shape)
+    if rows_n:
+        # n24 / n96 products: column nd dx + o of pixel row m sums tap (dy,
+        # dx) over row m + dy bw, a partial sum a (chunk, row of taps); the
+        # epilogue adds rows m, m + 1 and m + 2's dx columns in that order,
+        # then the bias.
+        # The m64 blocks' rows side by side: each row's sums are its own.
+        nd, mrows = (8 if mode == "last" else 32), 64 * conv_stack.TF32_LAST_BLOCKS
+        rm = torch.arange(mrows).view(-1, 1)
+        acc = torch.zeros(nt, mrows, 3 * nd)
+        for c in range(nch):
+            for dy in range(3):
+                part = torch.zeros(nt, mrows, 3 * nd)
+                off = (c * 3 + dy) * 3 * nd * 32
+                for kk in range(4):
+                    bidx = _swz(32 * kk + torch.arange(3 * nd).view(-1, 1) * 128 + 4 * ks) // 4
+                    w_hi, w_lo = mat[off:][bidx].T, mat[lo_off + off:][bidx].T  # (8 channels, 3 nd)
+                    if plant == 2 and dy == 0:  # the corner tap (0, 0): columns 0 .. nd - 1
+                        w_hi, w_lo = F.pad(w_hi[:, nd:], (nd, 0)), F.pad(w_lo[:, nd:], (nd, 0))
+                    col = dy * bw * 128 + 32 * kk + rm * 128 + 4 * ks
+                    a_hi, a_lo = smems[c][:, _swz(col) // 4], smems[c][:, _swz(col + box_px * 128) // 4]
+                    part = products(part, a_hi, a_lo, w_hi, w_lo)
+                acc = acc + part
+        ex = F.pad(acc, (0, 0, 0, 8))
+        m = torch.arange(mrows)
+        v = ex[:, m, 0:cout] + ex[:, m + 1, nd:nd + cout] + ex[:, m + 2, 2 * nd:2 * nd + cout]
+        store((v + bias.view(1, 1, -1)).transpose(1, 2), m, torch.arange(cout))
+        return out
 
     cout_t = 128 // nh
     cols = torch.arange(144)
@@ -195,7 +220,7 @@ def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape, hin=None, ro
             ph = (n0 + 64 * mt) // 64
             for half in range(nh):
                 acc, part = torch.zeros(nt, 64, 144), torch.zeros(nt, 64, 144)
-                for c in range(cin // 32):
+                for c in range(nch):
                     for tap in range(taps):
                         if tap % tpr == 0:  # each row of taps summed apart, then added
                             acc, part = acc + part, torch.zeros_like(part)
@@ -216,13 +241,11 @@ def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape, hin=None, ro
                             part = products(part, w_hi[aidx], w_lo[aidx], b_hi, b_lo)
                 if mode == "phase":
                     o = torch.arange(64)
-                    v = act(acc + part + bias.view(1, -1, 1))
-                    store(v, 144 * half + cols, o, phase=(ph // 2, ph % 2))
+                    store(acc + part + bias.view(1, -1, 1), 144 * half + cols, o, phase=(ph // 2, ph % 2))
                 else:
                     o = torch.arange(n0 + 64 * mt, n0 + 64 * mt + 64)
-                    v = act(acc + part + bias[o].view(1, -1, 1))
-                    store(v, 144 * half + cols, o)
-    return out.view(out_shape)
+                    store(acc + part + bias[o].view(1, -1, 1), 144 * half + cols, o)
+    return out
 
 
 def _emulate_tf32(x, w, b, relu, swap=False, plant=0, seed=0):
