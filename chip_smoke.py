@@ -506,7 +506,7 @@ def phase_build():
       + [(name, ("-DBAND_PLANT=1",)) for name in ("rrdb", "tail")]
       + [("rrdb", ("-DRDB_PLANT=1",)), ("tail", ("-DTAIL_PLANT=1",))]
       + [("conv_f32", (f"-DF32_PLANT={f}",)) for f in F32_FAULTS]
-      + [("conv_frame_tf32", (f"-DTF32_PLANT={f}",)) for f in TF32_FAULTS])
+      + [("conv_frame_tf32", (f"-DTF32_PLANT={f}",)) for f in {**TF32_FAULTS, **TF32_BWD_FAULTS}])
     print(f"build: {len(report)} libraries in {time.perf_counter() - t0:.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})")
     for name, (secs, log) in sorted(report.items()):
@@ -3454,30 +3454,39 @@ TF32_FAULTS = {1: "the two correction products dropped (1xTF32)",
                3: "each tile's top halo row read as zeros",
                4: "a row window's first input row read as zeros (a band's halo row)",
                5: "gc mode: a dense-concat conv's last 32-channel chunk read one chunk early"}
+# The backward's (K3's and K6's one call each: csrc/conv_bwd_tf32_wgmma.cuh).
+TF32_BWD_FAULTS = {6: "the weight grads' tap (0, 0) left out",
+                   7: "the last K-split left out of the weight grads' reduce",
+                   8: "the backward's leaky masks at slope 0.25",
+                   9: "the phase (0, 1) weight grads reading phase (1, 0)'s cotangent plane"}
 TF32_FRAME_FAULTS = (1, 2, 3)
 F32_SOURCES = ["master_thesis_tpu_torch/csrc/conv_f32.cu"]
 TF32_KERNEL_SOURCES = ["master_thesis_tpu_torch/csrc/conv_frame_tf32.cu",
                        "master_thesis_tpu_torch/csrc/conv_frame_tf32_wgmma.cuh"]
 TF32_SOURCES = TF32_KERNEL_SOURCES + F32_SOURCES
+TF32_BWD_SOURCES = ["master_thesis_tpu_torch/csrc/conv_bwd_tf32_wgmma.cuh"] + TF32_KERNEL_SOURCES
 # Each f32 route by the kernels it launches: the profiler's pattern for
 # their names, a label, their source files (the first is the row's
 # ``source``), whether conv_f32.cu's two faults can show on it, and the
-# 3xTF32 faults that can. The SIMT kernel alone (K3); the 3xTF32 kernel for
-# K7's and K8's 64-multiple convs and the SIMT kernel for the thin ones; the
-# 3xTF32 kernel alone (K4, K5: the upconvs in phase mode, hr_conv in conv
-# mode, conv_last in last mode; K1, K2: conv1..conv4 in gc mode, conv5 in
-# conv mode); K6, the SIMT kernel with the recompute on the 3xTF32 kernel.
+# 3xTF32 faults that can. The 3xTF32 kernel for K7's and K8's 64-multiple
+# convs and the SIMT kernel for the thin ones; the 3xTF32 kernel alone (K4,
+# K5: the upconvs in phase mode, hr_conv in conv mode, conv_last in last
+# mode; K1, K2: conv1..conv4 in gc mode, conv5 in conv mode); K3, K6: its
+# backward's one call each (conv_bwd_tf32_wgmma.cuh).
 F32_ROUTES = {
-    "simt": SimpleNamespace(kernels=r"\bcf::", label="conv_f32_fwd / conv_f32_wgrad", sources=F32_SOURCES,
-                            simt_faults=True, tf32_faults=()),
     "tf32+simt": SimpleNamespace(kernels=r"\b(cf|ft)::", label="3xTF32 wgmma frame kernel + conv_f32_fwd",
                                  sources=TF32_SOURCES, simt_faults=True, tf32_faults=TF32_FRAME_FAULTS),
     "tail": SimpleNamespace(kernels=r"\bft::", label="3xTF32 wgmma kernel: upconvs in phase mode, hr_conv in "
                             "conv mode, conv_last in last mode", sources=TF32_KERNEL_SOURCES, simt_faults=False,
                             tf32_faults=TF32_FRAME_FAULTS),
-    "simt+tail": SimpleNamespace(kernels=r"\b(cf|ft)::", label="conv_f32_fwd / conv_f32_wgrad, the recompute on "
-                                 "the 3xTF32 kernel", sources=F32_SOURCES + TF32_KERNEL_SOURCES, simt_faults=True,
-                                 tf32_faults=TF32_FRAME_FAULTS),
+    "rrdb bwd": SimpleNamespace(kernels=r"\bft::", label="3xTF32 wgmma kernel, one call: pulls in gc / conv mode "
+                                "(mask, dx epilogues), the 15 weight grads in its weight-grad mode, a reduce",
+                                sources=TF32_BWD_SOURCES, simt_faults=False, tf32_faults=(1, 2, 3, 6, 7, 8)),
+    "tail bwd": SimpleNamespace(kernels=r"\bft::", label="3xTF32 wgmma kernel, one call: K4's recompute, "
+                                "conv_last's two thin kernels, the adjoints in conv mode (the upsample-convs' over "
+                                "phase planes), the weight grads in its weight-grad mode (4 phases x 4 taps), a "
+                                "reduce", sources=TF32_BWD_SOURCES, simt_faults=False,
+                                tf32_faults=(1, 2, 3, 6, 7, 8, 9)),
     "rdb": SimpleNamespace(kernels=r"\bft::", label="3xTF32 wgmma kernel: conv1..conv4 in gc mode, conv5 in conv "
                            "mode with the residual epilogue", sources=TF32_KERNEL_SOURCES, simt_faults=False,
                            tf32_faults=TF32_FRAME_FAULTS + (5,)),
@@ -3581,12 +3590,14 @@ def f32_plain_backward():
         rrdb_bwd.rrdb_bwd, tail_bwd.tail_bwd = orig
 
 
-def f32_library_ms(fn):
+def f32_library_ms(fn, dtype=torch.float32):
     """The library yardstick of an f32 route: its launches recorded over one
     call, and for each the one PyTorch call that computes it (``F.conv2d``
     at the conv's shape, through x2 at the upsampled size, the 2x2 sums'
-    convs at the full size; ``conv2d_weight`` for a weight grad), f32,
-    TF32 off, channels-last, timed alone and summed."""
+    convs at the full size; ``conv2d_weight`` for a weight grad), in
+    ``dtype`` (f32 with TF32 off; bf16 for the bf16 table's column: the same
+    convs, the bf16 sites' shapes being the f32 ones), channels-last, timed
+    alone and summed."""
     import torch.nn.functional as F
 
     from master_thesis_tpu_torch.ops import conv_f32, conv_stack, rrdb, tail
@@ -3645,12 +3656,12 @@ def f32_library_ms(fn):
                                                                   tf32.launches)
     total = 0.0
     for (kind, n, cin, cout, h, w, k), count in shapes.items():
-        x = channels_last(torch.randn(n, cin, h, w, device="cuda"))
-        wt = channels_last(torch.randn(cout, cin, k, k, device="cuda"))
+        x = channels_last(torch.randn(n, cin, h, w, device="cuda", dtype=dtype))
+        wt = channels_last(torch.randn(cout, cin, k, k, device="cuda", dtype=dtype))
         if kind == "fwd":
             call = lambda: F.conv2d(x, wt, padding=k // 2)
         else:
-            dy = channels_last(torch.randn(n, cout, h, w, device="cuda"))
+            dy = channels_last(torch.randn(n, cout, h, w, device="cuda", dtype=dtype))
             call = lambda: torch.nn.grad.conv2d_weight(x, wt.shape, dy, padding=k // 2)
         total += count * cuda_ms(call, iters=3, warmup=1)
         del x, wt
@@ -3738,6 +3749,105 @@ def rdb_bound(n, h, w):
     return sum(by_limit.values()), max(by_limit, key=by_limit.get)
 
 
+def bwd_launch_floors(site, n, h, w):
+    """Each launch of one K3 (an RRDB's backward) or K6 (the tail's) f32
+    call on the 3xTF32 kernel, in launch order, over ``n`` frames of ``h x
+    w`` (K6: the tail's input): ``[(label, seconds, bound_by)]``, each the
+    larger of its operations (3 tf32 products a FLOP at 495 TFLOP/s on the
+    tensor cores; conv_last's thin kernels' FLOPs at 67 outside them; the
+    upsample-convs' adjoints and weight grads at their 4-phase count, 16
+    phase-taps a low-resolution pixel) and its bytes (each input read and
+    each output written once) at 3.35 TB/s."""
+    from master_thesis_tpu_torch.ops import rrdb, rrdb_bwd, tail_bwd
+
+    def floor(label, flops, nbytes_, rate=PEAK_TF32_FLOPS, products=3):
+        t_ops, t_bytes = products * flops / rate, nbytes_ / PEAK_BYTES
+        return label, max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+    p1 = n * h * w
+    if site == "K3":
+        ks = rrdb_bwd.k3_config(n, h, w, torch.cuda.get_device_properties(0).multi_processor_count)[-1]
+        out = [floor("prep (the third RDB's dP_5)", 0, p1 * 64 * 4 * 2)]
+        for j in (3, 2, 1):
+            for s_ in (4, 3, 2, 1):
+                cin = 192 - 32 * s_
+                out.append(floor(f"rdb{j} pull {s_} (gc mode, {cin} -> 32, mask)", 2 * p1 * 9 * cin * 32,
+                                 p1 * (cin + 32 + 32) * 4))
+            out.append(floor(f"rdb{j} pull 0 (conv mode, 192 -> 64, dx)", 2 * p1 * 9 * 192 * 64,
+                             p1 * (192 + 4 * 64 + 64) * 4))
+        wflops = 3 * sum(2 * p1 * 9 * ci * co for ci, co in rrdb._widths(64, 32))
+        out.append(floor("weight grads (15 convs, weight-grad mode)", wflops, 3 * p1 * 2 * 192 * 4))
+        out.append(floor("reduce", 0, (3 * 14 * ks * 9 * 64 * 32 + 3 * rrdb_bwd.RDB_GRAD_NUMEL) * 4))
+        return out
+    p2, p4 = 4 * p1, 16 * p1
+    ks = tail_bwd.k6_config(n, h, w, torch.cuda.get_device_properties(0).multi_processor_count)[-3:]
+    out = []
+    for k, label in enumerate(("recompute upconv1 (phase mode)", "recompute upconv2 (phase mode)",
+                               "recompute hr_conv (conv mode)")):
+        t, by, _ = tail_stage_floor(k, n, h, w)
+        out.append((label, t, by))
+    last = 2 * p4 * 3 * 64 * 9
+    out.append(floor("conv_last's weight grad (thin)", last, p4 * (64 + 3) * 4, PEAK_F32_FLOPS, 1))
+    out.append(floor("conv_last's adjoint, masked (thin)", last, p4 * (2 * 64 + 3) * 4, PEAK_F32_FLOPS, 1))
+    out.append(floor("hr_conv's adjoint (conv mode, mask)", 2 * p4 * 9 * 64 * 64, p4 * 3 * 64 * 4))
+    out.append(floor("upconv2's adjoint (conv mode over phase planes, mask)", 2 * p2 * 16 * 64 * 64,
+                     (p4 + 2 * p2) * 64 * 4))
+    out.append(floor("upconv1's adjoint (conv mode over phase planes)", 2 * p1 * 16 * 64 * 64,
+                     (p2 + p1) * 64 * 4))
+    items = 2 * ks[0] + 8 * ks[1] + 8 * ks[2]
+    out.append(floor("weight grads (hr_conv; upconv2, upconv1 4 phases x 4 taps)",
+                     2 * 64 * 64 * (9 * p4 + 16 * p2 + 16 * p1), (2 * p4 + 2 * p2 + 2 * p1) * 64 * 4))
+    out.append(floor("reduce (and the phase fold)", 0, (items * 9 * 64 * 32 + tail_bwd.GRAD_NUMEL) * 4))
+    return out
+
+
+def bwd_bound(site, n, h, w):
+    """K3's or K6's routed bound, ``(seconds, bound_by)``: its launches'
+    floors (:func:`bwd_launch_floors`), one after another; bound by what
+    bounds most of it."""
+    by_limit = {"operations": 0.0, "bytes": 0.0}
+    for _, t, by in bwd_launch_floors(site, n, h, w):
+        by_limit[by] += t
+    return sum(by_limit.values()), max(by_limit, key=by_limit.get)
+
+
+def bwd_launch_times(site, fn, n, h, w, kernels):
+    """Each launch of one call of K3's or K6's f32 route (``fn``) by its
+    device time under ``torch.profiler``, in launch order, beside its floor
+    (:func:`bwd_launch_floors`); ``{label: ms}``. A profile that does not
+    count one kernel a launch is read again (at most twice), then reported
+    and skipped."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    floors = bwd_launch_floors(site, n, h, w)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and re.search(kernels, e.name)),
+                     key=lambda e: e.time_range.start)
+        if len(evs) == len(floors):
+            break
+    else:
+        print(f"{site} f32 launches: the profile counted {len(evs)} kernels of {len(floors)}; per-launch times "
+              "not matched to the launches; the kernels it counted, in order:")
+        for e in evs:
+            print(f"{site} f32 kernel {e.time_range.elapsed_us() / 1e3:.4f} ms [{e.name[:90]}]")
+        return {}
+    times = {}
+    for i, (e, (label, t, by)) in enumerate(zip(evs, floors)):
+        ms = e.time_range.elapsed_us() / 1e3
+        times[label] = ms
+        print(f"{site} f32 launch {i:2d} {label}: {ms:.4f} ms, floor {1e3 * t:.4f} ms ({by}; {1e3 * t / ms:.1%} "
+              f"of it) [{e.name[:60]}]")
+    return times
+
+
 def f32_check_body(base):
     """An RRDB's f32 check: :func:`f32_check` with the relative L2 over the
     part the convs compute (``base``: the RRDB's identity part, ``1.2 x``,
@@ -3748,18 +3858,22 @@ def f32_check_body(base):
                                                   L2_F32, max_abs=False, planted=bool(planted))
 
 
-def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, check_fn, kind="simt",
-             first=None, routed=None):
+def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, check_fn, kind,
+             first=None, routed=None, library=None):
     """One site's f32 route, whose kernels are ``F32_ROUTES[kind]``: its check
     against the plain version and on each planted fault that can show on
     those kernels, then its device time with its launch count (the kernels
     whose names match the route's pattern), the bound, the 3 x TF32 figure,
     the plain version, the cuDNN route and the library yardstick. ``first``
-    (K1, K2, K4, K5, K7, K8): the f32 first design, every conv on conv_f32.cu,
-    checked and timed beside the route, which must be faster; ``routed``
-    (with it): the route's bound, ``(seconds, bound_by)`` from
-    :func:`routed_bound`, :func:`tail_bound` or :func:`rdb_bound` (the bound at 67 TFLOP/s kept
-    as ``bound_f32_ms``). Returns the route's output."""
+    : the f32 first design, every conv on conv_f32.cu (K6's recompute on
+    the 3xTF32 kernel), checked and timed beside the route, which must be
+    faster; ``routed`` (with it): the route's bound, ``(seconds,
+    bound_by)`` from :func:`routed_bound`, :func:`tail_bound`,
+    :func:`rdb_bound` or :func:`bwd_bound` (the bound at 67 TFLOP/s kept as
+    ``bound_f32_ms``); ``library``: the call whose convs the library
+    yardstick times (the route's by default; K3's and K6's first design,
+    whose convs go through the wrappers :func:`f32_library_ms` records).
+    Returns the route's output."""
     kind = F32_ROUTES[kind]
     got, want = route(), plain()
     err = check_fn(f"{key} f32 {name}", got, want, None)
@@ -3768,7 +3882,8 @@ def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, 
             check_fn(f"{key} f32 {name}", route(), want, flabel)
     for fault in kind.tf32_faults:
         with planted_tf32(fault):
-            check_fn(f"{key} f32 {name}", route(), want, f"3xTF32 kernel: {TF32_FAULTS[fault]}")
+            check_fn(f"{key} f32 {name}", route(), want,
+                     f"3xTF32 kernel: {({**TF32_FAULTS, **TF32_BWD_FAULTS})[fault]}")
     if first is not None:
         check_fn(f"{key} f32 first design {name}", first(), want, None)
     # The time is CUDA events' over 3 calls (a route's launches each take
@@ -3780,7 +3895,8 @@ def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, 
     dev_ms, counted = device_ms(route, iters=1, kernels=kind.kernels)
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     cudnn_ms = cuda_ms(cudnn, iters=3, warmup=1)
-    lib_ms = f32_library_ms(route)
+    lib_ms = f32_library_ms(library or route)
+    lib_bf16 = f32_library_ms(library or route, torch.bfloat16)
     first_ms = cuda_ms(first, iters=3, warmup=1) if first is not None else None
     t_f32, t_bytes = flops / PEAK_F32_FLOPS, nbytes_ / PEAK_BYTES
     f32_bound = 1e3 * max(t_f32, t_bytes)
@@ -3794,13 +3910,14 @@ def f32_site(results, key, name, route, plain, cudnn, flops, nbytes_, launches, 
           f"{launches} {kind.label} launches counted), {bound} {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it), "
           + ("" if routed is None else f"bound at 67 TFLOP/s f32 {f32_bound:.4f} ms, ")
           + f"3xTF32 {tf32:.4f} ms ({tf32 / ms:.1%} of it), plain "
-          f"{plain_ms:.4f} ms, cuDNN f32 route {cudnn_ms:.4f} ms, library {lib_ms:.4f} ms "
+          f"{plain_ms:.4f} ms, cuDNN f32 route {cudnn_ms:.4f} ms, library {lib_ms:.4f} ms (in bf16 "
+          f"{lib_bf16:.4f} ms) "
           f"({flops / ms / 1e9:.2f} TFLOP/s)"
           + ("" if first is None else f", first design (conv_f32 alone) {first_ms:.4f} ms"))
     results[f"{key} f32"] = dict(
         name=f"{name}, f32 route ({kind.label})", route="cuda", source=kind.sources[0],
         replaces=F32_REPLACES[key], launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, cudnn_ms=cudnn_ms, tf32x3_ms=tf32,
+        bound_by=b_by, library_ms=lib_ms, library_bf16_ms=lib_bf16, cudnn_ms=cudnn_ms, tf32x3_ms=tf32,
         **({"sources": kind.sources} if len(kind.sources) > 1 else {}))
     if first is not None:
         results[f"{key} f32"].update(first_design_ms=first_ms, bound_f32_ms=f32_bound)
@@ -4160,6 +4277,35 @@ def f32_check_groups(name, got, want, planted):
     return max((got[k] - want[k]).abs().max().item() for k in want) if not planted else worst
 
 
+def record_bf16_library(results, lib7, lib8):
+    """The bf16 table's library column: each site's yardstick (one
+    ``F.conv2d`` / ``conv2d_weight`` a launch, bf16, channels-last, summed)
+    over the convs its f32 route (K3, K6: first design) records at the bf16
+    rows' shapes, into the bf16 rows where this run made them; K7's sep4d
+    and mixer, K8 by caller. Printed either way."""
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
+        ms = results[f"{k} f32"]["library_bf16_ms"]
+        print(f"library {k} bf16 (one F.conv2d / conv2d_weight a launch, bf16, channels-last): {ms:.4f} ms")
+        if k in results:
+            results[k]["library_ms"] = ms
+    print(f"library K7 bf16: sep4d {lib7['sep4d']:.4f} ms, mixer {lib7['mixer']:.4f} ms; K8 bf16: "
+          + ", ".join(f"{label} {ms:.4f} ms" for label, ms in lib8.items()))
+    if "K7" in results:
+        results["K7"].update(library_ms=lib7["sep4d"], mixer_library_ms=lib7["mixer"])
+    if "K8" in results:
+        results["K8"]["library_ms"] = lib8["flow_256"]
+        results["K8"].update({f"{label}_library_ms": ms for label, ms in lib8.items()})
+
+
+def bwd_rerun(site, first, again):
+    """K3's or K6's f32 route run twice on the same input: every output
+    (dx, each dW and db) bit for bit the same, or the run fails."""
+    same = all(torch.equal(first[k], again[k]) for k in first)
+    print(f"check {site} f32 rerun bit-identical (dx, every dW and db): " + ("ok" if same else "FAIL"))
+    if not same:
+        raise RuntimeError(f"{site}'s f32 route is not bit-identical between two runs")
+
+
 def live_mixer(dfpn):
     """The correlation mixer packed in f32 with the biases of conv 10 and the
     three after it at 0, for K7's f32 check. At the seeded weights conv 10's 4
@@ -4261,10 +4407,14 @@ def phase_f32(results, device_line):
         x, gy = channels_last(rnd(nt, 64, h, w)), channels_last(rnd(nt, 64, h, w))
         _, kept = rrdb_bwd.rrdb_forward_kept_f32(x, rdbs)
         convs = rrdb.rrdb_convs(chn.nn.rrdb_trunk[0])
-        pulls = rrdb_bwd.pack_rdb_pulls_f32(convs)
+        pulls, pulls_first = rrdb_bwd.pack_rdb_pulls_tf32(convs), rrdb_bwd.pack_rdb_pulls_f32(convs)
 
         def k3():
             dx, flat = rrdb_bwd.rrdb_bwd(x, gy, rdbs, pulls, kept)
+            return rrdb_groups(dx, rrdb_bwd.rdb_grads(flat))
+
+        def k3_first():
+            dx, flat = rrdb_bwd.rrdb_bwd_f32_first(x, gy, rdbs, pulls_first, kept)
             return rrdb_groups(dx, rrdb_bwd.rdb_grads(flat))
 
         # The backward checks' plain versions sum in f64: cuDNN's f32 weight
@@ -4278,10 +4428,13 @@ def phase_f32(results, device_line):
             return rrdb_groups(dx, grads)
 
         bwd_cudnn = rrdb_cudnn_backward(x, rdbs)
-        f32_site(results, "K3", "RRDB backward", k3, k3_plain, lambda: bwd_cudnn(gy),
-                 rrdb_bwd.rrdb_bwd_flops(nt, h, w), 3 * nbytes(x) + sum(nbytes(c) for c in kept[1]),
-                 rrdb_bwd.RRDB_BWD_F32_KERNELS, f32_check_groups)
-        del kept, kept64, bwd_cudnn
+        k3_out = f32_site(results, "K3", "RRDB backward", k3, k3_plain, lambda: bwd_cudnn(gy),
+                          rrdb_bwd.rrdb_bwd_flops(nt, h, w), 3 * nbytes(x) + sum(nbytes(c) for c in kept[1]),
+                          rrdb_bwd.RRDB_BWD_F32_KERNELS, f32_check_groups, kind="rrdb bwd", first=k3_first,
+                          routed=bwd_bound("K3", nt, h, w), library=k3_first)
+        bwd_rerun("K3", k3_out, k3())
+        results["K3 f32"]["launch_ms"] = bwd_launch_times("K3", k3, nt, h, w, F32_ROUTES["rrdb bwd"].kernels)
+        del kept, kept64, bwd_cudnn, k3_out
         gt = channels_last(rnd(nt, 3, 4 * h, 4 * w))
 
         def k6():
@@ -4306,11 +4459,20 @@ def phase_f32(results, device_line):
         with torch.enable_grad():
             yt = tail_cudnn(xs, tail_w, leaves)
         flat_leaves = [xs] + [t for pair in leaves for t in pair]
-        f32_site(results, "K6", "tail backward", k6, k6_plain,
-                 lambda: torch.autograd.grad(yt, flat_leaves, gt, retain_graph=True),
-                 tail_bwd.tail_bwd_flops(nt, h, w), 2 * nbytes(x) + nbytes(gt),
-                 tail_bwd.TAIL_BWD_F32_KERNELS, f32_check_groups, kind="simt+tail")
-        del x, gy, gt, yt, leaves, xs, kept6
+        adj_first = tail_bwd.pack_tail_bwd_f32(tail_w)
+
+        def k6_first():
+            dx, grads = tail_bwd.tail_bwd_f32_first(x, gt, tail_w, adj_first)
+            return {"dx": dx, **grads}
+
+        k6_out = f32_site(results, "K6", "tail backward", k6, k6_plain,
+                          lambda: torch.autograd.grad(yt, flat_leaves, gt, retain_graph=True),
+                          tail_bwd.tail_bwd_flops(nt, h, w), 2 * nbytes(x) + nbytes(gt),
+                          tail_bwd.TAIL_BWD_F32_KERNELS, f32_check_groups, kind="tail bwd", first=k6_first,
+                          routed=bwd_bound("K6", nt, h, w), library=k6_first)
+        bwd_rerun("K6", k6_out, k6())
+        results["K6 f32"]["launch_ms"] = bwd_launch_times("K6", k6, nt, h, w, F32_ROUTES["tail bwd"].kernels)
+        del x, gy, gt, yt, leaves, xs, kept6, k6_out
 
     dfpn = build_dfpn(base_size=DFPN_BASE, dtype=f32, generator=torch.Generator().manual_seed(SEED + 5))
     vgg = VGGFeatures(dtype=f32, generator=torch.Generator().manual_seed(SEED + 6))
@@ -4348,9 +4510,15 @@ def phase_f32(results, device_line):
                  k7_bytes, sum(len(p.specs) for _, p, _ in stacks7), f32_check_groups, kind="tf32+simt",
                  first=k7_first,
                  routed=routed_bound([(p, xx.shape[0], cs, cs) for xx, p, _ in stacks7], k7_bytes))
+        lib7 = {part: f32_library_ms(lambda st=st: [conv_stack.conv_stack_tiles_cl(xx, p, swap=sw)
+                                                    for xx, p, sw in st], torch.bfloat16)
+                for part, st in (("sep4d", stacks7[:2]), ("mixer", stacks7[2:]))}
         del x1, y1, x2, xm
         # K8: flow_256's and flow_64's segments and VGG's pool-4 tower.
-        items = [it for lst in k8_callers(dfpn, vgg, lambda *s: rnd(*s), dtype=f32).values() for it in lst]
+        callers8 = k8_callers(dfpn, vgg, lambda *s: rnd(*s), dtype=f32)
+        lib8 = {label: f32_library_ms(lambda lst=lst: [conv_stack.conv_stack_banded(xx, p) for _, p, _, _, xx in lst],
+                                      torch.bfloat16) for label, lst in callers8.items()}
+        items = [it for lst in callers8.values() for it in lst]
 
         def k8():
             return {nm: conv_stack.conv_stack_banded(xx, p) for nm, p, _, _, xx in items}
@@ -4370,7 +4538,8 @@ def phase_f32(results, device_line):
                  sum(conv_stack.stack_flops(p, xx.shape[0], xx.shape[1], xx.shape[2]) for _, p, _, _, xx in items),
                  k8_bytes, sum(len(p.specs) for _, p, _, _, _ in items), f32_check_groups, kind="tf32+simt",
                  first=k8_first, routed=routed_bound([(p, *xx.shape[:3]) for _, p, _, _, xx in items], k8_bytes))
-        del items, outs8
+        del items, outs8, callers8
+        record_bf16_library(results, lib7, lib8)
         for site, (ms, floor) in tf32_sums.items():
             results[f"{site} f32"].update(tf32_convs_ms=ms, tf32_convs_floor_ms=floor)
         tf32_want = (sum(count for *_, count in tf32_conv_items(dfpn, vgg).values()) + tail.TAIL_KERNELS
@@ -4450,11 +4619,12 @@ def phase_f32(results, device_line):
         want_g = grads()
     check_groups("f32 CHN train step grads, backward routes vs plain versions from the same forward",
                  got, want_g, L2_F32_STEP)
-    # The 3xTF32 kernel: the trunk's forward (K1), the tail's four launches
-    # and K6's recompute (three).
+    # The 3xTF32 kernel's launches through conv_stack.tf32_launch: the
+    # trunk's forward (K1) and the tail's four; K3's and K6's launches come
+    # from their one call each and count on their own counters.
     want = {**dict.fromkeys(counters, 0), "K1": 3 * NB * rrdb.RDB_CONVS, "K3": NB * rrdb_bwd.RRDB_BWD_F32_KERNELS,
             "K4": tail.TAIL_KERNELS, "K6": tail_bwd.TAIL_BWD_F32_KERNELS,
-            "TF32": 3 * NB * rrdb.RDB_CONVS + tail.TAIL_KERNELS + 3}
+            "TF32": 3 * NB * rrdb.RDB_CONVS + tail.TAIL_KERNELS}
     print(f"f32 train step launches: {counts} (expected {want})")
     if counts != want:
         raise RuntimeError("the f32 train step did not launch each f32 route as expected")

@@ -74,3 +74,62 @@ extern "C" int conv_frame_tf32_forward(const TF32Call* c, void* stream) {
   return ft::launch(static_cast<const float*>(c->x), a, c->k, c->nh, c->mode, c->x_rows, c->xc, c->xn,
                     static_cast<cudaStream_t>(stream));
 }
+
+// K3 and K6 in f32 (conv_bwd_tf32_wgmma.cuh): one call each. cfg: K3Cfg's
+// (gc_rows, gc_tw, cv_fr, cv_rows, cv_tw, cv_nh, ks) or K6Cfg's (5 tiles of
+// (fr, rows, tw, nh), then 3 K-splits), from ops/rrdb_bwd.py /
+// ops/tail_bwd.py.
+#include "conv_bwd_tf32_wgmma.cuh"
+
+extern "C" long long rrdb_backward_tf32_scratch(const int* cfg, int n, int h, int w) {
+  const ft::K3Cfg c = {cfg[0], cfg[1], cfg[2], cfg[3], cfg[4], cfg[5], cfg[6]};
+  return ft::k3_carve(nullptr, (long long)n * h * w, c.ks, ft::k3_brows(c, n, h, w)).floats * 4;
+}
+
+extern "C" int rrdb_backward_tf32(const void* cat0, const void* cat1, const void* cat2, const void* g,
+                                  const void* mats, void* dx, void* grads, void* scratch, const int* cfg, int n,
+                                  int h, int w, void* stream) {
+  const float* cats[3] = {static_cast<const float*>(cat0), static_cast<const float*>(cat1),
+                          static_cast<const float*>(cat2)};
+  const ft::K3Cfg c = {cfg[0], cfg[1], cfg[2], cfg[3], cfg[4], cfg[5], cfg[6]};
+  return ft::rrdb_backward_tf32(cats, static_cast<const float*>(g), static_cast<const float*>(mats),
+                                static_cast<float*>(dx), static_cast<float*>(grads), static_cast<float*>(scratch),
+                                c, n, h, w, static_cast<cudaStream_t>(stream));
+}
+
+static ft::K6Cfg k6_cfg(const int* cfg) {
+  ft::K6Cfg c;
+  for (int i = 0; i < 20; ++i) c.tile[i / 4][i % 4] = cfg[i];
+  for (int i = 0; i < 3; ++i) c.ks[i] = cfg[20 + i];
+  return c;
+}
+
+extern "C" long long tail_backward_tf32_scratch(const int* cfg, int n, int h, int w) {
+  const ft::K6Cfg c = k6_cfg(cfg);
+  return ft::k6_carve(nullptr, n, h, w, ft::k6_items(c), ft::k6_brows(c, n, h, w)).floats * 4;
+}
+
+// rec: up1_tf32, up1_b, up2_tf32, up2_b, hr_tf32, hr_b; adj: hr_conv's,
+// upconv2's, upconv1's adjoint operands.
+extern "C" int tail_backward_tf32(const void* x, const void* g, const void* const* rec, const void* const* adj,
+                                  const void* last_w, void* dx, void* grads, void* scratch, const int* cfg, int n,
+                                  int h, int w, void* stream) {
+  const ft::K6Cfg c = k6_cfg(cfg);
+  const float* r[6];
+  const float* a[3];
+  for (int i = 0; i < 6; ++i) r[i] = static_cast<const float*>(rec[i]);
+  for (int i = 0; i < 3; ++i) a[i] = static_cast<const float*>(adj[i]);
+  return ft::tail_backward_tf32(static_cast<const float*>(x), static_cast<const float*>(g), r, a,
+                                static_cast<const float*>(last_w), static_cast<float*>(dx),
+                                static_cast<float*>(grads), static_cast<float*>(scratch), c, n, h, w,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// Kernel launches of one rrdb_backward_tf32 / tail_backward_tf32 call, and
+// the sizes the wrappers check: an RDB's pull matrices, an RDB's grads, the
+// tail's grads.
+extern "C" int rrdb_backward_tf32_launches() { return ft::K3_LAUNCHES; }
+extern "C" int tail_backward_tf32_launches() { return ft::K6_LAUNCHES; }
+extern "C" long long rrdb_backward_tf32_pulls() { return ft::PULLS_F32; }
+extern "C" int rrdb_backward_tf32_grads() { return ft::RDB_GRADS_F32; }
+extern "C" int tail_backward_tf32_grads() { return ft::T6_GRADS; }

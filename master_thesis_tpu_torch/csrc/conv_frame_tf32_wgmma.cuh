@@ -214,7 +214,31 @@
 // K5's bands read (as tail.cu's BAND_PLANT in bf16); 5, in gc mode, loads
 // the last 32-channel chunk of the input from one chunk early (a dense-concat
 // conv reading x_{k-2}'s channels where x_{k-1}'s belong; conv1 its first
-// chunk twice).
+// chunk twice); 8 sets the backward's mask slope (the mask epilogue's and
+// conv_bwd_tf32_wgmma.cuh's) to 0.25. (6, 7 and 9 are the backward's:
+// conv_bwd_tf32_wgmma.cuh.)
+//
+// The backward's epilogues (K3 and K6 in f32, conv_bwd_tf32_wgmma.cuh drives
+// them), each its own kernel instance (EK) so that the forward's carry none:
+// - mask (conv mode at 64 outputs, gc mode): v = acc (no bias) where the
+//   kept activation m >= 0, else 0.2 acc, m read at the output pixel through
+//   r's strides; K3's pulls 4..1 (gc mode, reading a channel suffix of the
+//   cotangent buffer D in place) and K6's hr_conv / upconv2 adjoints;
+// - dx (conv mode at 64 outputs): v = rs r + acc (one fma), then + r2 where
+//   given; K3's pull 0. Where out2 is given it also stores 0.2 v there (the
+//   next RDB's dP_5), through its own pixel strides.
+// Both write each unit's sums of what the bias grads sum (the masked
+// values, or 0.2 v) to `part` (64 floats a row), where part is given: each
+// warp's (gc mode: 32 outputs, row 8 u + warp) or each warpgroup's (conv
+// mode: its half of the columns, row 2 u + warpgroup) after shuffles in a
+// fixed order, without atomics. Gc mode reads the mask at the output's
+// pixel offsets (its strides are the output's).
+// s2d (conv mode): the input is the phase-major view of an NHWC 64-channel
+// tensor at twice the resolution (the 4 phases (a, b) x 64 channels of each
+// low-resolution pixel, 256 channels, chunk c at phase a = c / 4, channels
+// 32 (c % 4) of the (b, o) pair): a 5-D TMA map reads it in place. K6's
+// upsample-conv adjoints run so, over the 3x3 adjoint of the 4-phase kernel
+// (2.25x the 16 phase-taps' products).
 #pragma once
 
 #include "conv3x3_wgmma.cuh"
@@ -240,7 +264,11 @@ constexpr int SMEM_MAX = 232448;
 constexpr int BARS = 128;  // (afull, asplit, aempty) x SA + (wfull, wempty) x (2 or 4)
 constexpr int CONV = 0, PHASE = 1, LAST = 2, GC = 3;                    // modes
 constexpr int EPI_NONE = 0, EPI_RELU = 1, EPI_LEAKY = 2, EPI_RESID = 3;  // epilogues
+constexpr int EPI_MASK = 4, EPI_DX = 5;                                  // the backward's
+constexpr int EK_ACT = 0, EK_RESID = 1, EK_MASK = 2, EK_DX = 3;          // epilogue instances
 constexpr float RES_SCALE = 0.2f;  // the residual epilogue's scale, the RDB's
+constexpr float MASK_SLOPE = TF32_PLANT == 8 ? 0.25f : 0.2f;  // the leaky masks' slope
+constexpr int PART_ROW = 64;       // floats a row of the bias partial sums
 // Last mode: a row of taps' 3 taps x outputs padded to 8 (an n24 product;
 // one (chunk, row) block of LAST_W floats, hi or lo), 2 m64 pixel blocks a
 // warpgroup (256 wrapped columns a tile, the last 2 read by their left
@@ -269,6 +297,15 @@ struct Args {
   const float* r;
   const float* r2;
   long long r_sn, r_sy, r_sx, r2_sn, r2_sy, r2_sx;
+  // The backward's epilogues (mask: r is the mask; dx: rs r + acc (+ r2),
+  // 0.2 of it to out2 at frame f, row y, column x, channel o at f o2_sn + y
+  // o2_sy + x o2_sx + o where out2 is given), their bias partial sums (rows
+  // of part by unit, null for none), and s2d, the phase-major input.
+  float* out2;
+  long long o2_sn, o2_sy, o2_sx;
+  float* part;
+  float rs;
+  int s2d;
 };
 
 // ceil(2^32 / d): with it n / d is umulhi(n, m) for every n, d < 2^16
@@ -398,11 +435,23 @@ __device__ __forceinline__ float activate(float v, Act f) {
   return fmaxf(fmaxf(v, f.slope * v), f.floor);
 }
 
-// RES: conv mode's residual epilogue (its own instances, so that the other
-// convs' epilogue carries none of it).
-template <int K, int NH, int MODE, bool RES = false>
+// A 5-D box (the s2d input's) into shared memory.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            int c3, int c4, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// EK: the epilogue's instance (EK_ACT: bias and activation; EK_RESID: conv
+// mode's residual; EK_MASK, EK_DX: the backward's), so that each conv's
+// epilogue carries no other's.
+template <int K, int NH, int MODE, int EK = EK_ACT>
 __global__ void __launch_bounds__(NTHREAD, 1)
 tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
+  constexpr bool RES = EK == EK_RESID;
   constexpr int R = K / 2;
   constexpr bool ROWS_N = MODE == LAST || MODE == GC;  // the unswapped product: taps by rows
   constexpr int KK = MODE == PHASE ? 4 : ROWS_N ? K : K * K;  // taps (last and gc modes: rows of taps)
@@ -416,6 +465,8 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
   static_assert(NH == 1 || NH == 2, "one or two n144 halves");
   static_assert(MODE == CONV || K == 3, "phase, last and gc modes are 3x3");
   static_assert(MODE == CONV || !RES, "the residual epilogue is conv mode's");
+  static_assert(EK != EK_DX || (MODE == CONV && NH == 2), "the dx epilogue is conv mode's at 64 outputs");
+  static_assert(EK != EK_MASK || MODE == GC || (MODE == CONV && NH == 2), "the mask epilogue: gc or conv at 64");
   static_assert(MODE != GC || (SW == 2 && 2 * SW * W_BYTES + 2 * GC_ROWS * 8 * 4 == 2 * W_RING),
                 "gc mode's ring and exchange fill the weight region");
   extern __shared__ __align__(1024) unsigned char ft_smem[];
@@ -457,8 +508,12 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
         const int ch = TF32_PLANT == 5 && MODE == GC && bc == nch - 1 && bc > 0 ? bc - 1 : bc;
         if (qa >= SA) cw::mbar_wait(aempty0 + 8 * sa, (qa / SA - 1) & 1);
         cw::mbar_expect_tx(afull0 + 8 * sa, (uint32_t)a.a_tx);
-        cw::tma_load_4d(cw::smem_u32(smem + sa * a.a_stage), &xmap, CHUNK * ch, t.x0 - R,
-                        t.y0 - R - a.x_row0, t.f0, afull0 + 8 * sa);
+        if (MODE == CONV && a.s2d)  // chunk ch: phase row ch / 4, channels 32 (ch % 4) of (b, o)
+          tma_load_5d(cw::smem_u32(smem + sa * a.a_stage), &xmap, CHUNK * (ch & 3), t.x0 - R, ch >> 2,
+                      t.y0 - R, t.f0, afull0 + 8 * sa);
+        else
+          cw::tma_load_4d(cw::smem_u32(smem + sa * a.a_stage), &xmap, CHUNK * ch, t.x0 - R,
+                          t.y0 - R - a.x_row0, t.f0, afull0 + 8 * sa);
         ++qa;
         if (++bc == nch) {
           bc = 0;
@@ -714,6 +769,10 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
           const int m = (wgi + 2 * j) * 64 + 16 * wl + g + 8 * i, y = div_by(m, bw, a.mbw), x = m - y * bw;
           off[j][i] = x < xlim && y < ylim && t.f0 < a.n ? y * (int)a.sr + x * (int)a.sp : -1;
         }
+      // The mask epilogue's mask at the tile's first pixel (read at off).
+      const float* const m0 = EK == EK_MASK ? a.r + t.f0 * a.r_sn + (long long)t.y0 * a.r_sy +
+                                                  (long long)t.x0 * a.r_sx + 2 * q4
+                                            : nullptr;
 #pragma unroll
       for (int pass = 0; pass < 4; ++pass) {
 #pragma unroll
@@ -726,7 +785,9 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
             *reinterpret_cast<float2*>(ex + 8 * (GC_ROWS + m) + 2 * q4) = make_float2(acc[j][c2], acc[j][c2 + 1]);
           }
         cw::named_sync(1, NCONS);
-        const float b0 = a.bias[8 * pass + 2 * q4], b1 = a.bias[8 * pass + 2 * q4 + 1];
+        const float b0 = EK == EK_MASK ? 0.0f : a.bias[8 * pass + 2 * q4];
+        const float b1 = EK == EK_MASK ? 0.0f : a.bias[8 * pass + 2 * q4 + 1];
+        float p0 = 0.0f, p1 = 0.0f;  // the mask epilogue's sums of this pass's outputs
 #pragma unroll
         for (int j = 0; j < LAST_MB; ++j)
 #pragma unroll
@@ -735,17 +796,38 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
             const float2 d1 = *reinterpret_cast<const float2*>(ex + 8 * min(m + 1, GC_ROWS - 1) + 2 * q4);
             const float2 d2 = *reinterpret_cast<const float2*>(ex + 8 * (GC_ROWS + min(m + 2, GC_ROWS - 1)) + 2 * q4);
             const int c0 = 4 * pass + 2 * i;  // dx 0's registers
-            if (off[j][i] >= 0)
+            if (off[j][i] < 0) continue;
+            if constexpr (EK == EK_MASK) {  // no bias: the sums masked by the kept activation's sign
+              const float2 mk = *reinterpret_cast<const float2*>(m0 + off[j][i] + 8 * pass);
+              float v0 = acc[j][c0] + d1.x + d2.x, v1 = acc[j][c0 + 1] + d1.y + d2.y;
+              v0 = mk.x >= 0.0f ? v0 : MASK_SLOPE * v0;
+              v1 = mk.y >= 0.0f ? v1 : MASK_SLOPE * v1;
+              p0 += v0;
+              p1 += v1;
+              *reinterpret_cast<float2*>(o0 + off[j][i] + 8 * pass) = make_float2(v0, v1);
+            } else {
               *reinterpret_cast<float2*>(o0 + off[j][i] + 8 * pass) =
                   make_float2(activate(acc[j][c0] + d1.x + d2.x + b0, act),
                               activate(acc[j][c0 + 1] + d1.y + d2.y + b1, act));
+            }
           }
+        if (EK == EK_MASK && a.part != nullptr) {  // the warp's sums, row 8 u + warp
+#pragma unroll
+          for (int sh = 4; sh < 32; sh *= 2) {
+            p0 += __shfl_xor_sync(0xffffffffu, p0, sh);
+            p1 += __shfl_xor_sync(0xffffffffu, p1, sh);
+          }
+          if (lane < 4)
+            *reinterpret_cast<float2*>(a.part + ((size_t)u * CONS_WARPS + warp) * PART_ROW + 8 * pass + 2 * lane) =
+                make_float2(p0, p1);
+        }
         cw::named_sync(1, NCONS);
       }
     }
     return;
   } else {
     const int mt = NH == 1 ? wgi : 0, h = NH == 2 ? wgi : 0;  // warpgroup wgi's outputs and half
+    constexpr bool BWD = EK == EK_MASK || EK == EK_DX;
     int qa = 0, qw = 0;
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
       const Tile t = tile_of(a, u / nct);
@@ -754,7 +836,8 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
       // This thread's outputs oc and oc + 8 (phase mode: channels of phase
       // ph); their biases are loaded now, their latency under the products.
       const int oc = (MODE == PHASE ? 0 : n0 + mt * 64) + 16 * wl + g;
-      const float b0 = a.bias[oc], b1 = a.bias[oc + 8];
+      const float b0 = !BWD && a.bias != nullptr ? a.bias[oc] : 0.0f;
+      const float b1 = !BWD && a.bias != nullptr ? a.bias[oc + 8] : 0.0f;
       // The tensor cores add each product group into part with its sum
       // truncated; part is summed into acc (round to nearest) after each row
       // of taps, before the truncation drifts.
@@ -833,13 +916,19 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
                         (long long)((MODE == PHASE ? 2 * t.y0 + pa : t.y0) - a.out_row0) * a.sr +
                         (long long)(MODE == PHASE ? 2 * t.x0 + pb : t.x0) * a.sp + oc;
       const Act act = act_of(a.epi);
-      // The residual epilogue's r and r2 at the tile's first pixel, output oc.
+      float bs0 = 0.0f, bs1 = 0.0f;  // the backward's bias sums of outputs oc, oc + 8
+      // The residual epilogue's r and r2 (the mask epilogue's mask, the dx
+      // epilogue's r, r2 and out2) at the tile's first pixel, output oc.
       const float* const rp0 =
-          RES ? a.r + t.f0 * a.r_sn + (long long)t.y0 * a.r_sy + (long long)t.x0 * a.r_sx + oc : nullptr;
+          EK != EK_ACT ? a.r + t.f0 * a.r_sn + (long long)t.y0 * a.r_sy + (long long)t.x0 * a.r_sx + oc
+                       : nullptr;
       const float* const r2p0 =
-          RES && a.r2 != nullptr
+          (RES || EK == EK_DX) && a.r2 != nullptr
               ? a.r2 + t.f0 * a.r2_sn + (long long)t.y0 * a.r2_sy + (long long)t.x0 * a.r2_sx + oc
               : nullptr;
+      float* const o2p0 = EK == EK_DX && a.out2 != nullptr
+                              ? a.out2 + t.f0 * a.o2_sn + (long long)t.y0 * a.o2_sy + (long long)t.x0 * a.o2_sx + oc
+                              : nullptr;
 #pragma unroll
       for (int j = 0; j < 18; ++j)
 #pragma unroll
@@ -855,6 +944,36 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
           float* o = o0 + (y * sy + x * sx);
           if (a.fr > 1) o += frame_base(a, t.f0 + fl) - fb0;
           float v0 = acc[4 * j + e] + b0, v1 = acc[4 * j + 2 + e] + b1;
+          if constexpr (EK == EK_MASK) {  // the sums masked by the kept activation's sign
+            const float* rp = rp0 + (y * (int)a.r_sy + x * (int)a.r_sx) + fl * a.r_sn;
+            v0 = rp[0] >= 0.0f ? v0 : MASK_SLOPE * v0;
+            v1 = rp[8] >= 0.0f ? v1 : MASK_SLOPE * v1;
+            bs0 += v0;
+            bs1 += v1;
+            o[0] = v0;
+            o[8] = v1;
+            continue;
+          }
+          if constexpr (EK == EK_DX) {  // rs r + acc (+ r2); 0.2 of it to out2
+            const float* rp = rp0 + (y * (int)a.r_sy + x * (int)a.r_sx) + fl * a.r_sn;
+            v0 = fmaf(a.rs, rp[0], v0);
+            v1 = fmaf(a.rs, rp[8], v1);
+            if (r2p0 != nullptr) {
+              const float* r2p = r2p0 + (y * (int)a.r2_sy + x * (int)a.r2_sx) + fl * a.r2_sn;
+              v0 += r2p[0];
+              v1 += r2p[8];
+            }
+            o[0] = v0;
+            o[8] = v1;
+            if (o2p0 != nullptr) {
+              float* o2 = o2p0 + (y * (int)a.o2_sy + x * (int)a.o2_sx) + fl * a.o2_sn;
+              o2[0] = RES_SCALE * v0;
+              o2[8] = RES_SCALE * v1;
+              bs0 += RES_SCALE * v0;
+              bs1 += RES_SCALE * v1;
+            }
+            continue;
+          }
           if constexpr (RES) {  // 0.2 (0.2 v + r) + r2, conv_f32.cu's order
             const float* rp = rp0 + (y * (int)a.r_sy + x * (int)a.r_sx) + fl * a.r_sn;
             v0 = fmaf(RES_SCALE, v0, rp[0]);
@@ -868,6 +987,17 @@ tf32_kernel(__grid_constant__ const CUtensorMap xmap, const Args a) {
           o[0] = activate(v0, act);
           o[8] = activate(v1, act);
         }
+      if (BWD && a.part != nullptr) {  // the warpgroup's sums (its half), row 2 u + wgi
+        bs0 += __shfl_xor_sync(0xffffffffu, bs0, 1);
+        bs0 += __shfl_xor_sync(0xffffffffu, bs0, 2);
+        bs1 += __shfl_xor_sync(0xffffffffu, bs1, 1);
+        bs1 += __shfl_xor_sync(0xffffffffu, bs1, 2);
+        if (q4 == 0) {
+          float* row = a.part + ((size_t)u * 2 + wgi) * PART_ROW + oc;
+          row[0] = bs0;
+          row[8] = bs1;
+        }
+      }
     }
   }
 }
@@ -890,11 +1020,29 @@ inline int make_map(CUtensorMap* m, const void* base, int c, int w, int rows, lo
   return r == CUDA_SUCCESS ? 0 : cw::TENSOR_MAP_ERROR + (int)r;
 }
 
+// The phase-major (s2d) view of an NHWC f32 tensor (n, 2h, 2w, 64): dims
+// (c: the 128 floats of a (b, o) pair, x: w, a: 2, y: h, n), boxes of bc
+// channels x bw x 1 x bh x fr.
+inline int make_map5(CUtensorMap* m, const void* base, int w, int h, int n, int bc, int bw, int bh, int fr) {
+  PFN_cuTensorMapEncodeTiled_v12000 fn = cw::encode_fn();
+  if (fn == nullptr) return cw::TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t row = 2ull * w * 64 * 4;  // bytes of a high-resolution row
+  const cuuint64_t dims[5] = {128, (cuuint64_t)w, 2, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[4] = {128 * 4, row, 2 * row, 2 * row * h};
+  const cuuint32_t box[5] = {(cuuint32_t)bc, (cuuint32_t)bw, 1, (cuuint32_t)bh, (cuuint32_t)fr};
+  const cuuint32_t estride[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<void*>(base), dims, strides, box,
+                        estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        bc == CHUNK ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cw::TENSOR_MAP_ERROR + (int)r;
+}
+
 // CTAs that can run at once: one an SM.
-template <int K, int NH, int MODE, bool RES>
+template <int K, int NH, int MODE, int EK>
 int resident_ctas() {
   static const int n = [] {
-    return cudaFuncSetAttribute(tf32_kernel<K, NH, MODE, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    return cudaFuncSetAttribute(tf32_kernel<K, NH, MODE, EK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 SMEM_MAX) == cudaSuccess
                ? cw::sm_count()
                : 0;
@@ -902,14 +1050,17 @@ int resident_ctas() {
   return n;
 }
 
-template <int K, int NH, int MODE, bool RES = false>
-int launch_t(const CUtensorMap& xm, const Args& a, int smem, cudaStream_t stream) {
-  const int cap = resident_ctas<K, NH, MODE, RES>();
-  if (cap <= 0) return (int)cudaErrorInvalidConfiguration;
+// The grid of a launch: its work units, at most one CTA an SM.
+inline int grid_of(const Args& a, int nh, int mode) {
   const long long units =
-      (long long)a.groups * a.tiles_y * a.tiles_x * (MODE == LAST || MODE == GC ? 1 : a.cout / (128 / NH));
-  const long long grid = units < cap ? units : cap;
-  tf32_kernel<K, NH, MODE, RES><<<(int)grid, NTHREAD, smem, stream>>>(xm, a);
+      (long long)a.groups * a.tiles_y * a.tiles_x * (mode == LAST || mode == GC ? 1 : a.cout / (128 / nh));
+  return (int)(units < cw::sm_count() ? units : cw::sm_count());
+}
+
+template <int K, int NH, int MODE, int EK = EK_ACT>
+int launch_t(const CUtensorMap& xm, const Args& a, int smem, cudaStream_t stream) {
+  if (resident_ctas<K, NH, MODE, EK>() <= 0) return (int)cudaErrorInvalidConfiguration;
+  tf32_kernel<K, NH, MODE, EK><<<grid_of(a, NH, MODE), NTHREAD, smem, stream>>>(xm, a);
   return (int)cudaGetLastError();
 }
 
@@ -919,21 +1070,31 @@ int launch_t(const CUtensorMap& xm, const Args& a, int smem, cudaStream_t stream
 // a.fr x a.rows x a.tw, on nh n144 halves (conv, phase) or 2 LAST_MB m64
 // blocks (last, gc); the output rows [a.r0, a.r1) stored. Returns the CUDA
 // error code (or cw::TENSOR_MAP_ERROR + a CUresult).
+// The backward's epilogues (mask, dx) take a.r (and a.r2, a.out2, a.part)
+// as the note says; with a.s2d the input is the phase-major view of an
+// NHWC (n, 2h, 2w, 64) tensor (cin 256, whole frames; xc and xn unread).
+// *rows, where given, receives the rows of a.part the launch writes.
 inline int launch(const float* x, Args a, int k, int nh, int mode, int x_rows, long long xc, long long xn,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, int* rows = nullptr) {
   const int ho = mode == PHASE ? 2 * a.h : a.h;  // the output frame's rows
   const bool rows_n = mode == LAST || mode == GC;  // the unswapped product
   if ((mode != CONV && mode != PHASE && mode != LAST && mode != GC) || (k != 3 && (k != 5 || mode != CONV)) ||
       (nh != 1 && nh != 2) || a.n < 1 || a.h < 1 || a.w < 1 || a.cin < CHUNK || a.cin % CHUNK ||
       a.fr < 1 || a.rows < 1 || a.tw < 1 || a.tw > a.w || a.tg < 1 || a.x_row0 < 0 || x_rows < 1 ||
       a.x_row0 >= a.h || a.r0 < 0 || a.r1 > ho || a.r0 >= a.r1 || a.out_row0 > a.r0 ||
-      (a.epi != EPI_NONE && a.epi != EPI_RELU && a.epi != EPI_LEAKY && a.epi != EPI_RESID) ||
-      (a.epi == EPI_RESID && (mode != CONV || a.r == nullptr)))
+      (a.epi < EPI_NONE || a.epi > EPI_DX) ||
+      (a.epi == EPI_RESID && (mode != CONV || a.r == nullptr)) ||
+      ((a.epi == EPI_MASK || a.epi == EPI_DX) &&
+       (a.r == nullptr || !(mode == GC || (mode == CONV && a.cout == 64 && nh == 2)) ||
+        (a.epi == EPI_DX && mode != CONV) ||
+        (mode == GC && (a.r_sy != a.sr || a.r_sx != a.sp)))) ||
+      (a.s2d && (mode != CONV || k != 3 || a.cin != 4 * 64 || a.x_row0 != 0 || x_rows != a.h)))
     return (int)cudaErrorInvalidValue;
   // The input: the first cin channels of pixels xc floats apart (16-byte
   // strides and base for the TMA map), frames xn floats apart.
-  if (xc < a.cin || xc % 4 || xn % 4 || xn < (long long)x_rows * a.w * xc || (uintptr_t)x % 16)
+  if (!a.s2d && (xc < a.cin || xc % 4 || xn % 4 || xn < (long long)x_rows * a.w * xc))
     return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)x % 16) return (int)cudaErrorInvalidValue;
   if (mode == LAST) {  // the weights and the exchange fill the 64 KB weight region at Cin 64
     if (a.cout < 1 || a.cout > 3 || a.cout_pad != 3 * LAST_N || a.cin > 2 * CHUNK || a.fr != 1 ||
         2 * (a.cin / CHUNK) * 3 * LAST_W * 4 + 2 * EX_ROWS * 9 * 4 > 2 * W_RING)
@@ -958,8 +1119,9 @@ inline int launch(const float* x, Args a, int k, int nh, int mode, int x_rows, l
   const int smem = smem_bytes(a.a_tx, read, k, bw);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidConfiguration;
   if (a.n >= 65536 || a.tg >= 65536 || 2 * (a.rows * a.sr + a.tw * a.sp) >= (1LL << 31) ||
-      (a.epi == EPI_RESID && (2 * (a.rows * a.r_sy + a.tw * a.r_sx) >= (1LL << 31) ||
-                              2 * (a.rows * a.r2_sy + a.tw * a.r2_sx) >= (1LL << 31))))
+      (a.epi >= EPI_RESID && (2 * (a.rows * a.r_sy + a.tw * a.r_sx) >= (1LL << 31) ||
+                              2 * (a.rows * a.r2_sy + a.tw * a.r2_sx) >= (1LL << 31) ||
+                              2 * (a.rows * a.o2_sy + a.tw * a.o2_sx) >= (1LL << 31))))
     return (int)cudaErrorInvalidValue;  // div_by's range, and a column's 32-bit offset in a tile
   a.mbw = magic(bw);
   a.mbh = magic(bh);
@@ -975,8 +1137,15 @@ inline int launch(const float* x, Args a, int k, int nh, int mode, int x_rows, l
   need1 = need1 < a.h ? need1 : a.h;
   if (a.x_row0 > need0 || a.x_row0 + valid < need1) return (int)cudaErrorInvalidValue;  // rows x lacks
   CUtensorMap xm;
-  const int e = make_map(&xm, x, a.cin, a.w, valid, xc, xn, a.n, bw, bh, a.fr);
+  const int e = a.s2d ? make_map5(&xm, x, a.w, a.h, a.n, CHUNK, bw, bh, a.fr)
+                      : make_map(&xm, x, a.cin, a.w, valid, xc, xn, a.n, bw, bh, a.fr);
   if (e != 0) return e;
+  if (rows != nullptr)  // a row a warp (gc mode) or a warpgroup (conv mode) of each unit
+    *rows = (int)((long long)a.groups * a.tiles_y * a.tiles_x * (mode == GC ? CONS_WARPS : 2 * a.cout / 64));
+  if (a.epi == EPI_MASK)
+    return mode == GC ? launch_t<3, 1, GC, EK_MASK>(xm, a, smem, stream)
+                      : launch_t<3, 2, CONV, EK_MASK>(xm, a, smem, stream);
+  if (a.epi == EPI_DX) return launch_t<3, 2, CONV, EK_DX>(xm, a, smem, stream);
   if (mode == GC) return launch_t<3, 1, GC>(xm, a, smem, stream);
   if (mode == PHASE)
     return nh == 2 ? launch_t<3, 2, PHASE>(xm, a, smem, stream)
@@ -984,8 +1153,8 @@ inline int launch(const float* x, Args a, int k, int nh, int mode, int x_rows, l
   if (mode == LAST) return launch_t<3, 1, LAST>(xm, a, smem, stream);
   if (a.epi == EPI_RESID) {
     if (k != 3) return (int)cudaErrorInvalidValue;  // an RDB's conv5 is 3x3
-    return nh == 2 ? launch_t<3, 2, CONV, true>(xm, a, smem, stream)
-                   : launch_t<3, 1, CONV, true>(xm, a, smem, stream);
+    return nh == 2 ? launch_t<3, 2, CONV, EK_RESID>(xm, a, smem, stream)
+                   : launch_t<3, 1, CONV, EK_RESID>(xm, a, smem, stream);
   }
   if (k == 3)
     return nh == 2 ? launch_t<3, 2, CONV>(xm, a, smem, stream) : launch_t<3, 1, CONV>(xm, a, smem, stream);

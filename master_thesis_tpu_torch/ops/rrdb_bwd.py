@@ -29,12 +29,21 @@ back.
 In f32 (:func:`rrdb_bwd_f32`) the forward keeps each RDB's dense-concat
 buffer (x and x1..x4, NHWC, :func:`.rrdb.rdb_f32`), and an RDB's backward
 is, in the pull form: v5 = 0.2 g_out, then for each source x4 .. x1 one
-:func:`.conv_f32.conv_f32_fwd` from the cotangents of every conv the
-source feeds (stored in conv order in one NHWC buffer) to the source's
-channels, with the leaky mask of the kept x_t in its epilogue (v_t); the
-same from all five into x's channels, plus g_out (and, in the RRDB's first
-RDB, g) in the epilogue (dx); then one :func:`.conv_f32.conv_f32_wgrad`
-per conv. Everything in f32. It holds to the JAX package run in f32 under
+conv from the cotangents of every conv the source feeds (stored in conv
+order in one NHWC buffer D) to the source's channels, with the leaky mask
+of the kept x_t in its epilogue (v_t); the same from all five into x's
+channels, plus g_out (and, in the RRDB's first RDB, g) in the epilogue
+(dx); then the weight grad of every conv. At nf 64 / gc 32 on the card that
+is one ctypes call an RRDB on the 3xTF32 ``wgmma`` kernel
+(``csrc/conv_frame_tf32.cu:rrdb_backward_tf32``, design in
+``csrc/conv_bwd_tf32_wgmma.cuh``, :data:`RRDB_BWD_F32_KERNELS` launches:
+the pulls in gc and conv mode, the 15 weight grads in one launch of its
+weight-grad mode, a fixed-order reduce); :func:`rrdb_bwd_tf32_plan` is the
+same sequence of launches with each launch pluggable (their plain versions
+on the CPU). At other widths the first design runs
+(:func:`rrdb_bwd_f32_first`: :func:`.conv_f32.conv_f32_fwd` and
+:func:`.conv_f32.conv_f32_wgrad`, the SIMT kernels). Everything in f32. It
+holds to the JAX package run in f32 under
 ``jax.default_matmul_precision("highest")``: the JAX kernel takes its two
 products at default precision even in f32 (ROADMAP C).
 """
@@ -42,14 +51,15 @@ products at default precision even in f32 (ROADMAP C).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from master_thesis_tpu_torch import _build
-from master_thesis_tpu_torch.ops import conv_bwd
+from master_thesis_tpu_torch.ops import conv_bwd, conv_stack, fragments
 from master_thesis_tpu_torch.ops.conv_f32 import (
     WGRAD_KERNELS,
     conv_f32_fwd,
@@ -366,7 +376,7 @@ def rrdb_bwd(
     if given)."""
     if x.is_cuda:
         if kernel_route(x.dtype) == "f32":
-            return rrdb_bwd_f32(x, g, rdbs, pulls, kept, out)
+            return rrdb_bwd_f32(x, g, rdbs, pulls, kept, out, scratch)
         return rrdb_bwd_cuda(x, g, pulls, kept, out, scratch)
     if x.device.type != "cpu":
         raise ValueError(f"no RRDB backward for device {x.device}")
@@ -391,20 +401,7 @@ def _pull_kernels(row: torch.Tensor, nf: int, gc: int) -> List[torch.Tensor]:
     return [t.view(s) for t, s in zip(row.split([math.prod(s) for s in shapes]), shapes)]
 
 
-def rrdb_bwd_f32(
-    x: torch.Tensor, g: torch.Tensor, rdbs: Sequence[PackedRDB], pulls: torch.Tensor, kept,
-    out: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One RRDB's backward on K3's f32 route (``rrdb_bwd_pallas`` with f32
-    weights): per RDB, 5 pull launches of :func:`.conv_f32.conv_f32_fwd`
-    and 5 :func:`.conv_f32.conv_f32_wgrad` calls (module docstring). ``x``
-    and ``g`` f32 (N, nf, H, W); ``rdbs`` the packed RDBs (their shapes),
-    ``pulls`` their rows of :func:`pack_rdb_pulls_f32`; ``kept`` = ``(ins,
-    cats)`` from :func:`rrdb_forward_kept_f32`. Returns ``(dx, grads)``:
-    dx channels-last f32, grads flat as :func:`flat_grads` (in ``out`` if
-    given). The kernels for CUDA tensors, their plain versions for CPU
-    ones; launches count in ``rrdb_bwd_f32.launches``."""
-    _, cats = kept
+def _check_f32_args(x, g, rdbs, cats):
     n, nf, h, w = x.shape
     gc = rdbs[0].kernels[0].shape[0]
     if g.shape != x.shape or g.dtype != torch.float32 or x.dtype != torch.float32:
@@ -412,6 +409,25 @@ def rrdb_bwd_f32(
     if len(cats) != 3 or any(c.shape != (n, h, w, nf + 4 * gc) or c.dtype != torch.float32
                              for c in cats):
         raise ValueError(f"kept must hold three ({n}, {h}, {w}, {nf + 4 * gc}) f32 buffers")
+    return n, nf, gc, h, w
+
+
+def rrdb_bwd_f32_first(
+    x: torch.Tensor, g: torch.Tensor, rdbs: Sequence[PackedRDB], pulls: torch.Tensor, kept,
+    out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's first f32 design, on the SIMT kernels (the route at widths other
+    than nf 64 / gc 32, and on the card beside :func:`rrdb_bwd_f32` in
+    chip_smoke.py): per RDB, 5 pull launches of :func:`.conv_f32.conv_f32_fwd` and 5
+    :func:`.conv_f32.conv_f32_wgrad` calls (module docstring). ``x`` and
+    ``g`` f32 (N, nf, H, W); ``rdbs`` the packed RDBs (their shapes),
+    ``pulls`` their rows of :func:`pack_rdb_pulls_f32`; ``kept`` = ``(ins,
+    cats)`` from :func:`rrdb_forward_kept_f32`. Returns ``(dx, grads)``:
+    dx channels-last f32, grads flat as :func:`flat_grads` (in ``out`` if
+    given). The kernels for CUDA tensors, their plain versions for CPU
+    ones; launches count in ``rrdb_bwd_f32_first.launches``."""
+    _, cats = kept
+    n, nf, gc, h, w = _check_f32_args(x, g, rdbs, cats)
     size = sum(9 * ci * co + co for ci, co in _widths(nf, gc))
     if out is None:
         out = torch.empty(3 * size, dtype=torch.float32, device=x.device)
@@ -433,13 +449,331 @@ def rrdb_bwd_f32(
         launches += 5 + 5 * WGRAD_KERNELS
         d = dx
     if x.is_cuda:
-        rrdb_bwd_f32.launches += launches
+        rrdb_bwd_f32_first.launches += launches
     return d.permute(0, 3, 1, 2), out
 
 
+rrdb_bwd_f32_first.launches = 0
+# Kernel launches of one RRDB's backward on the first f32 design.
+RRDB_BWD_F32_FIRST_KERNELS = 3 * (5 + 5 * WGRAD_KERNELS)
+
+# K3's f32 route on the 3xTF32 kernel (csrc/conv_bwd_tf32_wgmma.cuh): an
+# RDB's weight-grad jobs (source s, 64-channel block of D, the source's first
+# channel in the dense concat; ``ft::k3_unit``), the pull matrices' sizes
+# (pull 0 in the conv layout, pulls 1..4 in the gc layout, hi and lo), and
+# the kernel launches of one call (prep, 3 x 5 pulls, the weight grads, the
+# reduce).
+K3_UNITS = ((0, 0, 0), (0, 0, 32), (0, 1, 0), (0, 1, 32), (0, 2, 0), (0, 2, 32), (1, 0, 64), (1, 1, 64),
+            (1, 2, 64), (2, 1, 96), (2, 2, 96), (3, 1, 128), (3, 2, 128), (4, 2, 160))
+PULL_SIZES = (2 * 9 * 128 * 192,) + tuple(2 * 9 * 32 * (192 - 32 * s) for s in range(1, 5))
+PULLS_TF32 = sum(PULL_SIZES)
+RRDB_BWD_F32_KERNELS = 1 + 3 * 5 + 1 + 1
+# The weight-grad mode's slot of one item: 9 taps x 64 cotangent channels x
+# 32 source channels; and the SMs a plan assumes off the card.
+WG_SLOT = (9, 64, 32)
+DEFAULT_SMS = 132
+
+
+def tf32_widths(rdbs: Sequence[PackedRDB]) -> bool:
+    """Whether K3's f32 route runs on the 3xTF32 kernel: nf 64 / gc 32."""
+    return tuple(tuple(k.shape) for k in rdbs[0].kernels) == tuple(
+        (co, ci, 3, 3) for ci, co in _widths(KERNEL_NF, KERNEL_GC))
+
+
+def _pull_oihw(kernels: Sequence[torch.Tensor], s: int, nf: int = KERNEL_NF, gc: int = KERNEL_GC) -> torch.Tensor:
+    """Source s's pull kernel as OIHW ``(source channels, D channels, 3,
+    3)``: every conv u >= s + 1's kernel over the source's channels,
+    transposed and flipped (any dtype: values, or positions for a gather)."""
+    lo, width = (0, nf) if s == 0 else (nf + (s - 1) * gc, gc)
+    return torch.cat([kernels[u][:, lo:lo + width] for u in range(s, 5)]).transpose(0, 1).flip(2, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _pull_tf32_index(shapes, device) -> torch.Tensor:
+    sizes = [math.prod(sh) for sh in shapes]
+    views = [v.view(sh) for v, sh in zip(torch.arange(sum(sizes)).split(sizes), shapes)]
+    with torch.inference_mode(False):
+        parts = [fragments.tf32_conv_order(_pull_oihw(views, 0), fill=sum(sizes))]
+        parts += [fragments.tf32_gc_order(_pull_oihw(views, s)) for s in range(1, 5)]
+        return torch.cat(parts).to(device)
+
+
+def pack_rdb_pulls_tf32(convs_list: Sequence[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
+                        sources=None) -> torch.Tensor:
+    """Each RDB's five pull matrices for K3's 3xTF32 route (nf 64 / gc 32),
+    f32, one gather for all: row r is RDB r's, :data:`PULLS_TF32` floats:
+    pull 0 (192 -> 64) as ``fragments.wgmma_tf32_matrix`` (conv mode),
+    pulls 1..4 (192 - 32 s -> 32) as ``fragments.wgmma_tf32_gc_matrix``,
+    each hi then lo. ``sources`` as for ``rrdb.pack_rdbs`` (f32)."""
+    src, shapes = _sources(convs_list, torch.float32) if sources is None else sources
+    parts = src[:, _pull_tf32_index(shapes, src.device)].split([n // 2 for n in PULL_SIZES], dim=1)
+    return torch.cat([t for part in parts for t in fragments.tf32_split(part)], dim=1)
+
+
+def wgrad_splits(works: Sequence[Tuple[int, int, int]], sms: int = DEFAULT_SMS, waves: int = 3) -> List[int]:
+    """K-splits of the weight-grad mode's jobs: ``works`` ``(jobs, tiles,
+    taps a side)`` of each kind; each kind's items get about the same work
+    (tiles x taps^2), ``waves`` items a CTA in all."""
+    total = sum(j * t * k * k for j, t, k in works)
+    budget = max(1.0, total / (waves * sms))
+    return [max(1, min(t, round(t * k * k / budget))) for _, t, k in works]
+
+
+def k3_config(n: int, h: int, w: int, sms: int = DEFAULT_SMS) -> Tuple[int, ...]:
+    """One K3 call's tiles and K-splits (``ft::K3Cfg``): gc mode's rows and
+    columns, conv mode's frames, rows, columns and halves
+    (``conv_stack.tf32_tile``), the weight grads' K-splits."""
+    _, rows, tw, _ = conv_stack.tf32_tile("gc", n, h, w, 3, KERNEL_GC, 0, h, 0)
+    tile = conv_stack.tf32_tile("conv", n, h, w, 3, KERNEL_NF, 0, h, 0)
+    (ks,) = wgrad_splits([(3 * len(K3_UNITS), n * h * -(-w // 32), 3)], sms)
+    return (rows, tw, *tile, ks)
+
+
+class WgJob(NamedTuple):
+    """One job of the weight-grad mode (``ft::WgJob``): 64 channels of the
+    cotangent ``cot`` from ``dc0`` (NHWC; with ``phase`` (a, b) the high
+    resolution tensor whose phase plane it reads) against 32 channels of
+    ``src`` from ``sc0``, 3 taps a side, or with ``phase`` the 4 taps (a +
+    ti, b + tj), over ``ks`` K-splits."""
+
+    cot: torch.Tensor
+    src: torch.Tensor
+    dc0: int
+    sc0: int
+    ks: int
+    phase: Optional[Tuple[int, int]] = None
+
+
+def wgrad_job_plain(job: WgJob) -> torch.Tensor:
+    """The plain version of one job's sums: ``(9, 64, 32)``, tap slot ``3 ti
+    + tj`` (a phase job's four; the other slots zero)."""
+    if job.phase is None:
+        d = job.cot[..., job.dc0: job.dc0 + 64]
+    else:
+        a, b = job.phase
+        d = job.cot[:, a::2, b::2, :64]
+    x = job.src[..., job.sc0: job.sc0 + 32]
+    dw = torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), (64, 32, 3, 3), d.permute(0, 3, 1, 2), padding=1)
+    slot = dw.permute(2, 3, 0, 1).reshape(9, 64, 32)
+    if job.phase is None:
+        return slot
+    a, b = job.phase
+    out = torch.zeros_like(slot)
+    for ti in range(2):
+        for tj in range(2):
+            out[3 * ti + tj] = slot[3 * (a + ti) + b + tj]
+    return out
+
+
+def slot_sums(slots: torch.Tensor) -> torch.Tensor:
+    """A job's item slots ``(ks, ...)`` added in order (the reduces' sum)."""
+    v = torch.zeros_like(slots[0])
+    for slot in slots:
+        v = v + slot
+    return v
+
+
+class K3Launches:
+    """The launches of :func:`rrdb_bwd_tf32_plan`, their plain versions
+    (any device); the CPU tests substitute emulations of the kernel.
+
+    - ``prep(g, d)``: ``d[..., 128:] = 0.2 (0.2 g)``; returns the bias sum
+      rows ``(rows, 64)``.
+    - ``pull(mat, w, x, out, **epi)``: one conv over NHWC ``x`` into
+      ``out`` with ``mat`` (the packed pull matrix) / ``w`` (its exact OIHW
+      kernel); ``epi``: ``m`` (the mask epilogue) or ``r``, ``rs``, ``r2``,
+      ``out2`` (the dx epilogue); returns the bias sum rows (or None).
+    - ``wgrad(jobs)``: each job's item slots ``(ks, 9, 64, 32)``.
+    """
+
+    def prep(self, g, d):
+        v = 0.2 * (0.2 * g)
+        d[..., 128:] = v
+        return v.sum(dim=(0, 1, 2)).view(1, -1)
+
+    def pull(self, mat, w, x, out, *, m=None, r=None, rs=1.0, r2=None, out2=None):
+        acc = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+        if m is not None:
+            v = torch.where(m >= 0, acc, 0.2 * acc)
+            out.copy_(v)
+            return F.pad(v.sum(dim=(0, 1, 2)), (0, 64 - v.shape[3])).view(1, -1)
+        v = rs * r + acc
+        if r2 is not None:
+            v = v + r2
+        out.copy_(v)
+        if out2 is None:
+            return None
+        out2.copy_(0.2 * v)
+        return (0.2 * v).sum(dim=(0, 1, 2)).view(1, -1)
+
+    def wgrad(self, jobs):
+        return [wgrad_job_plain(j).unsqueeze(0) for j in jobs]
+
+
+def k3_reduce(slots: Sequence[torch.Tensor], brows: Sequence[torch.Tensor], out: torch.Tensor) -> torch.Tensor:
+    """K3's reduce: each job's slots (RDB j, unit u: ``slots[14 j + u]``,
+    ``(ks, 9, 64, 32)``) added in order into the weight grads they hold, and
+    each bias slot's rows (RDB j, conv t: ``brows[5 j + t - 1]``) into its
+    bias grad; ``out`` flat as :func:`flat_grads`."""
+    grads = rdb_grads(out)
+    for j in range(3):
+        dws, dbs = grads[j]
+        for u, (s, mb, ch) in enumerate(K3_UNITS):
+            v = slot_sums(slots[14 * j + u])  # (9, 64, 32)
+            for t in range(s + 1, 6):
+                d0 = 32 * (t - 1) if t < 5 else 128  # conv t's D channels [d0, d0 + cout)
+                cout = 32 if t < 5 else 64
+                lo, hi = max(d0, 64 * mb), min(d0 + cout, 64 * mb + 64)
+                if lo >= hi:
+                    continue
+                blk = v[:, lo - 64 * mb: hi - 64 * mb]  # (9, rows, 32)
+                dws[t - 1][lo - d0: hi - d0, ch: ch + 32] = blk.permute(1, 2, 0).reshape(hi - lo, 32, 3, 3)
+        for t in range(1, 6):
+            rows = brows[5 * j + t - 1]
+            acc = torch.zeros_like(rows[0])
+            for row in rows:
+                acc = acc + row
+            dbs[t - 1].copy_(acc[: dbs[t - 1].numel()])
+    return out
+
+
+def rrdb_bwd_tf32_plan(g: torch.Tensor, rdbs: Sequence[PackedRDB], pulls: torch.Tensor, cats, out: torch.Tensor,
+                       launches: K3Launches, ks: int = 1) -> torch.Tensor:
+    """K3's f32 route on the 3xTF32 kernel as the sequence of launches
+    ``csrc/conv_bwd_tf32_wgmma.cuh:rrdb_backward_tf32`` issues (its note),
+    each through ``launches``: NHWC f32 ``g`` (N, H, W, 64), ``pulls`` the
+    three RDBs' rows of :func:`pack_rdb_pulls_tf32`, ``cats`` the kept
+    dense concats (NHWC, 192 channels), the grads into ``out``
+    (:func:`flat_grads` order). Returns dx, NHWC."""
+    n, h, w, _ = g.shape
+    f32 = dict(dtype=torch.float32, device=g.device)
+    ds = [torch.empty((n, h, w, 192), **f32) for _ in range(3)]
+    brows: List[torch.Tensor] = [None] * 15
+    brows[14] = launches.prep(g, ds[2])
+    d_prev = None
+    for j in (2, 1, 0):
+        mats = pulls[j].split(PULL_SIZES)
+        kernels = [k.float() for k in rdbs[j].kernels]
+        d = ds[j]
+        for s in (4, 3, 2, 1):
+            brows[5 * j + s - 1] = launches.pull(
+                mats[s], _pull_oihw(kernels, s), d[..., 32 * s:], d[..., 32 * (s - 1): 32 * s],
+                m=cats[j][..., 64 + 32 * (s - 1): 64 + 32 * s])
+        dx = torch.empty((n, h, w, 64), **f32)
+        rows = launches.pull(mats[0], _pull_oihw(kernels, 0), d, dx, r=g if j == 2 else d_prev,
+                             rs=0.2 if j == 2 else 1.0, r2=g if j == 0 else None,
+                             out2=ds[j - 1][..., 128:] if j > 0 else None)
+        if j > 0:
+            brows[5 * (j - 1) + 4] = rows
+        d_prev = dx
+    jobs = [WgJob(ds[j], cats[j], 64 * mb, ch, ks) for j in range(3) for _, mb, ch in K3_UNITS]
+    k3_reduce(launches.wgrad(jobs), brows, out)
+    return d_prev
+
+
+def _tf32_lib():
+    lib = conv_stack._tf32_lib()
+    if not hasattr(lib, "_k3_bound"):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.rrdb_backward_tf32.argtypes = [vp] * 9 + [ci] * 3 + [vp]
+        lib.rrdb_backward_tf32.restype = ci
+        lib.rrdb_backward_tf32_scratch.argtypes = [vp] + [ci] * 3
+        lib.rrdb_backward_tf32_scratch.restype = ctypes.c_longlong
+        for fn, rt in ((lib.rrdb_backward_tf32_launches, ci), (lib.rrdb_backward_tf32_pulls, ctypes.c_longlong),
+                       (lib.rrdb_backward_tf32_grads, ci)):
+            fn.argtypes = []
+            fn.restype = rt
+        if (lib.rrdb_backward_tf32_launches(), lib.rrdb_backward_tf32_pulls(), lib.rrdb_backward_tf32_grads()) != (
+                RRDB_BWD_F32_KERNELS, PULLS_TF32, RDB_GRAD_NUMEL):
+            raise RuntimeError("csrc/conv_bwd_tf32_wgmma.cuh disagrees with ops/rrdb_bwd.py on K3's f32 call")
+        lib._k3_bound = True
+    return lib
+
+
+def scratch_bytes_f32(n: int, h: int, w: int) -> int:
+    """Bytes of the scratch one :func:`rrdb_bwd_tf32_cuda` call needs for n
+    frames of h x w on the current card."""
+    cfg = k3_config(n, h, w, _sms())
+    return _tf32_lib().rrdb_backward_tf32_scratch((ctypes.c_int * len(cfg))(*cfg), n, h, w)
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+
+
+def rrdb_bwd_tf32_cuda(g: torch.Tensor, pulls: torch.Tensor, cats, out: torch.Tensor,
+                       scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One RRDB's f32 backward through K3's 3xTF32 call
+    (``csrc/conv_frame_tf32.cu:rrdb_backward_tf32``, one ctypes call,
+    :data:`RRDB_BWD_F32_KERNELS` launches) on CUDA tensors: ``g`` NHWC f32
+    (N, H, W, 64) contiguous, ``pulls`` (3, :data:`PULLS_TF32`) contiguous,
+    ``cats`` three contiguous NHWC (N, H, W, 192) f32 buffers, ``out`` the
+    grads (3 x RDB_GRAD_NUMEL f32), ``scratch`` (uint8, at least
+    :func:`scratch_bytes_f32`; made here if None). Returns dx, NHWC."""
+    n, h, w, c = g.shape
+    dev = g.device
+    if (not g.is_cuda or g.dtype != torch.float32 or c != KERNEL_NF or not g.is_contiguous()
+            or len(cats) != 3 or any(t.shape != (n, h, w, 192) or t.dtype != torch.float32 or t.device != dev
+                                     or not t.is_contiguous() for t in cats)):
+        raise ValueError("g must be contiguous NHWC f32 (N, H, W, 64) on the card, cats three contiguous "
+                         "(N, H, W, 192) f32 buffers on its device")
+    if (pulls.dtype, tuple(pulls.shape), pulls.device) != (torch.float32, (3, PULLS_TF32), dev) \
+            or not pulls.is_contiguous():
+        raise ValueError("pulls must be three RDBs' rows of pack_rdb_pulls_tf32 on g's device")
+    if (out.dtype, out.numel(), out.device) != (torch.float32, 3 * RDB_GRAD_NUMEL, dev) or not out.is_contiguous():
+        raise ValueError("out must be a contiguous f32 tensor of 3 * RDB_GRAD_NUMEL on g's device")
+    lib = _tf32_lib()
+    cfg = (ctypes.c_int * 7)(*k3_config(n, h, w, _sms()))
+    need = lib.rrdb_backward_tf32_scratch(cfg, n, h, w)
+    if scratch is None:
+        scratch = torch.empty(need, dtype=torch.uint8, device=dev)
+    if scratch.device != dev or scratch.nbytes < need:
+        raise ValueError("scratch is smaller than scratch_bytes_f32(n, h, w)")
+    dx = torch.empty_like(g)
+    rc = lib.rrdb_backward_tf32(*(t.data_ptr() for t in cats), g.data_ptr(), pulls.data_ptr(), dx.data_ptr(),
+                                out.data_ptr(), scratch.data_ptr(), cfg, n, h, w,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "rrdb_backward_tf32")
+    rrdb_bwd_tf32_cuda.launches += 1
+    return dx
+
+
+rrdb_bwd_tf32_cuda.launches = 0
+
+
+def rrdb_bwd_f32(
+    x: torch.Tensor, g: torch.Tensor, rdbs: Sequence[PackedRDB], pulls: torch.Tensor, kept,
+    out: Optional[torch.Tensor] = None, scratch: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One RRDB's backward on K3's f32 route (``rrdb_bwd_pallas`` with f32
+    weights): at nf 64 / gc 32 on the 3xTF32 kernel (``pulls`` from
+    :func:`pack_rdb_pulls_tf32`; one :func:`rrdb_bwd_tf32_cuda` call on the
+    card, :func:`rrdb_bwd_tf32_plan` with the plain launches on the CPU),
+    at other widths the first design (:func:`rrdb_bwd_f32_first`, ``pulls``
+    from :func:`pack_rdb_pulls_f32`). ``x`` and ``g`` f32 (N, nf, H, W);
+    ``rdbs`` the packed RDBs; ``kept`` = ``(ins, cats)`` from
+    :func:`rrdb_forward_kept_f32`; ``scratch`` the card's workspace
+    (:func:`scratch_bytes_f32`, made here if None). Returns ``(dx,
+    grads)``: dx channels-last f32, grads flat as :func:`flat_grads` (in
+    ``out`` if given). Kernel launches count in ``rrdb_bwd_f32.launches``."""
+    if not tf32_widths(rdbs):
+        return rrdb_bwd_f32_first(x, g, rdbs, pulls, kept, out)
+    _, cats = kept
+    _check_f32_args(x, g, rdbs, cats)
+    if out is None:
+        out = torch.empty(3 * RDB_GRAD_NUMEL, dtype=torch.float32, device=x.device)
+    gv = nhwc(g)
+    if x.is_cuda:
+        dx = rrdb_bwd_tf32_cuda(gv.contiguous(), pulls, [c.contiguous() for c in cats], out, scratch)
+        rrdb_bwd_f32.launches += RRDB_BWD_F32_KERNELS
+    elif x.device.type == "cpu":
+        dx = rrdb_bwd_tf32_plan(gv, rdbs, pulls, cats, out, K3Launches())
+    else:
+        raise ValueError(f"no RRDB backward for device {x.device}")
+    return dx.permute(0, 3, 1, 2), out
+
+
 rrdb_bwd_f32.launches = 0
-# Kernel launches of one RRDB's backward on the f32 route.
-RRDB_BWD_F32_KERNELS = 3 * (5 + 5 * WGRAD_KERNELS)
 
 
 def rrdb_forward_kept_f32(x: torch.Tensor, rdbs: Sequence[PackedRDB]):
@@ -522,7 +856,12 @@ class TrunkFunction(torch.autograd.Function):
         pulls = scratch = None
         if g.is_cuda and kernel_route(g.dtype) == "f32":
             g = g.contiguous(memory_format=torch.channels_last)
-            pulls = pack_rdb_pulls_f32(ctx.convs, ctx.sources)
+            if tf32_widths(ctx.packed[0]):
+                pulls = pack_rdb_pulls_tf32(ctx.convs, ctx.sources)
+                n, _, h, w = g.shape
+                scratch = torch.empty(scratch_bytes_f32(n, h, w), dtype=torch.uint8, device=g.device)
+            else:
+                pulls = pack_rdb_pulls_f32(ctx.convs, ctx.sources)
         elif g.is_cuda:
             g = g.contiguous(memory_format=torch.channels_last)
             pulls = pack_rdb_pulls(ctx.convs, ctx.dtype, ctx.sources)

@@ -26,14 +26,21 @@ The first design (``csrc/conv_bwd.cuh``, 17 mma.sync launches, NCHW)
 stays as :func:`tail_bwd_first_cuda`, which no path of the port calls:
 the card's checks time the new design against it.
 
-In f32 (:func:`tail_bwd_f32`) the backward follows :func:`tail_bwd_plain`
-with the f32 route's two kernels: the recompute (:func:`..tail.tail_f32`'s
-first three launches), then per conv from conv_last down one
-:func:`.conv_f32.conv_f32_wgrad` (through x2 for the upsample-convs) and
-one :func:`.conv_f32.conv_f32_fwd` of the adjoint (flipped, transposed
-kernel) with the leaky mask of the kept activation in its epilogue, the
-upsample-convs' adjoints at the high resolution with their 2x2 sums
-(the adjoint of nearest x2) taken in the same launch. All in f32.
+In f32 (:func:`tail_bwd_f32`) at nf 64 on the card the backward is one
+ctypes call on the 3xTF32 ``wgmma`` kernel
+(``csrc/conv_frame_tf32.cu:tail_backward_tf32``, design in
+``csrc/conv_bwd_tf32_wgmma.cuh``, :data:`TAIL_BWD_F32_KERNELS` launches):
+the recompute (K4's stages), conv_last's weight grad and masked adjoint
+(two thin kernels: 3 cotangent channels), hr_conv's masked adjoint, the
+upsample-convs' adjoints over the phase planes of their cotangent (the
+4-phase kernel's 3x3 adjoint, s2d), the weight grads of hr_conv and, per
+phase, of the upsample-convs in one launch, and a reduce that folds the
+phases back (``fused_upsample_conv_kernel_adjoint``).
+:func:`tail_bwd_tf32_plan` is that sequence with each launch pluggable
+(their plain versions on the CPU). At other widths the first design runs
+(:func:`tail_bwd_f32_first`: per conv a :func:`.conv_f32.conv_f32_wgrad`
+and a :func:`.conv_f32.conv_f32_fwd` of the adjoint, the SIMT kernels,
+the upsample-convs at the high resolution). All in f32.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ import torch.nn.functional as F
 
 from master_thesis_tpu_torch import _build
 from master_thesis_tpu_torch.models.nn_ext import leaky_relu, pixel_shuffle_2x
-from master_thesis_tpu_torch.ops import conv_bwd, fragments
+from master_thesis_tpu_torch.ops import conv_bwd, conv_stack, fragments, rrdb_bwd
 from master_thesis_tpu_torch.ops import rrdb as rrdb_ops
 from master_thesis_tpu_torch.ops.conv_f32 import (
     WGRAD_KERNELS,
@@ -66,8 +73,10 @@ from master_thesis_tpu_torch.ops.tail import (
     pack_tail,
     _check_f32,
     tail,
+    tail_f32_plan,
     tail_f32_stages,
     tail_flops,
+    tail_stage_tf32_plain,
 )
 
 # The tail's parameters in the order the Function takes them and returns
@@ -362,17 +371,19 @@ def pack_tail_bwd_f32(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {f"{name}_adj": adjoint_hwio(p[f"{name}_oihw"]) for name in ("up1", "up2", "hr", "last")}
 
 
-def tail_bwd_f32(
+def tail_bwd_f32_first(
     x: torch.Tensor, g: torch.Tensor, p: Dict[str, torch.Tensor], adj: Dict[str, torch.Tensor]
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The tail's backward on K6's f32 route (``tail_bwd_pallas`` with f32
-    weights): the recompute (3 launches), then for conv_last, hr_conv,
-    upconv2, upconv1 a weight grad and an adjoint (module docstring). ``x``
+    """K6's first f32 design, on the SIMT kernels (the route at widths other
+    than nf 64, and on the card beside :func:`tail_bwd_f32` in
+    chip_smoke.py): the
+    recompute (3 launches), then for conv_last, hr_conv, upconv2, upconv1 a
+    weight grad and an adjoint on the SIMT kernels (module docstring). ``x``
     f32 ``(N, nf, h, w)`` and ``g`` ``(N, 3, 4h, 4w)``, any layout; ``p``
     from ``pack_tail`` in f32, ``adj`` from :func:`pack_tail_bwd_f32`.
     Returns a channels-last ``dx`` and the f32 grads keyed by
     :data:`PARAM_NAMES`. The kernels for CUDA tensors, their plain versions
-    for CPU ones; launches count in ``tail_bwd_f32.launches``."""
+    for CPU ones; launches count in ``tail_bwd_f32_first.launches``."""
     _check_f32(x, p)
     n, nf, h, w = x.shape
     if g.shape != (n, 3, 4 * h, 4 * w) or g.dtype != x.dtype or g.device != x.device:
@@ -394,14 +405,270 @@ def tail_bwd_f32(
     conv_f32_wgrad(xv, d, grads["up1_w"], grads["up1_b"], up=True)
     dx = conv_f32_fwd(d, adj["up1_adj"], torch.empty((n, h, w, nf), **f32), pool=True)
     if x.is_cuda:
+        tail_bwd_f32_first.launches += TAIL_BWD_F32_FIRST_KERNELS
+    return dx.permute(0, 3, 1, 2), grads
+
+
+tail_bwd_f32_first.launches = 0
+# Kernel launches of one tail_bwd_f32_first call: the recompute (3), four
+# adjoints, four weight grads.
+TAIL_BWD_F32_FIRST_KERNELS = 3 + 4 + 4 * WGRAD_KERNELS
+# Kernel launches of one K6 call on the 3xTF32 kernel: the recompute (3),
+# conv_last's weight grad and adjoint (2), three adjoints, the weight
+# grads, the reduce.
+TAIL_BWD_F32_KERNELS = 3 + 2 + 3 + 1 + 1
+_ADJ_TF32_NUMEL = {"hr_adj_tf32": 2 * 9 * 128 * KERNEL_NF, "up2_adj_tf32": 2 * 9 * 128 * 4 * KERNEL_NF,
+                   "up1_adj_tf32": 2 * 9 * 128 * 4 * KERNEL_NF}
+
+
+def _adjoint_oihw(p: Dict[str, torch.Tensor], name: str) -> torch.Tensor:
+    """The adjoint conv's OIHW kernel (transposed, flipped): hr_conv's
+    (64, 64, 3, 3); an upsample-conv's over its cotangent's phase planes,
+    the 4-phase kernel's, (64, 256, 3, 3), input channels (a, b, o)."""
+    w = p["hr_oihw"] if name == "hr" else p[f"{name}_fused"]
+    return w.float().transpose(0, 1).flip(2, 3)
+
+
+def pack_tail_bwd_tf32(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The operands of K6's adjoints on the 3xTF32 kernel (conv mode,
+    ``fragments.wgmma_tf32_matrix`` of :func:`_adjoint_oihw`), from
+    ``pack_tail``'s f32 ``p`` at nf 64: ``hr_adj_tf32``, ``up2_adj_tf32``,
+    ``up1_adj_tf32``."""
+    return {f"{name}_adj_tf32": fragments.wgmma_tf32_matrix(_adjoint_oihw(p, name)).contiguous()
+            for name in ("hr", "up2", "up1")}
+
+
+def k6_config(n: int, h: int, w: int, sms: int = rrdb_bwd.DEFAULT_SMS) -> Tuple[int, ...]:
+    """One K6 call's tiles (``ft::K6Cfg``: upconv1 and upconv2 in phase
+    mode, hr_conv (and its adjoint) at 4h x 4w, upconv2's and upconv1's
+    adjoints at 2h x 2w and h x w, each ``(frames, rows, cols, halves)`` of
+    ``conv_stack.tf32_tile``) and its weight grads' K-splits (hr_conv,
+    upconv2, upconv1)."""
+    tiles = [conv_stack.tf32_tile("phase", n, h, w, 3, 4 * KERNEL_NF, 0, h, 0),
+             conv_stack.tf32_tile("phase", n, 2 * h, 2 * w, 3, 4 * KERNEL_NF, 0, 2 * h, 0)]
+    tiles += [conv_stack.tf32_tile("conv", n, s * h, s * w, 3, KERNEL_NF, 0, s * h, 0) for s in (4, 2, 1)]
+    ks = rrdb_bwd.wgrad_splits([(2, n * 4 * h * -(-4 * w // 32), 3), (8, n * 2 * h * -(-2 * w // 32), 2),
+                                (8, n * h * -(-w // 32), 2)], sms)
+    return tuple(v for t in tiles for v in t) + tuple(ks)
+
+
+def _phase_planes(t: torch.Tensor) -> torch.Tensor:
+    """NHWC ``(N, 2h, 2w, C)`` -> its phase planes as NCHW ``(N, 4 C, h,
+    w)``, channels ``(a, b, c)``: pixel (2y + a, 2x + b)."""
+    n, h2, w2, c = t.shape
+    return t.reshape(n, h2 // 2, 2, w2 // 2, 2, c).permute(0, 2, 4, 5, 1, 3).reshape(n, 4 * c, h2 // 2, w2 // 2)
+
+
+def fold_phase_grads(v: torch.Tensor) -> torch.Tensor:
+    """The fold-back of K6's reduce: ``v[a, b, ti, tj]`` (each ``(O, C)``),
+    the 4-phase kernel's grad at phase (a, b)'s taps (a + ti, b + tj) of its
+    3x3 window, -> the grad of the 3x3 kernel applied after nearest x2,
+    OIHW: ``dW[:, :, ki, kj] = sum_(a, b) v[a, b, ti, tj]`` with ``ti =
+    (a + ki + 1) // 2 - a``, ``tj`` likewise (the adjoint of
+    ``fused_upsample_conv_kernel``)."""
+    o, c = v.shape[-2:]
+    out = torch.zeros((o, c, 3, 3), dtype=v.dtype, device=v.device)
+    for ki in range(3):
+        for kj in range(3):
+            for a in range(2):
+                for b in range(2):
+                    out[:, :, ki, kj] += v[a, b, (a + ki + 1) // 2 - a, (b + kj + 1) // 2 - b]
+    return out
+
+
+class K6Launches:
+    """The launches of :func:`tail_bwd_tf32_plan`, their plain versions
+    (any device); the CPU tests substitute emulations of the kernel.
+
+    - ``stage(k, x, p, out)``: K4's stage k (the recompute);
+    - ``last_wgrad(g, h3)``: conv_last's weight and bias grad sum rows
+      ``(rows, 27 x 64 + 3)`` (OIHW, then the bias);
+    - ``last_adj(g, w, h3)``: conv_last's adjoint masked by h3, in place
+      over h3; the bias sum rows ``(rows, 64)``;
+    - ``adj(mat, w, x, out, m=None, s2d=False)``: a conv of NHWC ``x`` (with
+      ``s2d`` its phase planes) into ``out`` with ``mat`` / its exact OIHW
+      kernel ``w``, masked by ``m``; the bias sum rows (or None);
+    - ``wgrad(jobs)``: each job's item slots ``(ks, 9, 64, 32)``.
+    """
+
+    def stage(self, k, x, p, out):
+        return tail_stage_tf32_plain(k, x, p, out)
+
+    def last_wgrad(self, g, h3):
+        dw = torch.nn.grad.conv2d_weight(h3.permute(0, 3, 1, 2), (3, KERNEL_NF, 3, 3), g.permute(0, 3, 1, 2),
+                                         padding=1)
+        return torch.cat([dw.reshape(-1), g.sum(dim=(0, 1, 2))]).view(1, -1)
+
+    def last_adj(self, g, w, h3):
+        d = F.conv2d(g.permute(0, 3, 1, 2), w.transpose(0, 1).flip(2, 3), padding=1).permute(0, 2, 3, 1)
+        v = _mask(h3, d)
+        h3.copy_(v)
+        return v.sum(dim=(0, 1, 2)).view(1, -1)
+
+    def adj(self, mat, w, x, out, m=None, s2d=False):
+        xin = _phase_planes(x) if s2d else x.permute(0, 3, 1, 2)
+        v = F.conv2d(xin, w, padding=1).permute(0, 2, 3, 1)
+        if m is not None:
+            v = _mask(m, v)
+        out.copy_(v)
+        return None if m is None else v.sum(dim=(0, 1, 2)).view(1, -1)
+
+    def wgrad(self, jobs):
+        return [rrdb_bwd.wgrad_job_plain(j).unsqueeze(0) for j in jobs]
+
+
+def k6_reduce(slots, brows, lrows, out: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """K6's reduce: hr_conv's jobs' slots (``slots[0:2]``, the source's
+    channel halves) added in order into hr_conv's weight grad, the
+    upsample-convs' (``slots[2:10]`` upconv2, ``slots[10:18]`` upconv1;
+    phase-major, halves inner) per phase then folded
+    (:func:`fold_phase_grads`); the bias rows (hr_b, up2_b, up1_b) and
+    conv_last's rows summed in order. ``out`` flat, :data:`PARAM_NAMES`
+    order; returns :func:`split_grads` of it."""
+    grads = split_grads(out)
+
+    def whole(js):  # a (ks, 9, 64, 32) slot per source half -> (9, 64, 64)
+        return torch.cat([rrdb_bwd.slot_sums(s) for s in js], dim=2)
+
+    grads["hr_w"].copy_(whole(slots[0:2]).view(3, 3, 64, 64).permute(2, 3, 0, 1))
+    for name, off in (("up2", 2), ("up1", 10)):
+        v = torch.stack([whole(slots[off + 2 * ph: off + 2 * ph + 2]).view(3, 3, 64, 64)[:2, :2]
+                         for ph in range(4)]).view(2, 2, 2, 2, 64, 64)
+        grads[f"{name}_w"].copy_(fold_phase_grads(v))
+
+    def rows_sum(rows):
+        acc = torch.zeros_like(rows[0])
+        for row in rows:
+            acc = acc + row
+        return acc
+
+    for key, rows in zip(("hr_b", "up2_b", "up1_b"), brows):
+        grads[key].copy_(rows_sum(rows)[:64])
+    last = rows_sum(lrows)
+    grads["last_w"].copy_(last[:27 * 64].view(3, 64, 3, 3))
+    grads["last_b"].copy_(last[27 * 64: 27 * 64 + 3])
+    return grads
+
+
+def tail_bwd_tf32_plan(x: torch.Tensor, g: torch.Tensor, p: Dict[str, torch.Tensor], adj: Dict[str, torch.Tensor],
+                       out: torch.Tensor, launches: K6Launches, ks=(1, 1, 1)):
+    """K6's f32 route on the 3xTF32 kernel as the launches
+    ``csrc/conv_bwd_tf32_wgmma.cuh:tail_backward_tf32`` issues (its note),
+    each through ``launches``: NHWC f32 ``x`` (N, h, w, 64) and ``g`` (N,
+    4h, 4w, 3), ``p`` from ``pack_tail`` (f32), ``adj`` from
+    :func:`pack_tail_bwd_tf32`, the grads into ``out`` (flat,
+    :data:`PARAM_NAMES` order). Returns ``(dx NHWC, grads)``."""
+    n, h, w, c = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    hs = []
+    src = x
+    for k, s in enumerate((2, 4, 4)):
+        o = torch.empty((n, s * h, s * w, c), **f32)
+        src = launches.stage(k, src.contiguous(), p, o)
+        hs.append(src)
+    h1, h2, h3 = hs
+    lrows = launches.last_wgrad(g, h3)
+    brows = [launches.last_adj(g, p["last_oihw"].float(), h3)]  # h3 now hr_conv's dP
+    dp2 = torch.empty_like(h2)
+    brows.append(launches.adj(adj["hr_adj_tf32"], _adjoint_oihw(p, "hr"), h3, dp2, m=h2))
+    dp1 = torch.empty_like(h1)
+    brows.append(launches.adj(adj["up2_adj_tf32"], _adjoint_oihw(p, "up2"), dp2, dp1, m=h1, s2d=True))
+    dx = torch.empty_like(x)
+    launches.adj(adj["up1_adj_tf32"], _adjoint_oihw(p, "up1"), dp1, dx, s2d=True)
+    jobs = [rrdb_bwd.WgJob(h3, h2, 0, 32 * half, ks[0]) for half in range(2)]
+    for k, (cot, s) in enumerate(((dp2, h1), (dp1, x)), start=1):
+        jobs += [rrdb_bwd.WgJob(cot, s, 0, 32 * half, ks[k], (ph >> 1, ph & 1)) for ph in range(4)
+                 for half in range(2)]
+    return dx, k6_reduce(launches.wgrad(jobs), brows, lrows, out)
+
+
+def _k6_lib():
+    lib = conv_stack._tf32_lib()
+    if not hasattr(lib, "_k6_bound"):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.tail_backward_tf32.argtypes = [vp] * 9 + [ci] * 3 + [vp]
+        lib.tail_backward_tf32.restype = ci
+        lib.tail_backward_tf32_scratch.argtypes = [vp] + [ci] * 3
+        lib.tail_backward_tf32_scratch.restype = ctypes.c_longlong
+        for fn in (lib.tail_backward_tf32_launches, lib.tail_backward_tf32_grads):
+            fn.argtypes = []
+            fn.restype = ci
+        if (lib.tail_backward_tf32_launches(), lib.tail_backward_tf32_grads()) != (TAIL_BWD_F32_KERNELS, GRAD_NUMEL):
+            raise RuntimeError("csrc/conv_bwd_tf32_wgmma.cuh disagrees with ops/tail_bwd.py on K6's f32 call")
+        lib._k6_bound = True
+    return lib
+
+
+def tail_bwd_tf32_cuda(x: torch.Tensor, g: torch.Tensor, p: Dict[str, torch.Tensor],
+                       adj: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail's f32 backward through K6's 3xTF32 call
+    (``csrc/conv_frame_tf32.cu:tail_backward_tf32``, one ctypes call,
+    :data:`TAIL_BWD_F32_KERNELS` launches) on CUDA tensors: ``x`` NHWC f32
+    (N, h, w, 64) and ``g`` NHWC (N, 4h, 4w, 3), both contiguous; ``p``
+    from ``pack_tail`` (f32, nf 64), ``adj`` from :func:`pack_tail_bwd_tf32`.
+    Returns ``(dx NHWC, flat grads)`` (:data:`PARAM_NAMES` order)."""
+    n, h, w, c = x.shape
+    dev = x.device
+    if (not x.is_cuda or x.dtype != torch.float32 or c != KERNEL_NF or not x.is_contiguous()
+            or g.shape != (n, 4 * h, 4 * w, 3) or g.dtype != torch.float32 or g.device != dev
+            or not g.is_contiguous()):
+        raise ValueError(f"x must be contiguous NHWC f32 (N, h, w, {KERNEL_NF}) on the card and g contiguous "
+                         "NHWC f32 (N, 4h, 4w, 3) on its device")
+    mats = [p.get(k) for k in ("up1_tf32", "up1_b", "up2_tf32", "up2_b", "hr_tf32", "hr_b")]
+    adjs = [adj.get(f"{k}_adj_tf32") for k in ("hr", "up2", "up1")]
+    if any(t is None or t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() for t in mats + adjs) \
+            or any(adjs[i].numel() != _ADJ_TF32_NUMEL[f"{k}_adj_tf32"] for i, k in enumerate(("hr", "up2", "up1"))):
+        raise ValueError("p must be packed in f32 at nf 64 (pack_tail) and adj by pack_tail_bwd_tf32, on x's device")
+    last_w = p["last_oihw"].float().contiguous()
+    lib = _k6_lib()
+    cfg = (ctypes.c_int * 23)(*k6_config(n, h, w, rrdb_bwd._sms()))
+    scratch = torch.empty(lib.tail_backward_tf32_scratch(cfg, n, h, w), dtype=torch.uint8, device=dev)
+    dx = torch.empty_like(x)
+    flat = torch.empty(GRAD_NUMEL, dtype=torch.float32, device=dev)
+    rc = lib.tail_backward_tf32(x.data_ptr(), g.data_ptr(), (ctypes.c_void_p * 6)(*(t.data_ptr() for t in mats)),
+                                (ctypes.c_void_p * 3)(*(t.data_ptr() for t in adjs)), last_w.data_ptr(), dx.data_ptr(),
+                                flat.data_ptr(), scratch.data_ptr(), cfg, n, h, w,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "tail_backward_tf32")
+    tail_bwd_tf32_cuda.launches += 1
+    return dx, flat
+
+
+tail_bwd_tf32_cuda.launches = 0
+
+
+def tail_bwd_f32(
+    x: torch.Tensor, g: torch.Tensor, p: Dict[str, torch.Tensor], adj: Dict[str, torch.Tensor]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The tail's backward on K6's f32 route (``tail_bwd_pallas`` with f32
+    weights): at nf 64 on the 3xTF32 kernel (``adj`` from
+    :func:`pack_tail_bwd_tf32`; one :func:`tail_bwd_tf32_cuda` call on the
+    card, :func:`tail_bwd_tf32_plan` with the plain launches on the CPU),
+    at other widths the first design (:func:`tail_bwd_f32_first`, ``adj``
+    from :func:`pack_tail_bwd_f32`). ``x`` f32 ``(N, nf, h, w)`` and ``g``
+    ``(N, 3, 4h, 4w)``, any layout; ``p`` from ``pack_tail`` in f32.
+    Returns a channels-last ``dx`` and the f32 grads keyed by
+    :data:`PARAM_NAMES`; kernel launches count in
+    ``tail_bwd_f32.launches``."""
+    if tail_f32_plan(p) != "tf32":
+        return tail_bwd_f32_first(x, g, p, adj)
+    _check_f32(x, p)
+    n, nf, h, w = x.shape
+    if g.shape != (n, 3, 4 * h, 4 * w) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must be an f32 ({n}, 3, {4 * h}, {4 * w}) tensor on x's device")
+    xv, gv = nhwc(x), nhwc(g)
+    if x.is_cuda:
+        dx, flat = tail_bwd_tf32_cuda(xv.contiguous(), gv.contiguous(), p, adj)
         tail_bwd_f32.launches += TAIL_BWD_F32_KERNELS
+        return dx.permute(0, 3, 1, 2), split_grads(flat)
+    if x.device.type != "cpu":
+        raise ValueError(f"no tail backward for device {x.device}")
+    flat = torch.empty(GRAD_NUMEL, dtype=torch.float32)
+    dx, grads = tail_bwd_tf32_plan(xv, gv, p, adj, flat, K6Launches())
     return dx.permute(0, 3, 1, 2), grads
 
 
 tail_bwd_f32.launches = 0
-# Kernel launches of one tail_bwd_f32 call: the recompute (3), four
-# adjoints, four weight grads.
-TAIL_BWD_F32_KERNELS = 3 + 4 + 4 * WGRAD_KERNELS
 
 
 def tail_bwd(
@@ -411,7 +678,8 @@ def tail_bwd(
     route, :func:`tail_bwd_f32`), the plain version for a CPU tensor."""
     if x.is_cuda:
         if kernel_route(x.dtype) == "f32":
-            return tail_bwd_f32(x, g, p, pack_tail_bwd_f32(p))
+            return tail_bwd_f32(x, g, p, pack_tail_bwd_tf32(p) if tail_f32_plan(p) == "tf32"
+                                else pack_tail_bwd_f32(p))
         return tail_bwd_cuda(x, g, p, pack_tail_bwd(p))
     if x.device.type != "cpu":
         raise ValueError(f"no tail backward for device {x.device}")

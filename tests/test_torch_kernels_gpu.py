@@ -1169,3 +1169,68 @@ def test_rdb_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         rrdb.rdb_conv_tf32_cuda(0, nchw[..., :nf], p, cat[..., nf:nf + gc])
     with pytest.raises(ValueError, match="residual"):
         rrdb.rdb_conv_tf32_cuda(4, cat, p, torch.empty(1, 16, 16, nf, device=cuda), r=cat[:, :8, :, :nf])
+
+
+def _rel(got, want):
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 16, 16), (2, 13, 40), (3, 64, 64)])
+def test_rrdb_bwd_f32_is_one_tf32_call_and_matches_f64(cuda, n, h, w):
+    """K3's f32 route at nf 64 / gc 32: one ``rrdb_backward_tf32`` call of
+    18 launches (no SIMT launch), dx and every grad within 1e-5 relative L2
+    of the plain backward in f64 over the kept activations, bit-identical
+    on a second run; the first design beside it agrees."""
+    from master_thesis_tpu_torch.ops import conv_f32, rrdb_bwd
+
+    rng = np.random.RandomState(n + h)
+    convs = [[(wt.to(cuda), b.to(cuda)) for wt, b in
+              (_conv(rng, ci, co, (1.0 / (9 * ci)) ** 0.5) for ci, co in rrdb._widths(64, 32))] for _ in range(3)]
+    src = rrdb._sources(convs, torch.float32)
+    rdbs = rrdb.pack_rdbs(convs, torch.float32, src)
+    x = torch.randn(n, 64, h, w, device=cuda).contiguous(memory_format=torch.channels_last)
+    g = torch.randn(n, 64, h, w, device=cuda).contiguous(memory_format=torch.channels_last)
+    _, kept = rrdb_bwd.rrdb_forward_kept_f32(x, rdbs)
+    pulls = rrdb_bwd.pack_rdb_pulls_tf32(convs, src)
+    calls, simt = rrdb_bwd.rrdb_bwd_tf32_cuda.launches, conv_f32.conv_f32_fwd_cuda.launches
+    dx, flat = rrdb_bwd.rrdb_bwd_f32(x, g, rdbs, pulls, kept)
+    dx2, flat2 = rrdb_bwd.rrdb_bwd_f32(x, g, rdbs, pulls, kept)
+    torch.cuda.synchronize()
+    assert rrdb_bwd.rrdb_bwd_tf32_cuda.launches == calls + 2 and conv_f32.conv_f32_fwd_cuda.launches == simt
+    assert torch.equal(dx, dx2) and torch.equal(flat, flat2)
+    r64 = [rrdb.PackedRDB(p.w, p.b.double(), tuple(k.double() for k in p.kernels)) for p in rdbs]
+    hids = [c[..., 64:].permute(0, 3, 1, 2).double() for c in kept[1]]
+    want_dx, want = rrdb_bwd.rrdb_bwd_plain(x.double(), g.double(), r64, ([t.double() for t in kept[0]], hids))
+    assert _rel(dx, want_dx) <= 1e-5
+    for (dws, dbs), (wdws, wdbs) in zip(rrdb_bwd.rdb_grads(flat), want):
+        for k in range(5):
+            assert _rel(dws[k], wdws[k]) <= 1e-5 and _rel(dbs[k], wdbs[k]) <= 1e-5
+    fdx, fflat = rrdb_bwd.rrdb_bwd_f32_first(x, g, rdbs, rrdb_bwd.pack_rdb_pulls_f32(convs, src), kept)
+    assert _rel(fdx, want_dx) <= 1e-5 and _rel(fflat, rrdb_bwd.flat_grads(want)) <= 1e-5
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 6, 10), (2, 13, 7), (2, 64, 64)])
+def test_tail_bwd_f32_is_one_tf32_call_and_matches_f64(cuda, n, h, w):
+    """K6's f32 route at nf 64: one ``tail_backward_tf32`` call of 10
+    launches (no SIMT launch), dx and every grad within 1e-5 relative L2 of
+    the plain backward in f64 over the same recompute, bit-identical on a
+    second run."""
+    from master_thesis_tpu_torch.ops import conv_f32, tail_bwd
+
+    rng = np.random.RandomState(n + h)
+    convs = [_conv(rng, 64, co, (1.0 / (9 * 64)) ** 0.5) for co in (64, 64, 64, 3)]
+    p = tail.pack_tail(*[(wt.to(cuda), b.to(cuda)) for wt, b in convs], torch.float32)
+    x = torch.randn(n, 64, h, w, device=cuda).contiguous(memory_format=torch.channels_last)
+    g = torch.randn(n, 3, 4 * h, 4 * w, device=cuda).contiguous(memory_format=torch.channels_last)
+    calls, simt = tail_bwd.tail_bwd_tf32_cuda.launches, conv_f32.conv_f32_wgrad_cuda.launches
+    dx, grads = tail_bwd.tail_bwd(x, g, p)
+    dx2, grads2 = tail_bwd.tail_bwd(x, g, p)
+    torch.cuda.synchronize()
+    assert tail_bwd.tail_bwd_tf32_cuda.launches == calls + 2 and conv_f32.conv_f32_wgrad_cuda.launches == simt
+    assert torch.equal(dx, dx2) and all(torch.equal(grads[k], grads2[k]) for k in grads)
+    hid = [t.permute(0, 3, 1, 2).double() for t in tail.tail_f32_stages(conv_f32.nhwc(x), p, keep=3)]
+    p64 = tail.pack_tail(*[(wt.to(cuda).double(), b.to(cuda).double()) for wt, b in convs], torch.float64)
+    want_dx, want = tail_bwd.tail_bwd_plain(x.double(), g.double(), p64, hidden=hid)
+    assert _rel(dx, want_dx) <= 1e-5
+    for k in tail_bwd.PARAM_NAMES:
+        assert _rel(grads[k], want[k]) <= 1e-5, k

@@ -67,7 +67,8 @@ def _group(a, b):
 
 
 def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape=None, hin=None, rows=None, x_row0=0,
-                    out_row0=0, addr=None, plant=0, seed=0, out=None, r=None, r2=None):
+                    out_row0=0, addr=None, plant=0, seed=0, out=None, r=None, r2=None, m=None, rs=1.0,
+                    out2=None, sums=None):
     """One launch of ``csrc/conv_frame_tf32_wgmma.cuh`` read through its
     descriptors, with ``conv_stack.tf32_launch``'s arguments (``x`` NHWC f32,
     contiguous or the first Cin channels of a wider buffer, ``mat`` the
@@ -103,13 +104,20 @@ def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape=None, hin=Non
     + r) + r2, each step one rounding, r and r2 whole frames read at the
     pixel), stored at (f // tg) sg + (f %
     tg) st + (y - out_row0) sr + x sp + o (phase mode: pixel (2y + a, 2x +
-    b) of channel o - 64 (2a + b), within the output rows). ``plant``
-    emulates ``-DTF32_PLANT``: 1 drops the two correction products, 2 the
-    corner tap (phase mode: tap (0, 0) of each phase; last and gc modes:
-    row of taps 0's dx 0 columns), 3 reads each tile's top halo row below a
-    frame's first row tile as zeros, 4 reads x's row 0 (the frame's row
-    x_row0) as zeros where x_row0 > 0, 5 (gc mode) loads the last chunk's
-    box from one chunk early."""
+    b) of channel o - 64 (2a + b), within the output rows). The backward's
+    epilogues (no bias: pass zeros): "mask", the sums where ``m`` (read at
+    the pixel) >= 0, else 0.2 of them; "dx", ``rs r + v`` in one rounding
+    (+ ``r2``), 0.2 of it also into ``out2`` (an NHWC view); each tile's
+    sums of the masked values (of 0.2 v) appended to ``sums`` where given
+    (the bias partial rows). An s2d launch is emulated over the phase
+    planes of its input (``tail_bwd._phase_planes``, NHWC): what its 5-D
+    map's boxes hold. ``plant`` emulates ``-DTF32_PLANT``: 1 drops the two
+    correction products, 2 the corner tap (phase mode: tap (0, 0) of each
+    phase; last and gc modes: row of taps 0's dx 0 columns), 3 reads each
+    tile's top halo row below a frame's first row tile as zeros, 4 reads
+    x's row 0 (the frame's row x_row0) as zeros where x_row0 > 0, 5 (gc
+    mode) loads the last chunk's box from one chunk early, 8 sets the mask
+    slope to 0.25."""
     n, x_rows, wd, cin = x.shape
     hin = x_row0 + x_rows if hin is None else hin
     r0, r1 = (0, (2 if mode == "phase" else 1) * hin) if rows is None else rows
@@ -154,10 +162,25 @@ def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape=None, hin=Non
     flat = torch.as_strided(out, (sum((sz - 1) * st for sz, st in zip(out.shape, out.stride())) + 1,), (1,))
     tg, sg, st, sr, sp = addr or (n, 0, out.stride(0), out.stride(1), out.stride(2))
     act = {"none": lambda v: v, "relu": torch.relu, "leaky": lambda v: torch.where(v >= 0, v, 0.2 * v)}[
-        "none" if epi == "resid" else epi]
+        "none" if epi in ("resid", "mask", "dx") else epi]
+    slope, mask = (0.25 if plant == 8 else 0.2), m
 
     def finish(v, f, yy, xx, outs):
         """v (K, len(outs)) at pixels (f, yy, xx): the epilogue after the bias."""
+        if epi == "mask":
+            v = torch.where(mask[f, yy, xx][:, outs] >= 0, v, slope * v)
+            if sums is not None:
+                sums.append(F.pad(v.sum(0), (int(outs[0]), 64 - int(outs[-1]) - 1)))
+            return v
+        if epi == "dx":
+            v = (torch.tensor(rs).double() * resid[0][f, yy, xx][:, outs].double() + v.double()).float()
+            if resid[1] is not None:
+                v = v + resid[1][f, yy, xx][:, outs]
+            if out2 is not None:
+                out2[f.view(-1, 1), yy.view(-1, 1), xx.view(-1, 1), outs.view(1, -1)] = 0.2 * v
+                if sums is not None:
+                    sums.append(F.pad((0.2 * v).sum(0), (int(outs[0]), 64 - int(outs[-1]) - 1)))
+            return v
         if epi != "resid":
             return act(v)
         for t in resid:
@@ -246,6 +269,63 @@ def _emulate_launch(x, mat, bias, *, mode, k, cout, epi, out_shape=None, hin=Non
                     o = torch.arange(n0 + 64 * mt, n0 + 64 * mt + 64)
                     store(acc + part + bias[o].view(1, -1, 1), 144 * half + cols, o)
     return out
+
+
+def _emulate_wgrad(job, plant=0):
+    """One job of ``csrc/conv_bwd_tf32_wgmma.cuh``'s weight-grad mode
+    (``rrdb_bwd.WgJob``): its item slots ``(ks, 9, 64, 32)``. Per tile (one
+    frame row x 32 pixels, the grid's columns past its width zero) the
+    cotangent's 64 channels and the source box (3 rows x 34 columns, zeros
+    outside the frame) are split into hi and lo (``fragments.tf32_split``);
+    the planes are the box's rows row0 + r, columns dx0 + dx + k (phase job
+    (a, b): row0 = a, dx0 = b, 2 x 2; else 3 x 3); warpgroup r's product
+    per k8 step is three exact groups (lo hi, hi lo, hi hi) each rounded to
+    f32 and added into a fresh partial sum a tile; item ks adds its tiles
+    ks, ks + KS, ... in order in f32. Tap slot 3 r + dx. ``plant`` 1 keeps
+    hi hi alone, 6 zeros slot 0, 7 zeros the last K-split's slots (what the
+    reduce then leaves out), 9 reads phase (1, 0)'s plane for phase
+    (0, 1)."""
+    if job.phase is None:
+        d, kt, row0, dx0 = job.cot[..., job.dc0: job.dc0 + 64], 3, 0, 0
+    else:
+        a, b = job.phase
+        row0, dx0, kt = a, b, 2
+        if plant == 9 and (a, b) == (0, 1):
+            a, b = 1, 0
+        d = job.cot[:, a::2, b::2, :64]
+    x = job.src[..., job.sc0: job.sc0 + 32]
+    n, h, w, _ = d.shape
+    tx = -(-w // 32)
+    a_t = F.pad(d, (0, 0, 0, 32 * tx - w)).reshape(n * h * tx, 32, 64).transpose(1, 2)  # (T, 64 o, 32 k)
+    xp = F.pad(x, (0, 0, 1, 32 * tx + 1 - w, 1, 1))  # (n, h + 2, 32 tx + 2, 32)
+    boxes = torch.stack([xp[:, y: y + 3, 32 * t: 32 * t + 34] for y in range(h) for t in range(tx)], dim=1)
+    boxes = boxes.reshape(n * h * tx, 3, 34, 32)
+    a_hi, a_lo = fragments.tf32_split(a_t)
+    parts = []
+    for r in range(kt):
+        planes = torch.cat([boxes[:, row0 + r, dx0 + dx: dx0 + dx + 32].transpose(1, 2) for dx in range(kt)], dim=1)
+        b_hi, b_lo = fragments.tf32_split(planes)  # (T, 32 kt, 32 k)
+        part = torch.zeros(a_t.shape[0], 64, 32 * kt)
+        for kk in range(4):
+            ks8 = slice(8 * kk, 8 * kk + 8)
+            groups = [] if plant == 1 else [_group(a_lo[..., ks8], b_hi[..., ks8].transpose(1, 2)),
+                                            _group(a_hi[..., ks8], b_lo[..., ks8].transpose(1, 2))]
+            for g in groups + [_group(a_hi[..., ks8], b_hi[..., ks8].transpose(1, 2))]:
+                part = part + g.float()
+        parts.append(part)
+    slots = torch.zeros(job.ks, 9, 64, 32)
+    for k in range(job.ks):
+        for r in range(kt):
+            acc = torch.zeros(64, 32 * kt)
+            for t in range(k, a_t.shape[0], job.ks):
+                acc = acc + parts[r][t]
+            for dx in range(kt):
+                slots[k, 3 * r + dx] = acc[:, 32 * dx: 32 * dx + 32]
+    if plant == 6:
+        slots[:, 0] = 0.0
+    if plant == 7 and job.ks > 1:
+        slots[-1] = 0.0
+    return slots
 
 
 def _emulate_tf32(x, w, b, relu, swap=False, plant=0, seed=0):
