@@ -40,6 +40,7 @@ from master_thesis_tpu_torch.ops import rrdb as rrdb_ops
 from master_thesis_tpu_torch.ops import tail as tail_ops
 from master_thesis_tpu_torch.ops.rrdb_bwd import TrunkFunction
 from master_thesis_tpu_torch.ops.tail_bwd import TailFunction
+from master_thesis_tpu_torch.runtime.spans import span
 
 _HEAD_STRIDES = (1, 1, 2, 1, 2)
 
@@ -148,13 +149,14 @@ class RRDBNet(nn.Module):
         key = tuple((p.data_ptr(), p._version) for p in self._kernel_params)
         if self._packed is None or key != self._packed_key:
             wb = lambda m: (m.weight, m.bias)
-            self._packed = (
-                rrdb_ops.pack_rrdb_trunk(self.rrdb_trunk, self.dtype),
-                tail_ops.pack_tail(
-                    wb(self.upconv1), wb(self.upconv2), wb(self.hr_conv),
-                    wb(self.conv_last), self.dtype,
-                ),
-            )
+            with span("chn.pack"):
+                self._packed = (
+                    rrdb_ops.pack_rrdb_trunk(self.rrdb_trunk, self.dtype),
+                    tail_ops.pack_tail(
+                        wb(self.upconv1), wb(self.upconv2), wb(self.hr_conv),
+                        wb(self.conv_last), self.dtype,
+                    ),
+                )
             self._packed_key = key
         return self._packed
 
@@ -172,23 +174,27 @@ class RRDBNet(nn.Module):
         if torch.is_grad_enabled() and self.conv_last.weight.requires_grad:
             return self.forward_train(x)
         trunk_w, tail_w = self.packed()
-        y = self.conv_first(x)
-        # The trunk's kernels take channels-last on the card (trunk_conv, a
-        # cuDNN conv, takes it as it is); the CPU path keeps NCHW.
-        y = y.contiguous(memory_format=torch.channels_last if y.is_cuda else torch.contiguous_format)
+        with span("chn.head"):
+            y = self.conv_first(x)
+            # The trunk's kernels take channels-last on the card (trunk_conv, a
+            # cuDNN conv, takes it as it is); the CPU path keeps NCHW.
+            y = y.contiguous(memory_format=torch.channels_last if y.is_cuda else torch.contiguous_format)
         trunk_banded, tail_banded = kernel_routes(y.shape[2], y.shape[3], self.nf, self.gc,
                                                   self.dtype.itemsize)
-        if trunk_band_rows is not None or trunk_banded:
-            trunk = rrdb_ops.rrdb_trunk_banded(y, trunk_w, trunk_band_rows or 0)
-        else:
-            trunk = rrdb_ops.rrdb_trunk(y, trunk_w)
-        # The sum of two channels-last tensors is channels-last: the tail
-        # takes it as it is on the card (no copy here), NCHW on the CPU.
-        layout = torch.channels_last if y.is_cuda else torch.contiguous_format
-        y = (y + self.trunk_conv(trunk)).contiguous(memory_format=layout)
-        if tail_band_rows is not None or tail_banded:
-            return tail_ops.tail_banded(y, tail_w, tail_band_rows or 0)
-        return tail_ops.tail(y, tail_w)
+        with span("chn.trunk"):
+            if trunk_band_rows is not None or trunk_banded:
+                trunk = rrdb_ops.rrdb_trunk_banded(y, trunk_w, trunk_band_rows or 0)
+            else:
+                trunk = rrdb_ops.rrdb_trunk(y, trunk_w)
+        with span("chn.trunk_conv"):
+            # The sum of two channels-last tensors is channels-last: the tail
+            # takes it as it is on the card (no copy here), NCHW on the CPU.
+            layout = torch.channels_last if y.is_cuda else torch.contiguous_format
+            y = (y + self.trunk_conv(trunk)).contiguous(memory_format=layout)
+        with span("chn.tail"):
+            if tail_band_rows is not None or tail_banded:
+                return tail_ops.tail_banded(y, tail_w, tail_band_rows or 0)
+            return tail_ops.tail(y, tail_w)
 
     def forward_modules(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """The module route: the reference's forward (model_chn.py:536-555)
@@ -213,15 +219,19 @@ class RRDBNet(nn.Module):
         forward: the kernels take them, and their cotangents come back, with
         no layout copy; the CPU path keeps NCHW."""
         layout = torch.channels_last if x.is_cuda else torch.contiguous_format
-        y = self.conv_first(x).contiguous(memory_format=layout)
-        trunk_params = [p for blk in self.rrdb_trunk for p in blk.parameters()]
-        trunk = TrunkFunction.apply(y, self.dtype, *trunk_params)
-        y = (y + self.trunk_conv(trunk)).contiguous(memory_format=layout)
-        tail_params = [
-            p for m in (self.upconv1, self.upconv2, self.hr_conv, self.conv_last)
-            for p in (m.weight, m.bias)
-        ]
-        return TailFunction.apply(y, self.dtype, *tail_params)
+        with span("chn.head"):
+            y = self.conv_first(x).contiguous(memory_format=layout)
+        with span("chn.trunk"):
+            trunk_params = [p for blk in self.rrdb_trunk for p in blk.parameters()]
+            trunk = TrunkFunction.apply(y, self.dtype, *trunk_params)
+        with span("chn.trunk_conv"):
+            y = (y + self.trunk_conv(trunk)).contiguous(memory_format=layout)
+        with span("chn.tail"):
+            tail_params = [
+                p for m in (self.upconv1, self.upconv2, self.hr_conv, self.conv_last)
+                for p in (m.weight, m.bias)
+            ]
+            return TailFunction.apply(y, self.dtype, *tail_params)
 
 
 def chn_infer_apply(
@@ -246,25 +256,28 @@ def chn_infer_apply(
     either forces its banded route, as the JAX functions' ``band_rows=``
     do.
     """
-    b, f, h, w, c = x_refs_aligned.shape
-    mean = constant(IMAGENET_MEAN, x_target.dtype, x_target.device)
-    std = constant(IMAGENET_STD, x_target.dtype, x_target.device)
-    x_t = x_target[:, None].expand(b, f, h, w, c)
-    v_t = v_target[:, None].expand(b, f, h, w, 1)
-    nn_input = torch.cat(
-        [(x_t - mean) / std, (x_refs_aligned - mean) / std, v_t, v_refs_aligned, v_maps],
-        dim=-1,
-    ).reshape(b * f, h, w, 9)
-    nn_input = nn_input.permute(0, 3, 1, 2).to(chn.dtype).contiguous()
-    if net is None:
-        nn_output = chn.nn(nn_input, trunk_band_rows, tail_band_rows)
-    else:
-        nn_output = net(nn_input)
-    # The tail's output on the card is channels-last: an NHWC view, no copy.
-    nn_output = nn_output.permute(0, 2, 3, 1).reshape(b, f, h, w, 3)
-    out_dtype = torch.promote_types(x_target.dtype, torch.float32)
-    y_hat = torch.clamp(nn_output.to(out_dtype) * std + mean, 0.0, 1.0)
-    y_hat_comp = v_t * x_t + (1 - v_t) * y_hat
+    with span("chn"):
+        b, f, h, w, c = x_refs_aligned.shape
+        with span("chn.input"):
+            mean = constant(IMAGENET_MEAN, x_target.dtype, x_target.device)
+            std = constant(IMAGENET_STD, x_target.dtype, x_target.device)
+            x_t = x_target[:, None].expand(b, f, h, w, c)
+            v_t = v_target[:, None].expand(b, f, h, w, 1)
+            nn_input = torch.cat(
+                [(x_t - mean) / std, (x_refs_aligned - mean) / std, v_t, v_refs_aligned, v_maps],
+                dim=-1,
+            ).reshape(b * f, h, w, 9)
+            nn_input = nn_input.permute(0, 3, 1, 2).to(chn.dtype).contiguous()
+        if net is None:
+            nn_output = chn.nn(nn_input, trunk_band_rows, tail_band_rows)
+        else:
+            nn_output = net(nn_input)
+        with span("chn.output"):
+            # The tail's output on the card is channels-last: an NHWC view, no copy.
+            nn_output = nn_output.permute(0, 2, 3, 1).reshape(b, f, h, w, 3)
+            out_dtype = torch.promote_types(x_target.dtype, torch.float32)
+            y_hat = torch.clamp(nn_output.to(out_dtype) * std + mean, 0.0, 1.0)
+            y_hat_comp = v_t * x_t + (1 - v_t) * y_hat
     return y_hat, y_hat_comp
 
 

@@ -36,6 +36,7 @@ from master_thesis_tpu_torch.models.nn_ext import Conv, uniform_
 from master_thesis_tpu_torch.models.vgg import IMAGENET_MEAN, IMAGENET_STD
 from master_thesis_tpu_torch.ops.grid_sample import affine_grid, grid_sample
 from master_thesis_tpu_torch.ops.interp import resize_hw
+from master_thesis_tpu_torch.runtime.spans import span
 
 
 class _ConvBlock(nn.Module):
@@ -137,24 +138,26 @@ class CPN(nn.Module):
         """``x_target (B, H, W, 3)``, ``m_target (B, H, W, 1)``,
         ``x_refs (B, F, H, W, 3)``, ``m_refs (B, F, H, W, 1)`` ->
         ``(x_aligned, v_aligned, v_maps)`` shaped like the refs."""
-        b, f, h, w, c = x_refs.shape
-        x_refs_flat = x_refs.reshape(b * f, h, w, c)
-        m_refs_flat = m_refs.reshape(b * f, h, w, 1)
+        with span("align"):
+            b, f, h, w, c = x_refs.shape
+            x_refs_flat = x_refs.reshape(b * f, h, w, c)
+            m_refs_flat = m_refs.reshape(b * f, h, w, 1)
 
-        feat_t = self.A_Encoder(x_target, m_target)
-        feat_r = self.A_Encoder(x_refs_flat, m_refs_flat)
-        feat_t_rep = feat_t[:, None].expand(b, f, *feat_t.shape[1:]).reshape(feat_r.shape)
+            feat_t = self.A_Encoder(x_target, m_target)
+            feat_r = self.A_Encoder(x_refs_flat, m_refs_flat)
+            feat_t_rep = feat_t[:, None].expand(b, f, *feat_t.shape[1:]).reshape(feat_r.shape)
 
-        theta = self.A_Regressor(feat_t_rep, feat_r)
-        grid = affine_grid(theta, (h, w), align_corners=False)
-        warped = grid_sample(
-            torch.cat([x_refs_flat, 1.0 - m_refs_flat], dim=-1), grid,
-            align_corners=False,
-        )
-        x_aligned = warped[..., :c].reshape(b, f, h, w, c)
-        v_aligned = warped[..., c:].reshape(b, f, h, w, 1)
-        v_aligned = (v_aligned > 0.5).to(x_refs.dtype)
-        v_maps = torch.clamp(v_aligned - (1.0 - m_target[:, None]), 0.0, 1.0)
+            theta = self.A_Regressor(feat_t_rep, feat_r)
+            with span("align.warp"):
+                grid = affine_grid(theta, (h, w), align_corners=False)
+                warped = grid_sample(
+                    torch.cat([x_refs_flat, 1.0 - m_refs_flat], dim=-1), grid,
+                    align_corners=False,
+                )
+                x_aligned = warped[..., :c].reshape(b, f, h, w, c)
+                v_aligned = warped[..., c:].reshape(b, f, h, w, 1)
+                v_aligned = (v_aligned > 0.5).to(x_refs.dtype)
+                v_maps = torch.clamp(v_aligned - (1.0 - m_target[:, None]), 0.0, 1.0)
         return x_aligned, v_aligned, v_maps
 
 

@@ -42,6 +42,7 @@ from master_thesis_tpu_torch.ops import conv_stack
 from master_thesis_tpu_torch.ops.flows import align_set, resize_flow
 from master_thesis_tpu_torch.ops.interp import resize_hw
 from master_thesis_tpu_torch.ops.transforms import resize_set_bis
+from master_thesis_tpu_torch.runtime.spans import span
 
 
 def correlation_masked_4d(
@@ -392,23 +393,24 @@ def dfpn_infer_apply(
     x_t_256, m_t_256, x_r_256, m_r_256 = resize_set_bis(x_target, m_target, x_refs, m_refs, (s256, s256))
     x_t_64, m_t_64, x_r_64, m_r_64 = resize_set_bis(x_target, m_target, x_refs, m_refs, (s64, s64))
 
-    fh, fw = vgg_feats_target.shape[1:3]
-    v_target = resize_hw(1 - m_t_256, (fh, fw), "nearest")
-    v_ref = resize_hw(1 - m_r_256, (fh, fw), "nearest")
-    corr = correlation_masked_4d(vgg_feats_target, v_target, vgg_feats_refs, v_ref)
-    sep = dfpn.corr.conv
-    if pallas_sep4d:
-        corr = conv_stack.sep4d_apply(*sep.packed(), corr, dfpn.dtype)
-    else:
-        corr = sep(corr)
-    if dfpn.use_softmax:
-        corr = softmax_3d(corr)
+    with span("align.corr"):
+        fh, fw = vgg_feats_target.shape[1:3]
+        v_target = resize_hw(1 - m_t_256, (fh, fw), "nearest")
+        v_ref = resize_hw(1 - m_r_256, (fh, fw), "nearest")
+        corr = correlation_masked_4d(vgg_feats_target, v_target, vgg_feats_refs, v_ref)
+        sep = dfpn.corr.conv
+        if pallas_sep4d:
+            corr = conv_stack.sep4d_apply(*sep.packed(), corr, dfpn.dtype)
+        else:
+            corr = sep(corr)
+        if dfpn.use_softmax:
+            corr = softmax_3d(corr)
 
-    mixer = dfpn.corr_mixer
-    if pallas_mixer:
-        flow_16 = conv_stack.mixer_apply(mixer.packed(), corr, mixer.corr_size, dfpn.dtype)
-    else:
-        flow_16 = mixer(corr)
+        mixer = dfpn.corr_mixer
+        if pallas_mixer:
+            flow_16 = conv_stack.mixer_apply(mixer.packed(), corr, mixer.corr_size, dfpn.dtype)
+        else:
+            flow_16 = mixer(corr)
 
     def flow_est(est: FlowEstimator, *args):
         if pallas_flow:
@@ -418,10 +420,12 @@ def dfpn_infer_apply(
                                                c0_mode=hybrid_c0_mode)
         return est(*args)
 
-    flow_64_pre = resize_flow(flow_16, (s64, s64), mode="bilinear")
-    flow_64 = flow_est(dfpn.flow_64, x_t_64, m_t_64, x_r_64, m_r_64, flow_64_pre)
-    flow_256_pre = resize_flow(flow_64, (s256, s256), mode="bilinear")
-    flow_256 = flow_est(dfpn.flow_256, x_t_256, m_t_256, x_r_256, m_r_256, flow_256_pre)
+    with span("align.flow"):
+        flow_64_pre = resize_flow(flow_16, (s64, s64), mode="bilinear")
+        flow_64 = flow_est(dfpn.flow_64, x_t_64, m_t_64, x_r_64, m_r_64, flow_64_pre)
+    with span("align.flow"):
+        flow_256_pre = resize_flow(flow_64, (s256, s256), mode="bilinear")
+        flow_256 = flow_est(dfpn.flow_256, x_t_256, m_t_256, x_r_256, m_r_256, flow_256_pre)
     return corr, flow_16, flow_64, resize_flow(flow_256, (h, w), mode="bilinear")
 
 
@@ -451,6 +455,7 @@ def dfpn_align(
     with torch.no_grad():
         flow_full = dfpn_apply(x_target, m_target, x_refs, m_refs, vgg_feats_target,
                                vgg_feats_refs)[3]
-    x_aligned, v_aligned = align_set(x_refs, 1.0 - m_refs, flow_full)
-    v_map = torch.clamp(v_aligned - (1.0 - m_target[:, None]), 0.0, 1.0)
+    with span("align.warp"):
+        x_aligned, v_aligned = align_set(x_refs, 1.0 - m_refs, flow_full)
+        v_map = torch.clamp(v_aligned - (1.0 - m_target[:, None]), 0.0, 1.0)
     return x_aligned, v_aligned, v_map

@@ -639,10 +639,11 @@ conv_frame_cuda.launches = 0
 
 
 def _run(x: torch.Tensor, p: PackedStack, groups: List[Group], n: int, h: int, w: int,
-         channel_major: bool, counter, swap: bool = False) -> torch.Tensor:
+         channel_major: bool, counter=None, swap: bool = False) -> torch.Tensor:
     """The groups in turn; the first reads ``x`` and the last writes the
     result in ``x``'s layout, the groups between pass pixel-major
-    intermediates (``(n, hw, C)``). A ``"frame"`` group is one
+    intermediates (``(n, hw, C)``), each launch counted in
+    ``counter.launches`` where a ``counter`` is given. A ``"frame"`` group is one
     :func:`conv_frame_cuda`, a ``"wide"`` group one :func:`conv3x3_wide_cuda`
     (both pixel-major ``x`` only); with ``swap`` the last group, wide,
     regroups the tiles."""
@@ -664,7 +665,8 @@ def _run(x: torch.Tensor, p: PackedStack, groups: List[Group], n: int, h: int, w
             out_strides = (cout * hw, hw, 1) if out_cm else (cout * hw, 1, cout)
             lib = lib or _lib()
             _launch(cur, out, p, g, n, h, w, in_strides, out_strides, lib)
-        counter.launches += 1
+        if counter is not None:
+            counter.launches += 1
         cur, cur_cm = out, out_cm
     return cur
 
@@ -723,10 +725,7 @@ def conv_stack_banded_first_cuda(x: torch.Tensor, p: PackedStack) -> torch.Tenso
     _check_input(x, p, 4, 3)
     n, h, w, _ = x.shape
     groups = plan(tuple(p.specs), h, w, BAND_TILES)
-    return _run(x, p, groups, n, h, w, False, conv_stack_banded_first_cuda).view(n, h, w, -1)
-
-
-conv_stack_banded_first_cuda.launches = 0
+    return _run(x, p, groups, n, h, w, False).view(n, h, w, -1)
 
 
 def swap_tiles(y: torch.Tensor) -> torch.Tensor:
@@ -942,14 +941,14 @@ def conv_frame_tf32_plain(x: torch.Tensor, p: PackedStack, i: int, swap: bool = 
     return y
 
 
-def _stack_f32(x: torch.Tensor, p: PackedStack, counter, tf32: bool = True,
+def _stack_f32(x: torch.Tensor, p: PackedStack, counter=None, tf32: bool = True,
                swap: bool = False) -> torch.Tensor:
     """The stack's f32 route on NHWC ``(N, H, W, Cin)`` f32 (any strides
     with contiguous channels): off the CPU each conv of :func:`f32_plan`'s
     ``"tf32"`` one :func:`conv_frame_tf32_cuda` (with ``tf32``; the last one
     regrouping with ``swap``), each other conv one
     :func:`.conv_f32.conv_f32_fwd`, NHWC between them, the launches counted
-    in ``counter.launches``; on the CPU every conv
+    in ``counter.launches`` where a ``counter`` is given; on the CPU every conv
     :func:`.conv_f32.conv_f32_fwd`'s plain version. Returns the NHWC result.
     ``swap`` is refused on the CPU and where the last conv does not run on
     the 3xTF32 kernel."""
@@ -971,7 +970,7 @@ def _stack_f32(x: torch.Tensor, p: PackedStack, counter, tf32: bool = True,
             out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
             x = conv_f32_fwd(x, p.hwio[i], out, bias=p.biases[i].contiguous(), k=k,
                              epi="relu" if p.relus[i] else "none")
-    if kernels:
+    if kernels and counter is not None:
         counter.launches += len(p.specs)
     return x
 
@@ -1013,11 +1012,8 @@ def conv_stack_tiles_cl_f32_first(x: torch.Tensor, p: PackedStack, swap: bool = 
     """K7's f32 first design: :func:`conv_stack_tiles_cl_f32` with every conv
     on :func:`.conv_f32.conv_f32_fwd` and the swap by one permute (the
     yardstick chip_smoke.py times the route against; no path calls it)."""
-    y = _stack_f32(nhwc(x), p, conv_stack_tiles_cl_f32_first, tf32=False).permute(0, 3, 1, 2)
+    y = _stack_f32(nhwc(x), p, tf32=False).permute(0, 3, 1, 2)
     return swap_tiles(y) if swap else y
-
-
-conv_stack_tiles_cl_f32_first.launches = 0
 
 
 def conv_stack_banded_f32(x: torch.Tensor, p: PackedStack) -> torch.Tensor:
@@ -1033,10 +1029,7 @@ def conv_stack_banded_f32_first(x: torch.Tensor, p: PackedStack) -> torch.Tensor
     """K8's f32 first design: every conv on :func:`.conv_f32.conv_f32_fwd`
     (the yardstick chip_smoke.py times the route against; no path calls
     it)."""
-    return _stack_f32(x, p, conv_stack_banded_f32_first, tf32=False)
-
-
-conv_stack_banded_f32_first.launches = 0
+    return _stack_f32(x, p, tf32=False)
 
 
 def _f32(x: torch.Tensor) -> bool:

@@ -540,15 +540,8 @@ def rdb_f32_first(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = N
     """The f32 first design of :func:`rdb_f32`: five
     :func:`.conv_f32.conv_f32_fwd` launches (the SIMT kernel). Kept to time
     the route against on the card and to read it against an independent
-    implementation; no path of the port calls it (launches in
-    ``rdb_f32_first.launches``)."""
-    out, _ = _rdb_f32(x, p, res, _rdb_conv_simt)
-    if x.is_cuda:
-        rdb_f32_first.launches += RDB_CONVS
-    return out
-
-
-rdb_f32_first.launches = 0
+    implementation; no path of the port calls it."""
+    return _rdb_f32(x, p, res, _rdb_conv_simt)[0]
 
 
 def _rdb_banded_f32(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor], band_rows: int,
@@ -592,15 +585,8 @@ rdb_banded_f32.launches = 0
 def rdb_banded_f32_first(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None,
                          band_rows: int = TRUNK_BAND_ROWS) -> torch.Tensor:
     """The f32 first design of :func:`rdb_banded_f32`, every conv one
-    :func:`.conv_f32.conv_f32_fwd` per band; only chip_smoke.py calls it
-    (launches in ``rdb_banded_f32_first.launches``)."""
-    out, nb = _rdb_banded_f32(x, p, res, band_rows, _rdb_conv_simt)
-    if x.is_cuda:
-        rdb_banded_f32_first.launches += RDB_CONVS * nb
-    return out
-
-
-rdb_banded_f32_first.launches = 0
+    :func:`.conv_f32.conv_f32_fwd` per band; only chip_smoke.py calls it."""
+    return _rdb_banded_f32(x, p, res, band_rows, _rdb_conv_simt)[0]
 
 
 def rdb(x: torch.Tensor, p: PackedRDB, res: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -84,6 +84,7 @@ from master_thesis_tpu_torch.ops.rrdb import (
     rdb_f32,
     rdb_plain,
 )
+from master_thesis_tpu_torch.runtime.spans import span
 
 Grads = Tuple[List[torch.Tensor], List[torch.Tensor]]  # one RDB's (dW OIHW, db)
 
@@ -835,8 +836,9 @@ class TrunkFunction(torch.autograd.Function):
     def forward(ctx, x, dtype, *params):
         convs = [[(params[10 * r + 2 * k], params[10 * r + 2 * k + 1]) for k in range(5)]
                  for r in range(len(params) // 10)]
-        sources = _sources(convs, dtype)
-        flat = pack_rdbs(convs, dtype, sources)
+        with span("chn.pack"):
+            sources = _sources(convs, dtype)
+            flat = pack_rdbs(convs, dtype, sources)
         packed = [flat[i: i + 3] for i in range(0, len(flat), 3)]
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
@@ -857,14 +859,17 @@ class TrunkFunction(torch.autograd.Function):
         if g.is_cuda and kernel_route(g.dtype) == "f32":
             g = g.contiguous(memory_format=torch.channels_last)
             if tf32_widths(ctx.packed[0]):
-                pulls = pack_rdb_pulls_tf32(ctx.convs, ctx.sources)
+                with span("chn.pack"):
+                    pulls = pack_rdb_pulls_tf32(ctx.convs, ctx.sources)
                 n, _, h, w = g.shape
                 scratch = torch.empty(scratch_bytes_f32(n, h, w), dtype=torch.uint8, device=g.device)
             else:
-                pulls = pack_rdb_pulls_f32(ctx.convs, ctx.sources)
+                with span("chn.pack"):
+                    pulls = pack_rdb_pulls_f32(ctx.convs, ctx.sources)
         elif g.is_cuda:
             g = g.contiguous(memory_format=torch.channels_last)
-            pulls = pack_rdb_pulls(ctx.convs, ctx.dtype, ctx.sources)
+            with span("chn.pack"):
+                pulls = pack_rdb_pulls(ctx.convs, ctx.dtype, ctx.sources)
             n, _, h, w = g.shape
             scratch = torch.empty(scratch_bytes(n, h, w), dtype=torch.uint8, device=g.device)
         else:

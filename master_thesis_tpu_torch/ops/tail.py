@@ -316,15 +316,10 @@ def tail_first_cuda(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor
     for name in ("up1", "up2"):
         out = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
         _upconv_first(lib, x, p, name, out, 0, h, stream)
-        tail_first_cuda.launches += 1
         x, h, w = out, 2 * h, 2 * w
     out = torch.empty((n, 3, h, w), dtype=x.dtype, device=x.device)
     _hr_last_first(lib, x, p, out, 0, h, 0, stream)
-    tail_first_cuda.launches += 1
     return out
-
-
-tail_first_cuda.launches = 0
 
 # Low-resolution rows of halo a band of the tail needs: one per conv stage
 # (pallas_tail.py:_TAIL_HALO).
@@ -394,11 +389,7 @@ def tail_banded_first_cuda(
         _upconv_first(lib, x, p, "up1", b1, lo, rows, stream)
         _upconv_first(lib, b1, p, "up2", b2, 0, 2 * rows, stream)
         _hr_last_first(lib, b2, p, out, 4 * (r0 - lo), 4 * (r1 - r0), 4 * r0, stream)
-        tail_banded_first_cuda.launches += 3
     return out
-
-
-tail_banded_first_cuda.launches = 0
 
 
 def tail_banded_plain(
@@ -536,16 +527,9 @@ def tail_f32_first(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The f32 first design of :func:`tail_f32`: four
     :func:`.conv_f32.conv_f32_fwd` launches (the SIMT kernel), the
     upsample-convs at the high resolution. Kept to time the route against on
-    the card; no path of the port calls it (launches in
-    ``tail_f32_first.launches``)."""
+    the card; no path of the port calls it."""
     _check_f32(x, p)
-    out = tail_f32_stages(nhwc(x), p, stage=_simt_stage)[-1]
-    if x.is_cuda:
-        tail_f32_first.launches += TAIL_KERNELS
-    return out.permute(0, 3, 1, 2)
-
-
-tail_f32_first.launches = 0
+    return tail_f32_stages(nhwc(x), p, stage=_simt_stage)[-1].permute(0, 3, 1, 2)
 
 
 def _reads(lo: int, hi: int, up: bool, h: int) -> Tuple[int, int]:
@@ -571,9 +555,11 @@ def f32_band_plans(h: int, band_rows: int):
     return plans
 
 
-def _banded_f32(x: torch.Tensor, p: Dict[str, torch.Tensor], band_rows: int, stage, counter) -> torch.Tensor:
+def _banded_f32(x: torch.Tensor, p: Dict[str, torch.Tensor], band_rows: int, stage,
+                counter=None) -> torch.Tensor:
     """The f32 tail in row bands, each stage one ``stage`` call per band
-    (:func:`tail_banded_f32`), its launches counted in ``counter.launches``."""
+    (:func:`tail_banded_f32`), its launches counted in ``counter.launches``
+    where a ``counter`` is given."""
     _check_f32(x, p)
     n, _, h, w = x.shape
     xv = nhwc(x)
@@ -590,7 +576,7 @@ def _banded_f32(x: torch.Tensor, p: Dict[str, torch.Tensor], band_rows: int, sta
             stage(i, src, p, dst, hin=src_h, rows=rows_out, x_row0=win[i][0] if i else 0,
                   out_row0=rows_out[0] if i < 3 else 0)
             src, src_h = dst, (2 if up else 1) * src_h
-        if x.is_cuda:
+        if x.is_cuda and counter is not None:
             counter.launches += TAIL_KERNELS
     return out.permute(0, 3, 1, 2)
 
@@ -616,12 +602,8 @@ def tail_banded_f32_first(
     x: torch.Tensor, p: Dict[str, torch.Tensor], band_rows: int = TAIL_BAND_ROWS
 ) -> torch.Tensor:
     """The f32 first design of :func:`tail_banded_f32`, every stage one
-    :func:`.conv_f32.conv_f32_fwd` per band; only chip_smoke.py calls it
-    (launches in ``tail_banded_f32_first.launches``)."""
-    return _banded_f32(x, p, band_rows, _simt_stage, tail_banded_f32_first)
-
-
-tail_banded_f32_first.launches = 0
+    :func:`.conv_f32.conv_f32_fwd` per band; only chip_smoke.py calls it."""
+    return _banded_f32(x, p, band_rows, _simt_stage)
 
 
 def tail(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -78,6 +78,7 @@ from master_thesis_tpu_torch.ops.tail import (
     tail_flops,
     tail_stage_tf32_plain,
 )
+from master_thesis_tpu_torch.runtime.spans import span
 
 # The tail's parameters in the order the Function takes them and returns
 # their grads.
@@ -699,7 +700,8 @@ class TailFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dtype, *params):
         convs = [tuple(params[i: i + 2]) for i in range(0, 8, 2)]
-        p = pack_tail(*convs, dtype)
+        with span("chn.pack"):
+            p = pack_tail(*convs, dtype)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
         ctx.x, ctx.p = x, p

@@ -1,2 +1,3 @@
-"""Host runtime of the data pipeline: the native warps and codecs
-(:mod:`.native`) and a PNG reader over zlib (:mod:`.png`)."""
+"""Host runtime: the data pipeline's native warps and codecs
+(:mod:`.native`), a PNG reader over zlib (:mod:`.png`), and the named
+spans the profiler records at the port's layer boundaries (:mod:`.spans`)."""

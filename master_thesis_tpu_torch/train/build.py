@@ -37,6 +37,7 @@ from master_thesis_tpu_torch.models.dfpn import (
     prepare_vgg_input,
 )
 from master_thesis_tpu_torch.models.vgg import VGGFeatures, vgg_pool4_hybrid, vgg_pool4_pallas
+from master_thesis_tpu_torch.runtime.spans import span
 from master_thesis_tpu_torch.train.checkpoint import load_weights
 
 
@@ -130,13 +131,14 @@ def dfpn_align_fn(
         pool4 = vgg.pool4
 
     def align_fn(x_t, m_t, x_r, m_r):
-        b, f, h, w, _ = x_r.shape
-        base = dfpn.base_size
-        with torch.no_grad():
-            feats_t = pool4(prepare_vgg_input(x_t, size=base))
-            feats_r = pool4(prepare_vgg_input(x_r.reshape(b * f, h, w, 3), size=base))
-        feats_r = feats_r.reshape(b, f, *feats_r.shape[1:])
-        return dfpn_align(apply_fn, x_t, m_t, x_r, m_r, feats_t, feats_r)
+        with span("align"):
+            b, f, h, w, _ = x_r.shape
+            base = dfpn.base_size
+            with torch.no_grad(), span("align.vgg"):
+                feats_t = pool4(prepare_vgg_input(x_t, size=base))
+                feats_r = pool4(prepare_vgg_input(x_r.reshape(b * f, h, w, 3), size=base))
+            feats_r = feats_r.reshape(b, f, *feats_r.shape[1:])
+            return dfpn_align(apply_fn, x_t, m_t, x_r, m_r, feats_t, feats_r)
 
     return align_fn
 

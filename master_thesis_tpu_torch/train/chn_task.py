@@ -37,6 +37,7 @@ from master_thesis_tpu_torch.models.chn import chn_infer_apply
 from master_thesis_tpu_torch.ops import losses, measures
 from master_thesis_tpu_torch.ops.losses import Reduce
 from master_thesis_tpu_torch.parallel.mesh import Mesh, reducer, ref_slice
+from master_thesis_tpu_torch.runtime.spans import span
 
 LOSSES_NAMES = ("loss_nh", "loss_vh", "loss_nvh", "loss_perceptual", "loss_grad")
 
@@ -111,18 +112,22 @@ def make_train_step(chn, align_fn: Callable, vgg: Callable, perceptual_grad: boo
     reduce = reducer(mesh)
 
     def train_step(state, x, m, y):
-        x_t, m_t, x_r, m_r, y_t = _split(x, m, y, mesh)
-        with torch.no_grad():
-            xa, va, vm = align_fn(x_t, m_t, x_r, m_r)
-        y_hat, y_hat_comp = chn_apply(x_t, 1 - m_t, xa, va, vm)
-        total, items = compute_loss(
-            y_t, 1 - m_t, y_hat, y_hat_comp, vm, vgg, perceptual_grad=perceptual_grad,
-            reduce=reduce,
-        )
-        total.backward()
-        state.apply_gradients()
-        items["loss"] = total
-        return {k: v.detach() for k, v in items.items()}
+        with span("train.step"):
+            x_t, m_t, x_r, m_r, y_t = _split(x, m, y, mesh)
+            with torch.no_grad():
+                xa, va, vm = align_fn(x_t, m_t, x_r, m_r)
+            y_hat, y_hat_comp = chn_apply(x_t, 1 - m_t, xa, va, vm)
+            with span("train.loss"):
+                total, items = compute_loss(
+                    y_t, 1 - m_t, y_hat, y_hat_comp, vm, vgg, perceptual_grad=perceptual_grad,
+                    reduce=reduce,
+                )
+            with span("train.backward"):
+                total.backward()
+            with span("train.update"):
+                state.apply_gradients()
+            items["loss"] = total
+            return {k: v.detach() for k, v in items.items()}
 
     return train_step
 

@@ -25,6 +25,7 @@ from master_thesis_tpu.train.loop import Trainer as JaxTrainer
 from master_thesis_tpu_torch.models.chn import CHN
 from master_thesis_tpu_torch.models.dfpn import DFPN
 from master_thesis_tpu_torch.models.vgg import VGGFeatures
+from master_thesis_tpu_torch.runtime.spans import span
 from master_thesis_tpu_torch.train import chn_task, dfpn_task, state
 from master_thesis_tpu_torch.train.checkpoint import (
     Checkpointer,
@@ -336,3 +337,12 @@ def test_maybe_profile_noop_and_trace(tmp_path):
         torch.ones(64, 64).matmul(torch.ones(64, 64))
     with open(tmp_path / "prof" / "trace.json") as f:
         assert any("mm" in e.get("name", "") for e in json.load(f)["traceEvents"])
+
+
+def test_maybe_profile_trace_holds_spans(tmp_path):
+    """A span entered inside the region is in the written ``trace.json``."""
+    with maybe_profile(str(tmp_path / "prof")):
+        with span("train.step"):
+            torch.ones(64, 64).matmul(torch.ones(64, 64))
+    with open(tmp_path / "prof" / "trace.json") as f:
+        assert any(e.get("name") == "train.step" for e in json.load(f)["traceEvents"])
