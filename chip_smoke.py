@@ -168,7 +168,7 @@ Phases, each fatal on failure:
    resumed for a second epoch (8 loader threads), DFPN test, CHN train
    (nb 20, the CPN aligner, 8 loader threads) and CHN test (ff / ip / cp over the DAVIS clip at the default
    test_size, the videos written); each mode's kernel launches against the
-   expected ones (none in DFPN train, K7 in DFPN test, K1 / K3 / K4 / K6 in
+   expected ones (none in DFPN train, K7 / K8 in DFPN test, K1 / K3 / K4 / K6 in
    CHN train, K1 / K4 in CHN test), batches and parameters on the card,
    finite items, every parameter moved, CHN test's frames in [0, 1] and the
    input's where visible; each train mode's ms/step with the real loader
@@ -3009,7 +3009,7 @@ def phase_cli(results, device_line, synthetic):
             test_logger = MemoryLogger()
             means, counts, _ = run("DFPN test", common + ["--test", "--test_checkpoint", version,
                                                           "--dfpn_base_size", str(DFPN_BASE)],
-                                   {**none, "K7": 5}, logger=test_logger)
+                                   {**none, "K7": 11, "K8": 50}, logger=test_logger)
             if not all(np.isfinite(v) for v in means.values()) or not test_logger.images:
                 raise RuntimeError(f"CLI DFPN test: {means}, {len(test_logger.images)} image strips")
             print("CLI DFPN test: " + ", ".join(f"{k} {v:.6g}" for k, v in means.items())

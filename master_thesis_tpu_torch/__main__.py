@@ -62,16 +62,31 @@ def load_dfpn(cfg, path: Optional[str] = None):
     return load_weights(dfpn, path)
 
 
+def dfpn_routes(cfg) -> dict:
+    """The stage routes of the command line's frozen DFPN aligner
+    (:func:`.train.build.dfpn_align_fn`'s ``pallas_*`` flags). With the
+    kernels (:func:`.train.build.use_kernels`) the mixer runs on K7; in bf16
+    also sep4d on K7, both flow estimators and VGG's pool-4 tower on K8. In
+    f32 those three stay on their modules: under cuDNN's TF32, torch's
+    default, which the command line keeps, the f32 serving step on an H100
+    took 98 ms there against 139 ms on the kernels (PERF.md §6). Without the
+    kernels every stage runs on its module."""
+    from master_thesis_tpu_torch.train import build
+
+    kernels = build.use_kernels(cfg)
+    stages = kernels and build.compute_dtype(cfg) == torch.bfloat16
+    return dict(pallas_sep4d=stages, pallas_mixer=kernels, pallas_flow=stages, pallas_vgg=stages)
+
+
 def build_aligner(cfg, vgg) -> Callable:
     """The frozen aligner CHN trains and tests with: CPN's ``align``, or
-    DFPN's (:func:`.train.build.dfpn_align_fn`, the mixer on K7 with the
-    kernels)."""
+    DFPN's (:func:`.train.build.dfpn_align_fn` on :func:`dfpn_routes`)."""
     from master_thesis_tpu_torch.train import build
 
     if cfg.chn_aligner == "cpn":
         return build.build_cpn(cfg, cfg.chn_aligner_checkpoint).align
     dfpn = load_dfpn(cfg, cfg.chn_aligner_checkpoint).requires_grad_(False).eval()
-    return build.dfpn_align_fn(dfpn, vgg, pallas_mixer=build.use_kernels(cfg))
+    return build.dfpn_align_fn(dfpn, vgg, **dfpn_routes(cfg))
 
 
 def _prepare_data(cfg, mesh=None):
@@ -146,7 +161,7 @@ def run_dfpn_test(cfg, logger=None):
     vgg = build.build_vgg(cfg, cfg.vgg_checkpoint)
     dfpn = load_dfpn(cfg, cfg.test_checkpoint).requires_grad_(False).eval()
     eval_step = dfpn_task.make_eval_step(dfpn, vgg)
-    align_fn = build.dfpn_align_fn(dfpn, vgg, pallas_mixer=build.use_kernels(cfg))
+    align_fn = build.dfpn_align_fn(dfpn, vgg, **dfpn_routes(cfg))
     logger = logger or Logger(next_version_dir(cfg.default_root_dir))
     device = torch.device(cfg.device)
     agg = {}

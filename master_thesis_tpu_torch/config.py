@@ -226,7 +226,8 @@ class Config:
         parser.add_argument(
             "--use_pallas", default=True,
             help="on a CUDA device, the hand-written kernels: the CHN on K1 / K4 (serving) and "
-            "K3 / K6 (training), DFPN alignment's mixer on K7; false: the modules (cuDNN)",
+            "K3 / K6 (training), DFPN alignment's mixer on K7 (in bf16 also sep4d on K7, the flow "
+            "estimators and VGG pool-4 on K8); false: the modules (cuDNN)",
             **boolean)
         parser.add_argument(
             "--use_pallas_bwd", default=True,

@@ -14,8 +14,10 @@ Routes: the JAX package takes its Pallas kernels with ``use_pallas`` on a
 TPU and its modules elsewhere; the port takes its kernels with
 ``use_pallas`` on a CUDA device (:func:`use_kernels`) and its modules
 elsewhere: the CHN through :meth:`..models.chn.RRDBNet.forward_modules`,
-the DFPN aligner with every stage on its module. VGG stays on its module,
-as in the JAX CLI.
+the DFPN aligner with every stage on its module. Which DFPN stages the
+command line's aligner runs on the kernels is ``__main__.dfpn_routes``'s
+choice; :func:`dfpn_align_fn`'s defaults (the mixer alone, VGG on its
+module) are the JAX package's.
 """
 
 from __future__ import annotations

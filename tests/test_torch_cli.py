@@ -192,6 +192,49 @@ def test_chn_module_route_equals_kernel_route(remat):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+class _Frozen:
+    """A stand-in DFPN / VGG for the route tests: freezing it returns it."""
+
+    def requires_grad_(self, flag):
+        return self
+
+    def eval(self):
+        return self
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_cli_dfpn_aligner_routes(device, dtype, monkeypatch):
+    """The DFPN aligner of CHN train / test (``build_aligner``) and of the
+    DFPN test mode take ``dfpn_align_fn``'s flags by the device and the
+    compute dtype: on a CUDA device with the kernels the mixer on K7, and
+    in bf16 also sep4d (K7), both flow estimators and VGG pool-4 (K8); f32
+    keeps those three on their modules; the CPU and ``--use_pallas false``
+    take every module. No card needed: ``load_dfpn``, ``build_vgg``, the
+    loaders and ``dfpn_align_fn`` are replaced by stand-ins."""
+    from master_thesis_tpu_torch import __main__ as cli
+    from master_thesis_tpu_torch.data import meta
+    from master_thesis_tpu_torch.train import build, dfpn_task
+
+    seen = []
+    monkeypatch.setattr(cli, "load_dfpn", lambda cfg, path=None: _Frozen())
+    monkeypatch.setattr(build, "dfpn_align_fn", lambda dfpn, vgg, **kw: seen.append(kw))
+    monkeypatch.setattr(build, "build_vgg", lambda cfg, path=None: _Frozen())
+    monkeypatch.setattr(build, "build_loaders", lambda cfg, metas, **kw: {"test": []})
+    monkeypatch.setattr(meta, "prepare_data", lambda cfg: None)
+    monkeypatch.setattr(dfpn_task, "make_eval_step", lambda dfpn, vgg: None)
+    stages = device == "cuda" and dtype == "bfloat16"
+    want = dict(pallas_sep4d=stages, pallas_mixer=device == "cuda", pallas_flow=stages,
+                pallas_vgg=stages)
+    for use_pallas in (True, False):
+        cfg = Config(device=device, compute_dtype=dtype, chn_aligner="dfpn", use_pallas=use_pallas)
+        seen.clear()
+        cli.build_aligner(cfg, _Frozen())
+        cli.run_dfpn_test(cfg, logger=Recorder())
+        expect = want if use_pallas else dict.fromkeys(want, False)
+        assert seen == [expect, expect]
+
+
 def test_main_without_card_raises(data_root, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: --device cuda runs")

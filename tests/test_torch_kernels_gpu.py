@@ -696,6 +696,71 @@ def test_hybrid_flow_estimator_launches_k8_and_matches_plain(cuda, monkeypatch):
     assert _rel_l2(got, want) <= ESTIMATOR_L2
 
 
+# Relative L2 limits of each DFPN stage of the command line's bf16 aligner
+# on its kernel route (K7 / K8) against its module route (cuDNN), both fed
+# the inputs the kernel route saw: both round every conv's output to bf16,
+# in sums of another order. The card read sep4d 4.7e-3, flow_64 3.7e-3,
+# flow_256 4.0e-3, pool4 6.9e-3 (VGG's ten convs deep; NVIDIA H100 80GB
+# HBM3): STACK_L2 for the stages, twice it for the pool-4 tower.
+CLI_STAGE_L2 = {"sep4d": STACK_L2, "flow_64": STACK_L2, "flow_256": STACK_L2, "pool4": 2 * STACK_L2}
+
+
+def test_cli_dfpn_aligner_takes_k7_k8_and_matches_the_modules(cuda, monkeypatch):
+    """The command line's DFPN aligner (``__main__.build_aligner``) on a bf16
+    CUDA config at 1 x 2 x 128², base 128: sep4d runs on K7 beside the
+    mixer, both flow estimators and both VGG pool-4 calls on K8 (both
+    launch counters rise past the mixer's own launches). Each stage's
+    output against its module route on the same recorded inputs, so one
+    stage's rounding does not reach the next."""
+    from master_thesis_tpu_torch import __main__ as cli
+    from master_thesis_tpu_torch.config import Config
+    from master_thesis_tpu_torch.models import dfpn as dfpn_lib
+    from master_thesis_tpu_torch.ops import conv_stack
+    from master_thesis_tpu_torch.train import build
+
+    cfg = Config(device="cuda", compute_dtype="bfloat16", chn_aligner="dfpn", dfpn_base_size=128)
+    calls = {"dfpn": [], "sep4d": [], "flow": [], "pool4": []}
+
+    def recording(key, fn):
+        def wrapped(*args):
+            out = fn(*args)
+            calls[key].append((args, out))
+            return out
+        return wrapped
+
+    monkeypatch.setattr(cli, "load_dfpn", recording("dfpn", cli.load_dfpn))
+    monkeypatch.setattr(conv_stack, "sep4d_apply", recording("sep4d", conv_stack.sep4d_apply))
+    monkeypatch.setattr(dfpn_lib, "flow_estimator_apply_pallas",
+                        recording("flow", dfpn_lib.flow_estimator_apply_pallas))
+    monkeypatch.setattr(build, "vgg_pool4_pallas", recording("pool4", build.vgg_pool4_pallas))
+    align = cli.build_aligner(cfg, build.build_vgg(cfg))
+    net = calls["dfpn"][0][1]
+    x_t, m_t, x_r, m_r, _ = _flow_inputs(np.random.RandomState(31), cuda, 1, 2, 128)
+    cs = net.base_size // 16
+    mixer = len(conv_stack.plan_tiles(net.corr_mixer.packed(), cs, wide=True))
+    k7, k8 = conv_stack.conv_stack_tiles_cuda.launches, conv_stack.conv_stack_banded_cuda.launches
+    with torch.inference_mode():
+        xa, va, vm = align(x_t, m_t, x_r, m_r)
+    torch.cuda.synchronize()
+    assert conv_stack.conv_stack_tiles_cuda.launches - k7 > mixer
+    assert conv_stack.conv_stack_banded_cuda.launches > k8
+    assert [len(calls[k]) for k in ("sep4d", "flow", "pool4")] == [1, 2, 2]
+    assert all(torch.isfinite(t).all() for t in (xa, va, vm))
+
+    readings = {}
+    with torch.inference_mode():
+        (_, _, corr, _), got = calls["sep4d"][0]
+        readings["sep4d"] = _rel_l2(got, net.corr.conv(corr))
+        for name, ((est, *args), got) in zip(("flow_64", "flow_256"), calls["flow"]):
+            assert est is getattr(net, name)
+            readings[name] = _rel_l2(got, est(*args))
+        for (vgg, x), got in calls["pool4"]:
+            readings["pool4"] = max(readings.get("pool4", 0.0), _rel_l2(got, vgg.pool4(x)))
+    print(f"CLI aligner stages, kernel vs module route, relative L2: {readings}")
+    for k, v in readings.items():
+        assert v <= CLI_STAGE_L2[k], (k, v)
+
+
 def test_hybrid_route_refused_on_a_grad_path_on_the_card(cuda):
     """``dfpn_infer_apply(hybrid_flow=True)`` raises under grad mode with
     trainable parameters before any K8 launch; under ``torch.no_grad()`` it
