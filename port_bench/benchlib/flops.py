@@ -84,29 +84,42 @@ def cpn_parts(b: int, f: int) -> Dict[str, int]:
     return {"encoder": enc * (b + b * f), "regressor": (reg + 2 * 512 * 6) * b * f}
 
 
-def vgg_flops(n: int, h: int, w: int, pools: int = 5) -> int:
-    total, seen = 0, 0
+def vgg_layers(h: int, w: int, pools: int = 5) -> List[Tuple[int, int, int, int]]:
+    """``(h, w, cin, cout)`` of VGG-16's 3x3 convs before its ``pools``-th
+    pool, from an ``h x w`` input."""
+    out, seen = [], 0
     for layer in VGG16:
         if layer == "M":
             h, w, seen = h // 2, w // 2, seen + 1
             if seen == pools:
                 break
             continue
-        total += conv_flops(n, h, w, layer[0], layer[1], 3)
-    return total
+        out.append((h, w, layer[0], layer[1]))
+    return out
 
 
-def flow_estimator(n: int, h: int, w: int) -> List[int]:
+def vgg_flops(n: int, h: int, w: int, pools: int = 5) -> int:
+    return sum(conv_flops(n, hh, ww, ci, co, 3) for hh, ww, ci, co in vgg_layers(h, w, pools))
+
+
+def flow_layers(h: int, w: int) -> List[Tuple[int, int, int, int, int, bool]]:
+    """``(h, w, cin, cout, k, stride_1)`` of the flow estimator's 21 layers
+    from an ``h x w`` input: each conv's output grid (a transposed conv's
+    input grid, over which its products are counted), ``stride_1`` for
+    the convs of the fixed-resolution segments."""
     out = []
     for i, (k, s, transposed) in enumerate(FLOW):
         cin, cout = (10 if i == 0 else 128), (2 if i == len(FLOW) - 1 else 128)
-        if transposed:
-            out.append(conv_flops(n, h, w, cin, cout, k))  # over its input pixels
-            h, w = h * s, w * s
-        else:
+        if not transposed:
             h, w = h // s, w // s
-            out.append(conv_flops(n, h, w, cin, cout, k))
+        out.append((h, w, cin, cout, k, s == 1))
+        if transposed:
+            h, w = h * s, w * s
     return out
+
+
+def flow_estimator(n: int, h: int, w: int) -> List[int]:
+    return [conv_flops(n, hh, ww, ci, co, k) for hh, ww, ci, co, k, _ in flow_layers(h, w)]
 
 
 def sep4d_convs() -> List[Tuple[int, int, int]]:
@@ -183,11 +196,31 @@ def tail_cost(n: int, h: int, w: int, itemsize: int = 2) -> Tuple[int, int]:
     return flops, itemsize * n * h * w * (64 + 16 * 3) + _weights(convs, itemsize)
 
 
-def stack_cost(convs: Sequence[Tuple[int, int, int]], n: int, h: int, w: int,
-               itemsize: int = 2) -> Tuple[int, int]:
-    """A conv stack ``(cin, cout, k)`` over ``n`` images of ``h x w``."""
-    flops = sum(conv_flops(n, h, w, ci, co, k) for ci, co, k in convs)
-    return flops, itemsize * n * h * w * (convs[0][0] + convs[-1][1]) + _weights(convs, itemsize)
+def dfpn_stack_convs(b: int, f: int, base: int) -> List[Tuple[int, int, int, int, int, int]]:
+    """``(images, h, w, cin, cout, k)`` of each conv that DFPN's bf16 serving
+    route runs on the conv-stack kernels (K7 / K8) for ``b`` targets with
+    ``f`` references each: sep4d's six over the ``b f cs²`` tiles of ``cs x
+    cs``, the mixer's 14 over ``b f`` tiles, both flow estimators' 15
+    stride-1 convs over ``b f`` frames (their stride-2 downs and transposed
+    ups run elsewhere), and VGG's pool-4 tower over the ``b`` targets and
+    the ``b f`` references."""
+    cs, n = base // 16, b * f
+    out = [(n * cs * cs, cs, cs, ci, co, k) for ci, co, k in sep4d_convs()]
+    out += [(n, cs, cs, ci, co, k) for ci, co, k in mixer_convs(cs)]
+    for side in (base // 4, base):
+        out += [(n, h, w, ci, co, k) for h, w, ci, co, k, stride_1 in flow_layers(side, side) if stride_1]
+    for images in (b, n):
+        out += [(images, h, w, ci, co, 3) for h, w, ci, co in vgg_layers(base, base, pools=4)]
+    return out
+
+
+def convs_cost(convs: Sequence[Tuple[int, int, int, int, int, int]], itemsize: int = 2) -> Tuple[int, int]:
+    """Convs ``(images, h, w, cin, cout, k)`` (stride 1, same padding), each
+    bounded as a launch of its own: its input read and its output written
+    once, its weights once."""
+    flops = sum(conv_flops(n, h, w, ci, co, k) for n, h, w, ci, co, k in convs)
+    acts = sum(itemsize * n * h * w * (ci + co) for n, h, w, ci, co, _ in convs)
+    return flops, acts + _weights([(ci, co, k) for *_, ci, co, k in convs], itemsize)
 
 
 def backward_cost(n: int, h: int, w: int, nb: int, itemsize: int = 2) -> Tuple[int, int]:

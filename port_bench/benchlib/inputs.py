@@ -7,7 +7,8 @@ pixels a frame) and ``ellipse_mask`` (an elliptic hole), rewritten as
 batched tensor code so that they run on the card. Holes cover
 ``mask_area`` (``Config.min_mask_size`` .. ``max_mask_size``) of a frame.
 A traffic mix's ``row_gain`` scales the clips' frames row by row (dark and
-bright clips in one batch), spread over any batch size.
+bright clips in one batch), spread over any batch size. A step kind
+(``port_bench/kinds/``) makes its batches from these.
 """
 
 from __future__ import annotations
@@ -80,29 +81,6 @@ def clip(g, t: Dict, n: int, f: int, device):
         y = y * gain[torch.arange(n, device=device) * len(gain) // n].reshape(n, 1, 1, 1, 1)
     m = blob_masks(g, n, f, h, w, tuple(t["mask_area"]), device)
     return y, m, y * (1 - m)
-
-
-def serve_batch(seed: int, index: int, t: Dict, device):
-    """Batch ``index`` of a serving cell: ``(x_t, m_t, x_r, m_r)``, ``batch``
-    targets each with ``refs`` references of its clip, the target the
-    clip's centre frame."""
-    g = generator(seed, f"serve:{index}", device)
-    f = t["refs"] + 1
-    _, m, x = clip(g, t, t["batch"], f, device)
-    c = f // 2
-    refs = [i for i in range(f) if i != c]
-    return x[:, c].contiguous(), m[:, c].contiguous(), x[:, refs].contiguous(), m[:, refs].contiguous()
-
-
-def chn_train_batch(seed: int, index: int, t: Dict, device):
-    """Batch ``index`` of the CHN train step: ``(x, m, y)``, ``(B, F, H, W,
-    C)``."""
-    g = generator(seed, f"chn_train:{index}", device)
-    y, m, x = clip(g, t, t["batch"], t["frames"], device)
-    return x, m, y
-
-
-BATCHES = {"serve": serve_batch, "chn_train": chn_train_batch}
 
 
 def weights(template: Dict[str, torch.Size], seed: int, tag: str, device) -> Dict[str, torch.Tensor]:

@@ -4,7 +4,13 @@
 - traffic mix ``t``: ``port_bench/traffic/t.json``;
 - cell ``w``'s comparison limits: ``port_bench/limits/w.json``;
 - per-layer metric ``m``: the reader ``port_bench/metrics/m.py``;
+- traffic kind ``k`` (a traffic file's ``kind``): the step kind
+  ``port_bench/kinds/k.py``, which builds the cell's step and runs, times
+  and checks it (``port_bench/README.md``, "A kind");
 - the chip's peaks: ``port_bench/peaks.json``.
+
+Each is looked up under the ``port_bench`` directory beside the manifest's
+``BENCHMARK.json``.
 """
 
 from __future__ import annotations
@@ -24,9 +30,19 @@ def _json(path: Path) -> Dict:
         return json.load(f)
 
 
+def _module(path: Path, prefix: str, what: str) -> ModuleType:
+    if not path.is_file():
+        raise FileNotFoundError(f"no {what}: {path} is missing")
+    spec = importlib.util.spec_from_file_location(f"{prefix}{path.stem.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 class Manifest:
     def __init__(self, root: Path = ROOT):
         self.root = Path(root)
+        self.bench = self.root / BENCH.name
         self.data = _json(self.root / "BENCHMARK.json")
         self.workloads = {w["name"]: w for w in self.data["workloads"]}
         self.configs = {c["name"]: c for c in self.data["configs"]}
@@ -40,13 +56,13 @@ class Manifest:
         return _json(self.root / self.configs[name]["file"])
 
     def traffic(self, name: str) -> Dict:
-        return _json(BENCH / "traffic" / f"{name}.json")
+        return _json(self.bench / "traffic" / f"{name}.json")
 
     def limits(self, workload: str) -> Dict[str, float]:
-        return _json(BENCH / "limits" / f"{workload}.json")
+        return _json(self.bench / "limits" / f"{workload}.json")
 
     def peaks(self) -> Dict[str, float]:
-        return _json(BENCH / "peaks.json")
+        return _json(self.bench / "peaks.json")
 
     def end_to_end(self, workload: str) -> List[Dict]:
         return [m for m in self.data["end_to_end"] if workload in m.get("workloads", [workload])]
@@ -58,10 +74,9 @@ class Manifest:
         return [m for m in self.data["per_layer"]
                 if workload in m.get("workloads", [workload] if m["moves"] in moves else [])]
 
-    @staticmethod
-    def reader(name: str) -> ModuleType:
-        path = BENCH / "metrics" / f"{name}.py"
-        spec = importlib.util.spec_from_file_location(f"port_bench_metric_{name.replace('.', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
+    def reader(self, name: str) -> ModuleType:
+        return _module(self.bench / "metrics" / f"{name}.py", "port_bench_metric_", f"reader of metric {name!r}")
+
+    def kind(self, name: str) -> ModuleType:
+        """The step kind of traffic kind ``name``."""
+        return _module(self.bench / "kinds" / f"{name}.py", "port_bench_kind_", f"kind file for traffic kind {name!r}")

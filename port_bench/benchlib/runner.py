@@ -1,14 +1,16 @@
 """One run of one cell: set-up, the measured window, with ``trace`` a
 profiled stretch after it, then the check against the reference.
 
-With ``trace`` 0 the result's metrics are the cell's end-to-end metrics;
-with 1 its per-layer metrics, read by their readers
-(``port_bench/metrics/<name>.py``) from the window's spans and the
-profile. Both decide ``correct`` alike."""
+What is the cell's own comes from its step kind (``port_bench/kinds/<kind>.py``,
+the traffic file's ``kind``): its step, what runs before the window (a
+warm-up, or the checked first steps), the window (one of the loops below),
+its end-to-end values and its compared numbers. With ``trace`` 0 the
+result's metrics are the cell's end-to-end metrics; with 1 its per-layer
+metrics, read by their readers (``port_bench/metrics/<name>.py``) from the
+window and the profile. Both decide ``correct`` alike."""
 
 from __future__ import annotations
 
-import statistics
 import sys
 import time
 from types import SimpleNamespace
@@ -20,6 +22,7 @@ from port_bench.benchlib import check, inputs
 from port_bench.benchlib.cells import Cell
 from port_bench.benchlib.manifest import Manifest
 from port_bench.benchlib.trace import Trace, counter_value
+from port_bench.reference.precision import reference_mode
 
 GIB = float(1 << 30)
 TRACE_READINGS = 3
@@ -54,7 +57,7 @@ def serve_window(cell: Cell, seconds: float, keep: List[int], sync) -> Dict:
     t_start = time.perf_counter()
     while True:
         t0 = time.perf_counter()
-        outs = cell.serve_step(i)
+        outs = cell.step(i)
         sync()
         t1 = time.perf_counter()
         lat.append(t1 - t0)
@@ -65,7 +68,7 @@ def serve_window(cell: Cell, seconds: float, keep: List[int], sync) -> Dict:
         i += 1
         if t1 - t_start - copy_s >= seconds and i > max(keep):
             break
-    return {"steps": i, "window_s": t1 - t_start - copy_s, "lat": lat, "kept": kept}
+    return {"steps": i, "window_s": t1 - t_start - copy_s, "lat": lat, "kept": kept, "next": i}
 
 
 def train_window(cell: Cell, first: int, seconds: float, sync) -> Dict:
@@ -75,13 +78,13 @@ def train_window(cell: Cell, first: int, seconds: float, sync) -> Dict:
     i = first
     t_start = time.perf_counter()
     while time.perf_counter() - t_start < seconds:
-        cell.train(i)
+        cell.step(i)
         i += 1
     sync()
     return {"steps": i - first, "window_s": time.perf_counter() - t_start, "next": i}
 
 
-def traced(cell: Cell, step, first: int, count: int, sync, readers: Dict) -> Trace:
+def traced(step, first: int, count: int, sync, readers: Dict) -> Trace:
     """A profile of ``count`` steps from ``first`` whose kernel counts,
     for every reader that names its kernels and the program's counters of
     them, agree with those counters; read again where they do not."""
@@ -113,6 +116,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     config = {**config, "cli": {**config["cli"], **(cli or {})}}
     traffic = {**man.traffic(wl["traffic"]), **(traffic or {})}
     limits = man.limits(workload)
+    kind = man.kind(traffic["kind"])
     sync = _sync(device)
     on_card = device.startswith("cuda")
 
@@ -120,55 +124,30 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         from master_thesis_tpu_torch import _build
 
         _build.build(_build.SOURCES)
-    cell = Cell(config, traffic, seed, device)
-    kind = cell.kind
+    cell = Cell(config, traffic, seed, device, kind)
 
     readers = {}
     if trace:
         readers = {m["name"]: man.reader(m["name"]) for m in man.per_layer(workload)}
 
-    if kind == "serve":
-        for i in range(traffic["warmup_steps"]):
-            cell.serve_step(i)
-        sync()
-        keep = sample_steps(seed, traffic)
-    else:
-        first = cell.first_steps()
+    before = kind.before(cell, sync)
     setup_s = time.perf_counter() - t0
 
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    if kind == "serve":
-        cell.spans = [] if trace and on_card else None
-        win = serve_window(cell, seconds, keep, sync)
-        step, nxt = cell.serve_step, win["steps"]
-    else:
-        win = train_window(cell, traffic["checked_steps"], seconds, sync)
-        step, nxt = cell.train, win["next"]
-    spans = None
-    if getattr(cell, "spans", None) is not None:
-        spans = [(e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])) for e in cell.spans]
-        cell.spans = None
-    tr = traced(cell, step, nxt, traffic["profile_steps"], sync, readers) if trace else None
+    win = kind.window(cell, seconds, before, sync)
+    tr = traced(cell.step, win["next"], traffic["profile_steps"], sync, readers) if trace else None
     peak = torch.cuda.max_memory_allocated() if on_card else 0
-    units = traffic["batch"]
 
     metrics = {}
     if not trace:
-        e2e = {
-            "setup_s": setup_s,
-            "peak_mem_gib": peak / GIB,
-            "frames_per_s": win["steps"] * units / win["window_s"],
-            "samples_per_s": win["steps"] * units / win["window_s"],
-        }
-        if kind == "serve":
-            e2e["step_p95_ms"] = 1e3 * statistics.quantiles(win["lat"], n=100, method="inclusive")[94]
+        e2e = {"setup_s": setup_s, "peak_mem_gib": peak / GIB, **kind.end_to_end(win, traffic)}
         for m in man.end_to_end(workload):
             metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
     else:
         peaks = man.peaks()
-        ctx = SimpleNamespace(config=config, traffic=traffic, kind=kind, steps=win["steps"],
-                              window_s=win["window_s"], spans=spans, trace=tr,
+        ctx = SimpleNamespace(config=config, traffic=traffic, kind=traffic["kind"], steps=win["steps"],
+                              window_s=win["window_s"], win=win, before=before, trace=tr,
                               peak_flops=peaks[config["peak"]], peak_bytes=peaks["hbm_bytes_per_s"])
         for m in man.per_layer(workload):
             value = readers[m["name"]].read(ctx)
@@ -178,8 +157,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     w_ref = cell.reference_weights()
     cell.free()
     del cell
-    numbers = reference_numbers(kind, config, traffic, seed, device, w_ref,
-                                win.get("kept"), None if kind == "serve" else first)
+    # The reference in float32, TF32 off.
+    with reference_mode():
+        numbers = kind.numbers(config, traffic, seed, device, w_ref, win, before)
     result = {
         "correct": check.verdict(numbers, limits),
         "attempted": win["steps"],
@@ -195,19 +175,3 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         result["breakdown"] = {"device_ops": tr.device_ops(), "idle_gaps": tr.idle_gaps()}
     result["checks"] = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}
     return result
-
-
-def reference_numbers(kind: str, config: Dict, traffic: Dict, seed: int, device: str, w: Dict,
-                      kept: Optional[Dict], first: Optional[Dict]) -> Dict[str, float]:
-    """The compared numbers, worst over the kept steps (serving) or from
-    the first steps (training), with the reference in float32, TF32 off."""
-    from port_bench.reference.precision import reference_mode
-
-    with reference_mode(), torch.no_grad() if kind == "serve" else torch.enable_grad():
-        if kind == "serve":
-            return check.worst_of([
-                check.serve_numbers(config, w, inputs.serve_batch(seed, i % traffic["pool"], traffic, device),
-                                    [o.to(device) for o in outs])
-                for i, outs in kept.items()])
-        batches = [inputs.BATCHES[kind](seed, i, traffic, device) for i in range(traffic["checked_steps"])]
-        return check.train_check(config, w, batches, first)

@@ -10,7 +10,8 @@ LAYER = "aligner"
 UNIT = "ms"
 SOURCE = "device_trace"
 MOVES = "frames_per_s"
+SPANS = ["align"]
 
 
 def read(ctx):
-    return spans.device_ms(ctx, ["align"])
+    return spans.device_ms(ctx, SPANS)

@@ -9,7 +9,8 @@ LAYER = "backward"
 UNIT = "ms"
 SOURCE = "device_trace"
 MOVES = "samples_per_s"
+SPANS = ["train.backward"]
 
 
 def read(ctx):
-    return spans.idle_ms(ctx, ["train.backward"])
+    return spans.idle_ms(ctx, SPANS)

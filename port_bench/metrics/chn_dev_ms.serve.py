@@ -10,7 +10,8 @@ LAYER = "inpainter"
 UNIT = "ms"
 SOURCE = "device_trace"
 MOVES = "frames_per_s"
+SPANS = ["chn"]
 
 
 def read(ctx):
-    return spans.device_ms(ctx, ["chn"])
+    return spans.device_ms(ctx, SPANS)

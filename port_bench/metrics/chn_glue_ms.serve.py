@@ -11,7 +11,8 @@ LAYER = "inpainter"
 UNIT = "ms"
 SOURCE = "device_trace"
 MOVES = "frames_per_s"
+SPANS = ["chn.input", "chn.head", "chn.trunk_conv", "chn.output"]
 
 
 def read(ctx):
-    return spans.device_ms(ctx, ["chn.input", "chn.head", "chn.trunk_conv", "chn.output"])
+    return spans.device_ms(ctx, SPANS)

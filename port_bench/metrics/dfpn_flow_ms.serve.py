@@ -9,7 +9,8 @@ LAYER = "aligner"
 UNIT = "ms"
 SOURCE = "device_trace"
 MOVES = "frames_per_s"
+SPANS = ["align.flow"]
 
 
 def read(ctx):
-    return spans.device_ms(ctx, ["align.flow"])
+    return spans.device_ms(ctx, SPANS)

@@ -8,7 +8,8 @@ LAYER = "entry (host dispatch)"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "frames_per_s"
+SPANS = ["align", "chn"]
 
 
 def read(ctx):
-    return spans.host_ms(ctx, ["align", "chn"])
+    return spans.host_ms(ctx, SPANS)

@@ -8,7 +8,8 @@ LAYER = "forward"
 UNIT = "ms"
 SOURCE = "device_trace"
 MOVES = "samples_per_s"
+SPANS = ["align", "chn", "train.loss"]
 
 
 def read(ctx):
-    return spans.idle_ms(ctx, ["align", "chn", "train.loss"])
+    return spans.idle_ms(ctx, SPANS)

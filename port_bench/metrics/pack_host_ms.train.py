@@ -9,7 +9,8 @@ LAYER = "autograd Functions"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "samples_per_s"
+SPANS = ["chn.pack"]
 
 
 def read(ctx):
-    return spans.host_ms(ctx, ["chn.pack"])
+    return spans.host_ms(ctx, SPANS)

@@ -9,7 +9,8 @@ LAYER = "device"
 UNIT = "ms"
 SOURCE = "device_trace"
 MOVES = "frames_per_s"
+SPANS = ["align", "chn"]
 
 
 def read(ctx):
-    return spans.idle_ms(ctx, ["align", "chn"])
+    return spans.idle_ms(ctx, SPANS)

@@ -9,7 +9,8 @@ LAYER = "optimizer"
 UNIT = "ms"
 SOURCE = "device_trace"
 MOVES = "samples_per_s"
+SPANS = ["train.update"]
 
 
 def read(ctx):
-    return spans.idle_ms(ctx, ["train.update"])
+    return spans.idle_ms(ctx, SPANS)

@@ -61,5 +61,26 @@ def test_roofline_bounds():
     fl, _ = flops.backward_cost(32, 64, 64, 20)
     assert fl == 2 * (flops.chn_trunk(32, 64, 64, 20) + sum(flops.tail_stages(32, 64, 64)))
     # The mixer at 20 tiles of 16²: 23.3 GFLOP, compute bound.
-    fl, by = flops.stack_cost(flops.mixer_convs(16), 20, 16, 16)
+    fl, by = flops.convs_cost([(20, 16, 16, ci, co, k) for ci, co, k in flops.mixer_convs(16)])
     assert fl / 1e9 == pytest.approx(23.33, abs=0.01) and fl / peak > by / bw
+
+
+def test_the_conv_stack_kernels_of_dfpn_serving_b4():
+    """dfpn_serve_b4's K7 / K8 convs: 70 (sep4d 6, mixer 14, two flow
+    estimators' 15 stride-1 convs, VGG's 10 twice); TFLOP: sep4d 4.64,
+    mixer 0.023, flow_256 20 x 143.61 GFLOP (173.47 less the downs c2, c5,
+    c8 at 13.42 + 1.21 + 0.30 and the ups t0-t2 at 0.30 + 1.21 + 13.42),
+    flow_64 a sixteenth of it, VGG pool-4 0.88: 8.59, compute bound at
+    8.69 ms; bytes by hand for sep4d's first conv: 5 120 x 16² pixels x (1 +
+    128) channels x 2 bytes."""
+    convs = flops.dfpn_stack_convs(4, 5, 256)
+    assert len(convs) == 70
+    assert convs[0] == (5120, 16, 16, 1, 128, 3)
+    fl, by = flops.convs_cost(convs[:1])
+    assert by == 5120 * 256 * 129 * 2 + 2 * 9 * 128 + 4 * 128
+    flow_256 = 20 * 143.61e9
+    want = 4.64e12 + 23.33e9 + flow_256 * (1 + 1 / 16) + flops.vgg_flops(24, 256, 256, pools=4)
+    fl, by = flops.convs_cost(convs)
+    assert fl == pytest.approx(want, rel=2e-3) and fl / T == pytest.approx(8.59, abs=0.01)
+    assert flops.least_seconds((fl, by), 989e12, 3.35e12) * 1e3 == pytest.approx(8.69, abs=0.01)
+    assert by / 3.35e12 < fl / 989e12

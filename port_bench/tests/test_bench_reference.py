@@ -6,7 +6,7 @@ references, loss items, first ``y_hat``, first gradient and update."""
 import pytest
 import torch
 
-from port_bench.benchlib import check, inputs
+from port_bench.benchlib import check
 from port_bench.benchlib.cells import Cell
 from port_bench.benchlib.manifest import Manifest
 from port_bench.reference import nets
@@ -21,7 +21,8 @@ def _cell(config_name, traffic_name, seed=11):
     traffic, cli = tiny(traffic_name, **F32)
     config = MAN.config(config_name)
     config = {**config, "cli": {**config["cli"], **cli}}
-    return Cell(config, {**MAN.traffic(traffic_name), **traffic}, seed, "cpu"), config
+    traffic = {**MAN.traffic(traffic_name), **traffic}
+    return Cell(config, traffic, seed, "cpu", MAN.kind(traffic["kind"])), config
 
 
 def _close(got, want, rel=1e-5):
@@ -33,7 +34,7 @@ def _close(got, want, rel=1e-5):
 def test_serving_step_against_the_reference(names):
     cell, config = _cell(*names)
     batch = cell.pool[0]
-    xa, va, vm, y, yc = cell.serve_step(0)
+    xa, va, vm, y, yc = cell.step(0)
     w = cell.reference_weights()
     with reference_mode(), torch.no_grad():
         ra, rv, rm = check.reference_align(config, w, batch)
@@ -55,8 +56,8 @@ def test_vgg_features_against_the_module():
 
 def test_train_step_against_the_reference():
     cell, config = _cell("chn_cpn", "chn_train_b32")
-    first = cell.first_steps()
-    batches = [inputs.BATCHES[cell.kind](cell.seed, i, cell.traffic, "cpu") for i in range(3)]
+    first = cell.kind.first_steps(cell)
+    batches = [cell.kind.batch(cell.seed, i, cell.traffic, "cpu") for i in range(3)]
     w = cell.reference_weights()
     with reference_mode():
         own = check.reference_aligned(config, w, batches)

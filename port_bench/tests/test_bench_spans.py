@@ -9,12 +9,19 @@ from types import SimpleNamespace
 import pytest
 
 from port_bench.benchlib import spans
-from port_bench.benchlib.manifest import BENCH, Manifest
+from port_bench.benchlib.manifest import Manifest
 from port_bench.benchlib.trace import Trace
 
 MAN = Manifest()
-SPAN_METRICS = [m["name"] for m in MAN.data["per_layer"]
-                if "import spans" in (BENCH / "metrics" / f"{m['name']}.py").read_text()]
+
+
+def span_metrics(man: Manifest):
+    """The per-layer metrics of ``man`` whose readers read spans: those
+    that declare the spans they read (``SPANS``)."""
+    return [m["name"] for m in man.data["per_layer"] if hasattr(man.reader(m["name"]), "SPANS")]
+
+
+SPAN_METRICS = span_metrics(MAN)
 
 
 def _ev(name, start, end, device=False, id=0):
@@ -81,18 +88,33 @@ def test_a_missing_span_reads_none(reader):
     assert reader(_profile(), ["chn.tail"]) is None
 
 
+def check_span_metric(man: Manifest, name: str) -> None:
+    """On a profile that holds none of the reader's ``SPANS`` it reads None
+    and does not raise (a parent program without them); on one that holds
+    each of them, with a launch and an idle gap inside each, a number."""
+    reader = man.reader(name)
+    assert reader.SPANS and all(isinstance(s, str) for s in reader.SPANS)
+    absent = tuple(f"{s}.absent" for s in ("chn", "chn.head", "chn.trunk", "align"))
+    assert reader.read(_profile(names=absent)) is None
+    host, device = [], []
+    for i, s in enumerate(reader.SPANS):
+        host += [_ev(s, 10 * i, 10 * i + 5, id=100 + i), _ev("cudaLaunchKernel", 10 * i + 1, 10 * i + 2, id=1 + i)]
+        device.append(_ev("k", 10 * i + 2, 10 * i + 4, device=True, id=1 + i))
+    assert isinstance(reader.read(_ctx(host, device)), float)
+
+
 @pytest.mark.parametrize("name", SPAN_METRICS)
 def test_a_span_metric_reads_none_on_a_program_without_spans(name):
-    """A parent program has none of the spans: each metric reads None and
-    does not raise; with its spans it reads a number."""
-    reader = MAN.reader(name)
-    assert reader.read(_profile(names=("a", "b", "c", "d"))) is None
-    every = ["chn", "chn.input", "chn.head", "chn.trunk_conv", "chn.output", "chn.pack", "align",
-             "align.flow", "train.loss", "train.backward", "train.update"]
-    host = [_ev(s, 10 * i, 10 * i + 5, id=100 + i) for i, s in enumerate(every)]
-    host.append(_ev("cudaLaunchKernel", 1, 2, id=1))
-    assert isinstance(reader.read(_ctx(host, [_ev("k", 1, 3, device=True, id=1)])), float)
+    check_span_metric(MAN, name)
+
+
+def check_every_span_metric_is_found(man: Manifest) -> None:
+    """Every per-layer reader that uses the span readers declares the spans
+    it reads, so that none escapes :func:`check_span_metric`."""
+    uses = [m["name"] for m in man.data["per_layer"]
+            if "benchlib import spans" in (man.bench / "metrics" / f"{m['name']}.py").read_text()]
+    assert uses == span_metrics(man)
 
 
 def test_every_span_metric_is_found():
-    assert len(SPAN_METRICS) == 10
+    check_every_span_metric_is_found(MAN)
